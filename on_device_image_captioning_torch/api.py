@@ -1,9 +1,9 @@
 """High-level captioning API, beam mode (counterpart of the JAX package's
 `api.Captioner`).
 
-`Captioner` wraps one end-to-end model (`EndExpansionNetV2`, images in) and
-runs on the device its parameters live on. The features-in form, sampling
-and ensembles are not ported yet.
+`Captioner` wraps one end-to-end model (`EndExpansionNetV2`, images in),
+moves it to its `device` (the card unless the caller asks for the CPU) and
+runs there. The features-in form, sampling and ensembles are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,23 +21,30 @@ from .utils.image import normalize_on_device
 class Captioner:
     """beam_search_args mirrors the reference dict: sos_idx, eos_idx,
     beam_size, how_many_outputs, beam_max_seq_len
-    (reference models/captioning_model.py:67-110)."""
+    (reference models/captioning_model.py:67-110). The backbone path is
+    `cfg.swin.attention_impl`."""
 
     def __init__(
         self,
         model: EndExpansionNetV2,
         cfg: ModelConfig,
         beam_search_args: Optional[dict] = None,
+        device="cuda",
     ):
         if not (isinstance(model, EndExpansionNetV2) and isinstance(cfg, ModelConfig)):
             raise ValueError("Captioner takes an EndExpansionNetV2 and its ModelConfig")
-        model.eval()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Captioner runs on a CUDA card and none is available; "
+                'pass device="cpu" to run on the CPU'
+            )
+        model.to(self.device).eval()
         model.prepare_inference()
         self.model = model
         self.cfg = cfg
         self.cap_cfg = cfg.captioner
         self.dtype = cfg.compute_dtype
-        self.device = next(model.parameters()).device
         self.beam_search_args = dict(beam_search_args or {})
         self.beam_search_args.setdefault("sos_idx", self.cap_cfg.sos_idx)
         self.beam_search_args.setdefault("eos_idx", self.cap_cfg.eos_idx)

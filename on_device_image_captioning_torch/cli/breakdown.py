@@ -1,6 +1,7 @@
 """Where the time goes on the port's main path, on one NVIDIA card.
 
-    python -m on_device_image_captioning_torch.cli.breakdown [--out FILE]
+    python -m on_device_image_captioning_torch.cli.breakdown [--out FILE] \
+        [--swin_attention_impl pallas|fused]
 
 For each cell, serve (b8 / beam 3 / L20) and latency (b1 / beam 5 / L74), on
 Swin-L/384 + the d512 captioner (V = 10000, bf16, seeded random weights), the
@@ -22,6 +23,7 @@ to max_seq_len, the worst case of each cell.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from ..api import Captioner
-from ..config import end_expansionnet_v2_coco
+from ..config import ATTENTION_IMPLS, end_expansionnet_v2_coco
 from ..models.end_to_end import EndExpansionNetV2, init_weights
 
 # cell -> (images, beam size, max_seq_len)
@@ -100,6 +102,7 @@ def measure_cell(captioner: Captioner, images: np.ndarray) -> Dict:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=str, default=None)
+    parser.add_argument("--swin_attention_impl", choices=ATTENTION_IMPLS, default="pallas")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("breakdown: needs a CUDA card")
@@ -109,9 +112,10 @@ def main(argv=None) -> dict:
     print(card, flush=True)
 
     cfg = end_expansionnet_v2_coco(compute_dtype=torch.bfloat16)
+    cfg = dataclasses.replace(
+        cfg, swin=dataclasses.replace(cfg.swin, attention_impl=args.swin_attention_impl))
     model = init_weights(EndExpansionNetV2(cfg), torch.Generator().manual_seed(SEED))
-    model = model.to("cuda")
-    result = {"card": card, "cells": {}}
+    result = {"card": card, "swin_attention_impl": args.swin_attention_impl, "cells": {}}
     for cell, (b, beam, max_len) in CELLS.items():
         captioner = Captioner(model, cfg, {"beam_size": beam, "beam_max_seq_len": max_len})
         images = np.random.default_rng(SEED + b).integers(

@@ -10,7 +10,8 @@ the host, and runs beam search on the chosen device:
         --image_paths a.jpg b.jpg --beam_size 5
 
 `--device cuda` is the default. Without a CUDA card it raises; it never runs
-on the CPU unless `--device cpu` is asked for.
+on the CPU unless `--device cpu` is asked for. `--swin_attention_impl fused`
+takes the window-resident backbone path (`config.SwinConfig.attention_impl`).
 """
 from __future__ import annotations
 
@@ -21,9 +22,11 @@ import pickle
 
 import torch
 
+from ..config import ATTENTION_IMPLS
+
 
 def build_vocab(args):
-    from on_device_image_captioning_tpu.data.text import Vocab
+    from ..data.text import Vocab
 
     if args.vocab_path and args.vocab_path.endswith(".json"):
         return Vocab.from_json(args.vocab_path)
@@ -54,6 +57,7 @@ def main(argv=None):
     parser.add_argument("--beam_size", type=int, default=5)
     parser.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--swin_attention_impl", choices=ATTENTION_IMPLS, default="pallas")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -69,6 +73,7 @@ def main(argv=None):
     )
     cfg = dataclasses.replace(
         cfg,
+        swin=dataclasses.replace(cfg.swin, attention_impl=args.swin_attention_impl),
         captioner=dataclasses.replace(
             cfg.captioner,
             d_model=args.model_dim,
@@ -85,7 +90,6 @@ def main(argv=None):
     model = EndExpansionNetV2(cfg)
     sd = torch.load(args.load_path, map_location="cpu", weights_only=False)
     load_reference_state_dict(model, sd)
-    model.to(device)
     print("Model loaded ...", flush=True)
 
     captioner = Captioner(
@@ -97,6 +101,7 @@ def main(argv=None):
             "sos_idx": vocab.sos_idx,
             "eos_idx": vocab.eos_idx,
         },
+        device=device,
     )
     images = preprocess_batch(args.image_paths, cfg.swin.img_size)
     caps, _ = captioner.beam_search(images)

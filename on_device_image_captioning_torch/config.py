@@ -1,9 +1,13 @@
 """Configuration dataclasses, field for field with the JAX package's
 `config.py` (reference: train.py:385-416, demo.py:67-99 of the original repo).
 
-Left out on purpose: `SwinConfig.attention_impl`, `DecodeConfig.chunk_schedule`
-and `resolve_kernel_impls`. The port has one kernel configuration (see the
-package docstring) and decodes with one cache at `max_seq_len`.
+`SwinConfig.attention_impl` selects the backbone path as in the JAX package:
+"pallas" (the default here) partitions and rolls per block around the
+window-attention kernel; "fused" keeps activations in window layout from the
+patch embed on and runs the half-block and stage-boundary kernels. The JAX
+package's "xla" and "auto" have no counterpart: the port has no kernel-free
+configuration on the card. Left out on purpose: `DecodeConfig.chunk_schedule`
+and `resolve_kernel_impls` (the port decodes with one cache at `max_seq_len`).
 """
 from __future__ import annotations
 
@@ -11,6 +15,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+
+ATTENTION_IMPLS = ("pallas", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +52,14 @@ class SwinConfig:
     ape: bool = False
     patch_norm: bool = True
     ln_eps: float = 1e-5
+    attention_impl: str = "pallas"  # "pallas" | "fused" (module docstring)
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"SwinConfig.attention_impl={self.attention_impl!r}; the port has "
+                f"{' and '.join(repr(i) for i in ATTENTION_IMPLS)}"
+            )
 
     @property
     def num_layers(self) -> int:

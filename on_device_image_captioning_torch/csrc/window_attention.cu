@@ -1,130 +1,14 @@
-// K1: Swin window-attention core on the flat qkv layout.
-//
-// Replaces on_device_image_captioning_tpu/ops/window_attention.py::
-// window_attention_pallas and, on the same math, ops/swin_block_fused.py::
-// attention_core_fused. For one window w and head h:
-//   out[w, i, h*dk:(h+1)*dk] = softmax_j(q_i . k_j * scale + bias[h, i, j]
-//                                        + mask[w % nW, i, j]) . v
-// qkv is (BW, N, 3C) with columns [q | k | v] and per-head dk blocks inside
-// each; bias is (H, N, N) fp32; mask is (nW, N, N) fp32 or null. Scores,
-// softmax and accumulation are fp32; probabilities are rounded to the qkv
-// dtype before P.V, as the Pallas kernel does.
-//
-// Bound on the H100: at Swin-L shapes (N = 144, dk = 32) the work is
-// 4 * N^2 * dk flops per (window, head) against 4 * N * dk * itemsize bytes of
-// q/k/v in and out, about 70 flop/byte in bf16 - below the tensor-core
-// balance point (~295) but far above the fp32 CUDA-core one (~20), so this
-// simple kernel is bound by CUDA-core fp32 throughput. Design: one CTA per
-// (window, head); K and V (144 x 32 each, 18 KB in fp32) sit whole in
-// shared memory; one thread per query row keeps q and the output row in
-// registers, reads each K/V row as a shared-memory broadcast, and makes two
-// passes over the keys (online max/sum, then normalized probabilities times
-// V), so the N x N score matrix never exists in memory. Tensor cores
-// (mma/wgmma) are later work.
-#include "common.cuh"
-
-// Swin-L has dk = 32 at every stage; the only head width built and tested.
-constexpr int kHeadDim = 32;
-
-template <typename T, int DK>
-__global__ void window_attention_kernel(const T* __restrict__ qkv,
-                                        const float* __restrict__ bias,
-                                        const float* __restrict__ mask,
-                                        T* __restrict__ out, int n, int c,
-                                        int num_windows, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;           // n * DK
-  float* vs = smem + n * DK;  // n * DK
-  const int w = blockIdx.x;
-  const int h = blockIdx.y;
-  const long row0 = (long)w * n;
-  const long c3 = 3L * c;
-
-  for (int idx = threadIdx.x; idx < n * DK; idx += blockDim.x) {
-    const int j = idx / DK, d = idx % DK;
-    const T* base = qkv + (row0 + j) * c3 + (long)h * DK + d;
-    ks[idx] = to_f<T>(base[c]);
-    vs[idx] = to_f<T>(base[2L * c]);
-  }
-  __syncthreads();
-
-  const float* bias_h = bias + (long)h * n * n;
-  const float* mask_w =
-      mask == nullptr ? nullptr : mask + (long)(w % num_windows) * n * n;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T* qrow = qkv + (row0 + i) * c3 + (long)h * DK;
-    float q[DK];
-#pragma unroll
-    for (int d = 0; d < DK; ++d) q[d] = to_f<T>(qrow[d]) * scale;
-    const float* brow = bias_h + (long)i * n;
-    const float* mrow = mask_w == nullptr ? nullptr : mask_w + (long)i * n;
-
-    // pass 1: running max and sum of exp over the keys
-    float m = -CUDART_INF_F, l = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float* kj = ks + j * DK;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < DK; ++d) s = fmaf(q[d], kj[d], s);
-      s += __ldg(brow + j);
-      if (mrow != nullptr) s += __ldg(mrow + j);
-      const float mn = fmaxf(m, s);
-      l = l * expf(m - mn) + expf(s - mn);
-      m = mn;
-    }
-
-    // pass 2: normalized probabilities, rounded to T, times V
-    float acc[DK];
-#pragma unroll
-    for (int d = 0; d < DK; ++d) acc[d] = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float* kj = ks + j * DK;
-      const float* vj = vs + j * DK;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < DK; ++d) s = fmaf(q[d], kj[d], s);
-      s += __ldg(brow + j);
-      if (mrow != nullptr) s += __ldg(mrow + j);
-      const float p = round_t<T>(expf(s - m) / l);
-#pragma unroll
-      for (int d = 0; d < DK; ++d) acc[d] = fmaf(p, vj[d], acc[d]);
-    }
-    T* orow = out + (row0 + i) * c + (long)h * DK;
-#pragma unroll
-    for (int d = 0; d < DK; ++d) orow[d] = from_f<T>(acc[d]);
-  }
-}
-
-template <typename T, int DK>
-static cudaError_t launch_typed(const void* qkv, const void* bias,
-                                const void* mask, void* out, int bw, int n,
-                                int c, int heads, int num_windows, float scale,
-                                cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)n * DK * sizeof(float);
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  dim3 grid(bw, heads);
-  window_attention_kernel<T, DK><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<T*>(out), n, c,
-      num_windows, scale);
-  return cudaGetLastError();
-}
+// K1's C entry point: the window-attention core of window_attention.cuh with
+// window_attention_pallas's rounding (see the header for the kernel, its
+// bound and its design).
+#include "window_attention.cuh"
 
 extern "C" int window_attention_launch(const void* qkv, const void* bias,
                                        const void* mask, void* out, int bw,
                                        int n, int c, int heads,
                                        int num_windows, float scale, int dtype,
                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (heads * kHeadDim != c) return cudaErrorInvalidValue;
-  if (dtype == kFloat32)
-    return launch_typed<float, kHeadDim>(qkv, bias, mask, out, bw, n, c, heads,
-                                         num_windows, scale, s);
-  if (dtype == kBFloat16)
-    return launch_typed<__nv_bfloat16, kHeadDim>(qkv, bias, mask, out, bw, n,
-                                                 c, heads, num_windows, scale,
-                                                 s);
-  return cudaErrorInvalidValue;
+  return launch_window_attention<false>(qkv, bias, mask, out, bw, n, c, heads,
+                                        num_windows, scale, dtype,
+                                        static_cast<cudaStream_t>(stream));
 }

@@ -22,8 +22,9 @@ class EndExpansionNetV2(ExpansionNetV2):
         self.swin_transf = SwinTransformer(cfg.swin)
 
     def prepare_inference(self) -> None:
-        """Pre-expand the Swin relative-position biases (inference only)."""
-        self.swin_transf.prepare_inference()
+        """Pre-expand the Swin relative-position biases and lay out the fused
+        path's weights in the compute dtype (inference only)."""
+        self.swin_transf.prepare_inference(self.cfg.compute_dtype)
 
     def forward_enc(self, images: torch.Tensor) -> torch.Tensor:
         """Normalized images NHWC (B, H, W, 3) -> encoder output

@@ -1,11 +1,22 @@
 """Swin Transformer backbone, inference path (counterpart of the JAX package's
-`models/swin.py` as its `attention_impl="pallas"` branch runs it).
+`models/swin.py`), on either of two paths chosen by `SwinConfig.attention_impl`.
 
-NHWC layout; the patch-embed conv (stride == kernel) is a space-to-depth
-reshape plus one matmul; the cyclic shift is `torch.roll`; window partition
-and reverse are reshapes; the attention core of every block is kernel K1
-(`ops/window_attention.py`), with the qkv and proj GEMMs left to
-`torch.matmul`. Parameter and module names are the reference repo's
+"pallas": NHWC layout; the patch-embed conv (stride == kernel) is a
+space-to-depth reshape plus one matmul; the cyclic shift is `torch.roll`;
+window partition and reverse are reshapes; the attention core of every block
+is kernel K1 (`ops/window_attention.py`), with the qkv and proj GEMMs left to
+`torch.matmul`.
+
+"fused": the window-resident path (`_swin_apply_window_resident` and
+`_run_stage_fused_windows` of the JAX file, in its `halves` mode). Activations
+enter window layout at the patch-embed kernel and stay there: every block of
+a multi-window stage is the attention-half kernel (reading its input through
+the shift transition from the previous block's layout) and the MLP-half
+kernel, a stage ends with the standalone transition back to shift 0 and the
+downsample kernel, and a single-window stage (Swin-L stage 3), whose window
+layout is the flat layout, runs as on the "pallas" path.
+
+Parameter and module names are the reference repo's
 (models/swin_transformer_mod.py), so its state_dict loads unchanged once the
 non-parameter buffers (`attn_mask`, `relative_position_index`) are dropped.
 """
@@ -20,7 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SwinConfig
+from ..ops.stage_boundary import downsample_fused, patch_embed_fused
+from ..ops.swin_block_fused import swin_attn_half, swin_mlp_half, window_transition
 from ..ops.window_attention import window_attention
+from ..ops.window_layout import window_partition, window_reverse
 from .common import layernorm, linear
 
 
@@ -75,19 +89,15 @@ def effective_window(cfg: SwinConfig, stage: int, block: int):
     return window, shift
 
 
-def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B*nW, window*window, C)."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // window, window, w // window, window, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
+def _norm_operands(norm: nn.LayerNorm):
+    return norm.weight.detach(), norm.bias.detach()
 
 
-def window_reverse(windows: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
-    """Inverse of window_partition."""
-    c = windows.shape[-1]
-    b = windows.shape[0] // (h * w // window // window)
-    x = windows.reshape(b, h // window, w // window, window, window, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+def _linear_operands(layer: nn.Linear, dtype):
+    """(in, out) weight in the compute dtype and the fp32 bias, as the fused
+    kernels read them."""
+    w = layer.weight.detach().to(dtype).t().contiguous()
+    return w, None if layer.bias is None else layer.bias.detach()
 
 
 def expand_rel_bias(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -121,6 +131,14 @@ class PatchEmbed(nn.Module):
         if self.norm is not None:
             x = layernorm(self.norm, x, self.cfg.ln_eps)
         return x
+
+    def fused_operands(self, dtype):
+        """(proj, norm) of `patch_embed_fused`: the conv weight as a
+        (kh*kw*C, O) matrix in the (u, v, c) patch order."""
+        o = self.proj.out_channels
+        w = self.proj.weight.detach().permute(0, 2, 3, 1).reshape(o, -1)
+        proj = (w.to(dtype).t().contiguous(), self.proj.bias.detach())
+        return proj, _norm_operands(self.norm)
 
 
 class WindowAttention(nn.Module):
@@ -181,6 +199,34 @@ class SwinTransformerBlock(nn.Module):
         if self.shift > 0:
             mask = torch.from_numpy(shift_attn_mask(self.res, self.window, self.shift))
         self.register_buffer("attn_mask", mask, persistent=False)
+        self.fused_cache = None  # (dtype, device, operands), set by prepare_inference()
+
+    def fused_operands(self, dtype):
+        """The half-block kernels' operands: LayerNorm parameters and (in,
+        out) weights in the compute dtype. Prepared once by
+        prepare_inference(); built per call otherwise."""
+        cached = self.fused_cache
+        if cached is not None and cached[:2] == (dtype, self.norm1.weight.device):
+            return cached[2]
+        return {
+            "norm1": _norm_operands(self.norm1),
+            "qkv": _linear_operands(self.attn.qkv, dtype),
+            "proj": _linear_operands(self.attn.proj, dtype),
+            "norm2": _norm_operands(self.norm2),
+            "fc1": _linear_operands(self.mlp.fc1, dtype),
+            "fc2": _linear_operands(self.mlp.fc2, dtype),
+        }
+
+    def forward_windows(self, xw: torch.Tensor, from_shift: int) -> torch.Tensor:
+        """One block on window-resident activations (B*nW, N, C) that lie in
+        the from_shift layout; the result lies in this block's shift layout."""
+        ops = self.fused_operands(xw.dtype)
+        transition = None if from_shift == self.shift else (self.res, from_shift, self.shift)
+        xw = swin_attn_half(
+            xw, ops["norm1"], ops["qkv"], ops["proj"], self.attn.bias(), self.attn_mask,
+            self.attn.heads, float(self.attn.scale), self.cfg.ln_eps, transition,
+        )
+        return swin_mlp_half(xw, ops["norm2"], ops["fc1"], ops["fc2"], self.cfg.ln_eps)
 
     def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
         b, l, c = x.shape
@@ -219,6 +265,10 @@ class PatchMerging(nn.Module):
         x = layernorm(self.norm, x, self.cfg.ln_eps)
         return linear(self.reduction, x, dtype)
 
+    def fused_operands(self, dtype):
+        """(norm, reduction) of `downsample_fused`."""
+        return _norm_operands(self.norm), _linear_operands(self.reduction, dtype)[0]
+
 
 class BasicLayer(nn.Module):
     def __init__(self, cfg: SwinConfig, stage: int):
@@ -236,6 +286,8 @@ class SwinTransformer(nn.Module):
     def __init__(self, cfg: SwinConfig):
         super().__init__()
         self.cfg = cfg
+        if cfg.attention_impl == "fused":
+            self._check_window_resident()
         self.patch_embed = PatchEmbed(cfg)
         if cfg.ape:
             n = cfg.patches_resolution[0] * cfg.patches_resolution[1]
@@ -243,18 +295,80 @@ class SwinTransformer(nn.Module):
         self.layers = nn.ModuleList(BasicLayer(cfg, i) for i in range(cfg.num_layers))
         self.norm = nn.LayerNorm(cfg.num_features)
 
-    def prepare_inference(self) -> None:
+    def _check_window_resident(self) -> None:
+        """What the window-resident path needs of a configuration (the JAX
+        package's `_boundary_fused_plan`): no absolute position embedding, a
+        patch norm, one window size that tiles every stage, and an even window
+        grid wherever a stage is followed by a downsample."""
+        cfg = self.cfg
+        if cfg.ape or not cfg.patch_norm:
+            raise ValueError('attention_impl="fused" takes neither ape nor patch_norm=False')
+        window = effective_window(cfg, 0, 0)[0]
+        for i in range(cfg.num_layers):
+            res = cfg.stage_resolution(i)[0]
+            last = i == cfg.num_layers - 1
+            if effective_window(cfg, i, 0)[0] != window or res % window or (
+                not last and (res // window) % 2
+            ):
+                raise ValueError(
+                    f'attention_impl="fused": stage {i} ({res} x {res} tokens) does not '
+                    f"tile into windows of {window} that merge 2 x 2"
+                )
+
+    def prepare_inference(self, dtype=None) -> None:
         """Expand every block's relative-position bias to (H, N, N) once (the
-        JAX package's `prepare_inference_params`). Inference only: call again
-        after the table changes."""
+        JAX package's `prepare_inference_params`) and, on the "fused" path,
+        lay out every multi-window block's weights for the half-block kernels
+        in `dtype` (the compute dtype; fp32 when None). Inference only: call
+        again after the weights change or move."""
+        dtype = dtype or torch.float32
         for layer in self.layers:
             for blk in layer.blocks:
                 attn = blk.attn
                 attn.rel_bias_x = expand_rel_bias(
                     attn.relative_position_bias_table.detach(), attn.relative_position_index
                 )
+                if self.cfg.attention_impl == "fused" and blk.res > blk.window:
+                    blk.fused_cache = None
+                    blk.fused_cache = (dtype, blk.norm1.weight.device, blk.fused_operands(dtype))
+
+    def _forward_window_resident(self, images: torch.Tensor, dtype=None) -> torch.Tensor:
+        cfg = self.cfg
+        b, h, w, cin = images.shape
+        ps = cfg.patch_size
+        window = effective_window(cfg, 0, 0)[0]
+        x = images.reshape(b, h // ps, ps, w // ps, ps, cin).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, h // ps, w // ps, ps * ps * cin)
+        if dtype is not None:
+            x = x.to(dtype)
+        xw = patch_embed_fused(
+            x.contiguous(), *self.patch_embed.fused_operands(x.dtype), window, cfg.ln_eps
+        )
+        for i, layer in enumerate(self.layers):
+            res = cfg.stage_resolution(i)[0]
+            if res > window:
+                shift = 0
+                for blk in layer.blocks:
+                    xw = blk.forward_windows(xw, shift)
+                    shift = blk.shift
+                if shift != 0:  # no next block to fold the way back into
+                    xw = window_transition(xw, res, window, shift, 0)
+            else:  # one window: window layout is the flat layout
+                for blk in layer.blocks:
+                    xw = blk(xw, dtype)
+            if layer.downsample is not None:
+                xw = downsample_fused(
+                    xw, *layer.downsample.fused_operands(xw.dtype), res // window, window,
+                    cfg.ln_eps,
+                )
+        res = cfg.stage_resolution(cfg.num_layers - 1)[0]
+        if res > window:
+            xw = window_reverse(xw, window, res, res)
+        return layernorm(self.norm, xw.reshape(b, res * res, -1), cfg.ln_eps)
 
     def forward(self, images: torch.Tensor, dtype=None) -> torch.Tensor:
+        if self.cfg.attention_impl == "fused":
+            return self._forward_window_resident(images, dtype)
         x = self.patch_embed(images, dtype)
         if self.cfg.ape:
             x = x + self.absolute_pos_embed

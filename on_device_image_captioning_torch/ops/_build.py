@@ -11,6 +11,7 @@ wrapper right before its first launch on a CUDA tensor.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -64,9 +65,9 @@ def check_status(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
 
 
-@functools.lru_cache(maxsize=None)
-def load_cuda_library(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` (once per source content) and load it."""
+def compile_cuda_library(name: str) -> pathlib.Path:
+    """Compile `csrc/<name>.cu` into the build directory unless a library of
+    the same source content (headers included) is already there."""
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
@@ -87,7 +88,31 @@ def load_cuda_library(name: str) -> ctypes.CDLL:
             )
         os.replace(tmp, lib_path)
         build_seconds[name] = time.perf_counter() - start
-    return ctypes.CDLL(str(lib_path))
+    return lib_path
+
+
+def compile_all() -> None:
+    """Compile every source under `csrc/` at once, one nvcc each (a build
+    phase's way to pay the longest compile instead of their sum)."""
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for done in [pool.submit(compile_cuda_library, n) for n in names]:
+            done.result()
+
+
+@functools.lru_cache(maxsize=None)
+def load_cuda_library(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` (once per source content) and load it."""
+    return ctypes.CDLL(str(compile_cuda_library(name)))
+
+
+def cuda_function(library: str, name: str, argtypes):
+    """The C entry point `name` of `csrc/<library>.cu`, returning a CUDA
+    status code."""
+    fn = getattr(load_cuda_library(library), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def triton_cache_dir() -> None:

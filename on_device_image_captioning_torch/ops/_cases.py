@@ -2,14 +2,19 @@
 PyTorch version on CUDA tensors, with the tolerance of every check.
 
 The shapes are the ones the main path gives each kernel: Swin-L/384 windows
-at B=2, the d512 decoder at B·beam = 24 rows, V = 10000 log-prob rows, and
-every LayerNorm width. `chip_smoke.py` checks and times these cases, and
+at B=2 (for the window-resident path's kernels too: every stage width, masked
+and unmasked, with and without the shift transition), the d512 decoder at
+B·beam = 24 rows, V = 10000 log-prob rows, and every LayerNorm width.
+`chip_smoke.py` checks and times these cases, and
 `tests/test_torch_kernels.py` checks them under pytest; both read them from
 here so the two cannot drift apart.
 
-Each case calls the wrappers (`window_attention`, `dyn_exp_step`, `topk`,
-`layernorm`), exactly as the main path does, so the wrappers' routing is
-checked along with the kernels.
+Each case calls the wrappers (`window_attention`, `swin_attn_half`, ...),
+exactly as the main path does, so the wrappers' routing is checked along with
+the kernels. Each case also states the work of its call, computed from its
+shapes: the bytes the function must move (every input read once, every output
+written once) and its floating-point operations, from which `chip_smoke.py`
+computes the least time the card could take.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ import torch
 from ..models.swin import shift_attn_mask
 from . import dyn_exp_step as k2
 from . import layernorm as k4
+from . import stage_boundary as sb
+from . import swin_block_fused as sbf
 from . import topk as k3
 from . import window_attention as k1
 
@@ -38,11 +45,15 @@ Check = Tuple[str, torch.Tensor, torch.Tensor, Tuple[float, float]]
 
 @dataclasses.dataclass
 class Case:
-    kernel: str  # "window_attention", "dyn_exp_step", "topk" or "layernorm"
+    kernel: str  # a key of CASES
     label: str
     run_kernel: Callable[[], object]  # the wrapper on CUDA tensors: launches
     run_plain: Callable[[], object]  # the plain version on the same tensors
     checks: Callable[[object, object], List[Check]]
+    args: tuple = ()  # the wrapper's arguments (a library yardstick reads them)
+    nbytes: int = 0  # bytes the function must move: inputs once, outputs once
+    flops: int = 0  # floating-point operations of the function on these inputs
+    matmul: bool = False  # the operations are matrix products of the inputs' dtype
 
     def check(self) -> List[Check]:
         """Run the kernel and the plain version once each; the pairs to hold
@@ -58,15 +69,26 @@ def _randn(shape, g, dev, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _one(tol):
+    return lambda got, want: [("out", got, want, tol)]
+
+
+# Swin-L/384 stages: (C, heads, token-grid side); windows of 12 x 12, shift 6
+STAGES = [(192, 6, 96), (384, 12, 48), (768, 24, 24), (1536, 48, 12)]
+WINDOW, SHIFT, N_TOKENS = 12, 6, 144
+
+
 def window_attention_cases(dev) -> Iterator[Case]:
     """The four Swin-L/384 stages at B=2, with and without the shift mask,
     fp32 and bf16. Stage 3 (one window) has no shift on the main path; a
     random 0/-100 mask stands in so the masked branch runs there too."""
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[dt]
-        for stage, (c, heads, res) in enumerate(
-            [(192, 6, 96), (384, 12, 48), (768, 24, 24), (1536, 48, 12)]
-        ):
+        for stage, (c, heads, res) in enumerate(STAGES):
             nw = (res // 12) ** 2
             g = torch.Generator().manual_seed(100 + stage)
             qkv = _randn((2 * nw, 144, 3 * c), g, dev, dtype=dt)
@@ -84,7 +106,9 @@ def window_attention_cases(dev) -> Iterator[Case]:
                     f"{'mask' if m is not None else 'nomask'} {_dtype_name(dt)}",
                     lambda a=a: k1.window_attention(*a),
                     lambda a=a: k1.window_attention_reference(*a),
-                    lambda got, want, tol=tol: [("out", got, want, tol)],
+                    _one(tol), args=a,
+                    nbytes=_nbytes(qkv, bias, m) + qkv.numel() // 3 * qkv.element_size(),
+                    flops=4 * qkv.shape[0] * 144 * 144 * c, matmul=True,
                 )
 
 
@@ -122,7 +146,11 @@ def dyn_exp_step_cases(dev) -> Iterator[Case]:
 
                 yield Case(
                     "dyn_exp_step", f"B{b} L{L} pos{pos} {_dtype_name(dt)}",
-                    run_kernel, lambda a=a: k2.dyn_exp_step_reference(*a), checks,
+                    run_kernel, lambda a=a: k2.dyn_exp_step_reference(*a), checks, args=a,
+                    # the step returns every position of the six caches
+                    nbytes=2 * _nbytes(*src) + _nbytes(reorder, q_i, bias_i, *rows, sel, embed)
+                    + b * d * 4,
+                    flops=10 * b * (pos + 1) * E * d, matmul=True,
                 )
 
 
@@ -155,7 +183,9 @@ def topk_cases(dev) -> Iterator[Case]:
             "topk", label,
             lambda xt=xt, k=k: k3.topk(xt, k),
             lambda xt=xt, k=k: k3.topk_reference(xt, k),
-            checks,
+            checks, args=(xt, k),
+            nbytes=_nbytes(xt) + xt.shape[0] * k * (xt.element_size() + 4),
+            flops=xt.numel() * k,  # one comparison per element and pass
         )
 
 
@@ -174,7 +204,118 @@ def layernorm_cases(dev) -> Iterator[Case]:
                 "layernorm", f"({rows}, {c}) {_dtype_name(dt)}",
                 lambda a=a: k4.layernorm(*a),
                 lambda a=a: k4.layernorm_reference(*a),
-                lambda got, want, tol=TOL[dt]: [("out", got, want, tol)],
+                _one(TOL[dt]), args=a,
+                nbytes=2 * _nbytes(x) + _nbytes(w, bias), flops=8 * x.numel(),
+            )
+
+
+def _norm(c, g, dev):
+    return _randn((c,), g, dev, scale=0.2) + 1.0, _randn((c,), g, dev, scale=0.2)
+
+
+def _linear(k, n, g, dev, dt, bias=True):
+    """(in, out) weight of unit output variance and its fp32 bias."""
+    return _randn((k, n), g, dev, scale=k**-0.5, dtype=dt), (
+        _randn((n,), g, dev, scale=0.2) if bias else None)
+
+
+def swin_attn_half_cases(dev) -> Iterator[Case]:
+    """B4 on the three multi-window stages at B=2: block 0 (no mask, no
+    transition), a shifted block (mask, transition 0 -> 6), a later plain block
+    (no mask, transition 6 -> 0) and a shifted block without transition; fp32
+    and bf16."""
+    for dt in (torch.float32, torch.bfloat16):
+        for stage, (c, heads, res) in enumerate(STAGES[:3]):
+            g = torch.Generator().manual_seed(500 + stage)
+            bw = 2 * (res // WINDOW) ** 2
+            x = _randn((bw, N_TOKENS, c), g, dev, dtype=dt)
+            norm1, qkv, proj = _norm(c, g, dev), _linear(c, 3 * c, g, dev, dt), _linear(c, c, g, dev, dt)
+            bias = _randn((heads, N_TOKENS, N_TOKENS), g, dev, scale=0.5)
+            mask = torch.from_numpy(shift_attn_mask(res, WINDOW, SHIFT)).to(dev)
+            for m, trans in ((None, None), (mask, (res, 0, SHIFT)), (None, (res, SHIFT, 0)),
+                             (mask, None)):
+                a = (x, norm1, qkv, proj, bias, m, heads, k1.HEAD_DIM**-0.5, 1e-5, trans)
+                name = "notrans" if trans is None else f"trans{trans[1]}to{trans[2]}"
+                yield Case(
+                    "swin_attn_half",
+                    f"stage{stage} x{tuple(x.shape)} {'mask' if m is not None else 'nomask'} "
+                    f"{name} {_dtype_name(dt)}",
+                    lambda a=a: sbf.swin_attn_half(*a),
+                    lambda a=a: sbf.swin_attn_half_reference(*a),
+                    _one(TOL[dt]), args=a,
+                    nbytes=2 * _nbytes(x) + _nbytes(*norm1, *qkv, *proj, bias, m),
+                    flops=bw * N_TOKENS * (8 * c * c + 4 * N_TOKENS * c), matmul=True,
+                )
+
+
+def swin_mlp_half_cases(dev) -> Iterator[Case]:
+    """B5 on the rows of the three multi-window stages at B=2, fp32 and bf16."""
+    for dt in (torch.float32, torch.bfloat16):
+        for stage, (c, _, res) in enumerate(STAGES[:3]):
+            g = torch.Generator().manual_seed(600 + stage)
+            x = _randn((2 * (res // WINDOW) ** 2, N_TOKENS, c), g, dev, dtype=dt)
+            norm2, fc1, fc2 = _norm(c, g, dev), _linear(c, 4 * c, g, dev, dt), _linear(4 * c, c, g, dev, dt)
+            a = (x, norm2, fc1, fc2, 1e-5)
+            yield Case(
+                "swin_mlp_half", f"stage{stage} x{tuple(x.shape)} {_dtype_name(dt)}",
+                lambda a=a: sbf.swin_mlp_half(*a),
+                lambda a=a: sbf.swin_mlp_half_reference(*a),
+                _one(TOL[dt]), args=a,
+                nbytes=2 * _nbytes(x) + _nbytes(*norm2, *fc1, *fc2),
+                flops=x.numel() * 16 * c, matmul=True,
+            )
+
+
+def window_transition_cases(dev) -> Iterator[Case]:
+    """B11 on the three multi-window stages at B=2, both directions, fp32 and
+    bf16. A copy: the kernel must equal the plain version exactly."""
+    for dt in (torch.float32, torch.bfloat16):
+        for stage, (c, _, res) in enumerate(STAGES[:3]):
+            g = torch.Generator().manual_seed(700 + stage)
+            x = _randn((2 * (res // WINDOW) ** 2, N_TOKENS, c), g, dev, dtype=dt)
+            for f, t in ((SHIFT, 0), (0, SHIFT)):
+                a = (x, res, WINDOW, f, t)
+                yield Case(
+                    "window_transition",
+                    f"stage{stage} x{tuple(x.shape)} {f}to{t} {_dtype_name(dt)}",
+                    lambda a=a: sbf.window_transition(*a),
+                    lambda a=a: sbf.window_transition_reference(*a),
+                    _one(EXACT), args=a, nbytes=2 * _nbytes(x),
+                )
+
+
+def patch_embed_cases(dev) -> Iterator[Case]:
+    """B7 at B=2: (2, 96, 96, 48) space-to-depth rows -> (128, 144, 192)."""
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(800)
+        x = _randn((2, 96, 96, 48), g, dev, dtype=dt)
+        proj, norm = _linear(48, 192, g, dev, dt), _norm(192, g, dev)
+        a = (x, proj, norm, WINDOW, 1e-5)
+        yield Case(
+            "patch_embed", f"x{tuple(x.shape)} C192 {_dtype_name(dt)}",
+            lambda a=a: sb.patch_embed_fused(*a),
+            lambda a=a: sb.patch_embed_reference(*a),
+            _one(TOL[dt]), args=a,
+            nbytes=_nbytes(x, *proj, *norm) + x.numel() // 48 * 192 * x.element_size(),
+            flops=2 * x.numel() * 192, matmul=True,
+        )
+
+
+def downsample_cases(dev) -> Iterator[Case]:
+    """B8 at B=2 after each of the three multi-window stages."""
+    for dt in (torch.float32, torch.bfloat16):
+        for stage, (c, _, res) in enumerate(STAGES[:3]):
+            g = torch.Generator().manual_seed(900 + stage)
+            x = _randn((2 * (res // WINDOW) ** 2, N_TOKENS, c), g, dev, dtype=dt)
+            norm, (w, _) = _norm(4 * c, g, dev), _linear(4 * c, 2 * c, g, dev, dt, bias=False)
+            a = (x, norm, w, res // WINDOW, WINDOW, 1e-5)
+            yield Case(
+                "downsample", f"stage{stage} x{tuple(x.shape)} {_dtype_name(dt)}",
+                lambda a=a: sb.downsample_fused(*a),
+                lambda a=a: sb.downsample_reference(*a),
+                _one(TOL[dt]), args=a,
+                nbytes=_nbytes(x, *norm, w) + _nbytes(x) // 2,
+                flops=x.numel() * 4 * c, matmul=True,
             )
 
 
@@ -183,6 +324,11 @@ CASES = {
     "dyn_exp_step": dyn_exp_step_cases,
     "topk": topk_cases,
     "layernorm": layernorm_cases,
+    "patch_embed": patch_embed_cases,
+    "downsample": downsample_cases,
+    "swin_attn_half": swin_attn_half_cases,
+    "swin_mlp_half": swin_mlp_half_cases,
+    "window_transition": window_transition_cases,
 }
 
 

@@ -6,8 +6,9 @@ window_attention_pallas` and, on the same math, `ops/swin_block_fused.py::
 attention_core_fused`: one kernel on the flat qkv layout serves both. The qkv
 and proj GEMMs stay `torch.matmul`, as they stay plain GEMMs in JAX.
 
-Bound and design: see the header of `csrc/window_attention.cu` (one CTA per
-(window, head), K/V whole in shared memory, fp32 CUDA-core math).
+Bound and design: see the header of `csrc/window_attention.cuh` (one CTA per
+(window, head), K/V whole in shared memory; bf16 windows of 144 tokens on the
+tensor cores, everything else fp32 CUDA-core math).
 """
 from __future__ import annotations
 

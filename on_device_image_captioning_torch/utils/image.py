@@ -1,17 +1,35 @@
-"""Image preprocessing. Host decoding and resizing reuse the JAX package's
-JAX-free `utils/image.py` (`load_image_rgb`, `preprocess_batch`: PIL,
-bilinear); scaling to [0, 1] and the ImageNet normalization run on the
-tensor's device."""
+"""Image preprocessing: PIL load -> RGB -> resize on the host, scaling to
+[0, 1] and the ImageNet normalization on the tensor's device (counterpart of
+the JAX package's `utils/image.py`; reference utils/image_utils.py:5-23)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from on_device_image_captioning_tpu.utils.image import (  # noqa: F401  (re-exported)
-    IMAGENET_MEAN,
-    IMAGENET_STD,
-    load_image_rgb,
-    preprocess_batch,
-)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def load_image_rgb(path: str, size: int) -> np.ndarray:
+    """Decode + resize on host. Returns uint8 (size, size, 3) NHWC."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        if im.mode != "RGB":
+            im = im.convert("RGB")
+        im = im.resize((size, size), Image.BILINEAR)
+        return np.asarray(im, dtype=np.uint8)
+
+
+def preprocess_batch(paths, size: int, num_threads: int = 8) -> np.ndarray:
+    """Host-side batch decode; returns uint8 (B, size, size, 3). JPEG decode is
+    GIL-releasing PIL C code, so a small thread pool parallelizes it."""
+    if len(paths) <= 1 or num_threads <= 1:
+        return np.stack([load_image_rgb(p, size) for p in paths])
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(min(num_threads, len(paths))) as pool:
+        return np.stack(list(pool.map(lambda p: load_image_rgb(p, size), paths)))
 
 
 def normalize_on_device(images_u8: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,8 @@ restores.
 """
 import contextlib
 import dataclasses
+import pathlib
+import re
 import subprocess
 import sys
 import textwrap
@@ -51,8 +53,11 @@ TINY_E2E = pcfg.ModelConfig(
 )
 
 
-def to_jax_swin(cfg: pcfg.SwinConfig, attention_impl: str = "pallas") -> jcfg.SwinConfig:
-    return jcfg.SwinConfig(**dataclasses.asdict(cfg), attention_impl=attention_impl)
+def to_jax_swin(cfg: pcfg.SwinConfig, attention_impl: str = None) -> jcfg.SwinConfig:
+    """The JAX config of the same backbone, on the port's path unless
+    `attention_impl` names another."""
+    fields = dataclasses.asdict(cfg)
+    return jcfg.SwinConfig(**{**fields, "attention_impl": attention_impl or cfg.attention_impl})
 
 
 def to_jax_cap(cfg: pcfg.CaptionerConfig) -> jcfg.CaptionerConfig:
@@ -61,7 +66,7 @@ def to_jax_cap(cfg: pcfg.CaptionerConfig) -> jcfg.CaptionerConfig:
     return jcfg.CaptionerConfig(**fields)
 
 
-def to_jax_model(cfg: pcfg.ModelConfig, attention_impl: str = "pallas") -> jcfg.ModelConfig:
+def to_jax_model(cfg: pcfg.ModelConfig, attention_impl: str = None) -> jcfg.ModelConfig:
     dtype = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[cfg.compute_dtype]
     return jcfg.ModelConfig(
         swin=to_jax_swin(cfg.swin, attention_impl),
@@ -112,7 +117,7 @@ def jax_pallas_path():
 @pytest.mark.parametrize(
     "port_cls, jax_cls, dropped",
     [
-        (pcfg.SwinConfig, jcfg.SwinConfig, {"attention_impl"}),
+        (pcfg.SwinConfig, jcfg.SwinConfig, set()),
         (pcfg.CaptionerConfig, jcfg.CaptionerConfig, set()),
         (pcfg.ModelConfig, jcfg.ModelConfig, set()),
         (pcfg.DecodeConfig, jcfg.DecodeConfig, {"chunk_schedule"}),
@@ -121,20 +126,23 @@ def jax_pallas_path():
 )
 def test_config_fields_match_jax(port_cls, jax_cls, dropped):
     """Field for field with the JAX dataclasses, minus the TPU-only knobs;
-    defaults equal (dtypes compared by name)."""
+    defaults equal, but for the compute dtype (another framework's) and
+    `attention_impl` (the JAX default "xla" has no counterpart in the port)."""
     port = {f.name: f for f in dataclasses.fields(port_cls)}
     ref = {f.name: f for f in dataclasses.fields(jax_cls) if f.name not in dropped}
     assert list(port) == list(ref)
     for name, f in ref.items():
-        if f.default is not dataclasses.MISSING and name != "compute_dtype":
+        if f.default is not dataclasses.MISSING and name not in ("compute_dtype", "attention_impl"):
             assert port[name].default == f.default, name
 
 
 def test_config_presets_and_checks():
     assert dataclasses.asdict(pcfg.swin_large_384()) == {
-        k: v for k, v in dataclasses.asdict(jcfg.swin_large_384()).items()
-        if k != "attention_impl"
+        **dataclasses.asdict(jcfg.swin_large_384()), "attention_impl": "pallas"
     }
+    assert pcfg.ATTENTION_IMPLS == ("pallas", "fused")
+    with pytest.raises(ValueError, match="attention_impl"):
+        pcfg.SwinConfig(attention_impl="xla")
     assert dataclasses.asdict(pcfg.expansionnet_v2_coco()) == dataclasses.asdict(
         jcfg.expansionnet_v2_coco()
     )
@@ -193,43 +201,74 @@ def test_init_weights_seeded_distributions():
 
 
 def test_port_imports_neither_jax_nor_triton():
-    """Importing the port and every slice module leaves jax and triton out of
-    sys.modules, and on the CPU no kernel launch counter moves."""
+    """Importing every module of the port (the package is walked) and running
+    both backbone paths leaves jax, triton and every module of the JAX package
+    out of sys.modules, and on the CPU no kernel launch counter moves."""
     code = textwrap.dedent(
         """
-        import sys
+        import dataclasses, importlib, pkgutil, sys
         import numpy as np, torch
-        import on_device_image_captioning_torch
+        import on_device_image_captioning_torch as port
+        names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+        mods = {n: importlib.import_module(n) for n in names}
+        assert len(names) >= 25, names
+        for leaf in ("api", "cli.demo", "cli.breakdown", "data.text", "ops.stage_boundary",
+                     "ops.swin_block_fused", "ops.window_layout", "utils.image"):
+            assert port.__name__ + "." + leaf in mods, leaf
         from on_device_image_captioning_torch import api, config
-        from on_device_image_captioning_torch.cli import breakdown, demo
-        from on_device_image_captioning_torch.decode import beam_search, cache
-        from on_device_image_captioning_torch.models import (
-            captioner, common, end_to_end, expansion, swin)
+        from on_device_image_captioning_torch.models import end_to_end
         from on_device_image_captioning_torch.ops import (
-            _cases, dyn_exp_step, layernorm, masks, topk, window_attention)
-        from on_device_image_captioning_torch.params import convert
-        from on_device_image_captioning_torch.utils import image
-        cfg = config.ModelConfig(
-            swin=config.SwinConfig(img_size=32, patch_size=4, embed_dim=16,
-                depths=(2, 2), num_heads=(2, 4), window_size=4),
-            captioner=config.CaptionerConfig(d_model=32, N_enc=1, N_dec=1, ff=64,
-                num_heads=4, num_exp_enc_list=(4,), num_exp_dec=4, vocab_size=1024,
-                max_seq_len=8, img_feature_dim=32, sos_idx=2, eos_idx=3,
-                pad_idx=0, unk_idx=1))
-        model = end_to_end.init_weights(end_to_end.EndExpansionNetV2(cfg),
-                                        torch.Generator().manual_seed(0))
-        imgs = np.zeros((1, 32, 32, 3), np.uint8)
-        api.Captioner(model, cfg, {"beam_size": 2, "beam_max_seq_len": 6})(imgs)
+            dyn_exp_step, layernorm, stage_boundary, swin_block_fused, topk, window_attention)
+        for impl in config.ATTENTION_IMPLS:
+            cfg = config.ModelConfig(
+                swin=config.SwinConfig(img_size=32, patch_size=4, embed_dim=16,
+                    depths=(2, 2), num_heads=(2, 4), window_size=4, attention_impl=impl),
+                captioner=config.CaptionerConfig(d_model=32, N_enc=1, N_dec=1, ff=64,
+                    num_heads=4, num_exp_enc_list=(4,), num_exp_dec=4, vocab_size=1024,
+                    max_seq_len=8, img_feature_dim=32, sos_idx=2, eos_idx=3,
+                    pad_idx=0, unk_idx=1))
+            model = end_to_end.init_weights(end_to_end.EndExpansionNetV2(cfg),
+                                            torch.Generator().manual_seed(0))
+            imgs = np.zeros((1, 32, 32, 3), np.uint8)
+            api.Captioner(model, cfg, {"beam_size": 2, "beam_max_seq_len": 6}, device="cpu")(imgs)
         counts = [m.launches for m in (dyn_exp_step, layernorm, topk, window_attention)]
-        assert counts == [0, 0, 0, 0], counts
-        bad = [m for m in ("jax", "jaxlib", "triton") if m in sys.modules]
+        counts += [stage_boundary.patch_embed_launches, stage_boundary.downsample_launches,
+                   swin_block_fused.attn_half_launches, swin_block_fused.mlp_half_launches,
+                   swin_block_fused.transition_launches]
+        assert counts == [0] * 9, counts
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "triton", "on_device_image_captioning_tpu")]
         assert not bad, bad
         print("clean")
         """
     )
     out = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
-        cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]),
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=str(REPO),
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("clean")
+
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+# an import statement that names jax or the JAX package (prose that cites
+# `on_device_image_captioning_tpu/file.py:line` is fine)
+_FOREIGN_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(jax|jaxlib|on_device_image_captioning_tpu)\b"
+    r"|^\s*from\s+\S+\s+import\s+.*\bon_device_image_captioning_tpu\b"
+    r"|import_module\(\s*[\"'](jax|on_device_image_captioning_tpu)",
+    re.MULTILINE,
+)
+
+
+def test_port_sources_name_no_jax_import():
+    """No source of the port, nor chip_smoke.py, imports jax or anything of
+    the JAX package."""
+    sources = sorted((REPO / "on_device_image_captioning_torch").rglob("*.py"))
+    sources.append(REPO / "chip_smoke.py")
+    assert len(sources) >= 25
+    for path in sources:
+        found = _FOREIGN_IMPORT.search(path.read_text())
+        assert found is None, f"{path.relative_to(REPO)}: {found.group(0).strip()!r}"
+    assert _FOREIGN_IMPORT.search("    from on_device_image_captioning_tpu.data.text import Vocab")
+    assert _FOREIGN_IMPORT.search("import jax.numpy as jnp")
+    assert not _FOREIGN_IMPORT.search("Replaces `on_device_image_captioning_tpu/ops/topk.py::f`")

@@ -53,7 +53,7 @@ def test_captioner_beam_search_tokens_equal_jax(seed, eos):
     want_caps, want_lps = _jax_captions(params, cfg, imgs)
     captioner = Captioner(model, cfg, {
         "beam_size": BEAM, "how_many_outputs": N_OUT, "beam_max_seq_len": MAX_LEN,
-    })
+    }, device="cpu")
     got_caps, got_lps = captioner(imgs, mode="beam_search")
     assert got_caps == want_caps  # tokens and lengths, exactly
     assert any(eos in toks for row in got_caps for toks in row)
@@ -73,7 +73,8 @@ def test_captioner_bf16_runs_and_is_well_formed():
     cfg = dataclasses.replace(TINY_E2E, compute_dtype=torch.bfloat16)
     _, model = e2e_pair(cfg, 20)
     imgs = np.random.default_rng(5).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
-    caps, lps = Captioner(model, cfg, {"beam_size": BEAM, "beam_max_seq_len": MAX_LEN})(imgs)
+    caps, lps = Captioner(
+        model, cfg, {"beam_size": BEAM, "beam_max_seq_len": MAX_LEN}, device="cpu")(imgs)
     assert len(caps) == 2
     for row, lp in zip(caps, lps):
         toks = row[0]
@@ -83,11 +84,11 @@ def test_captioner_bf16_runs_and_is_well_formed():
 
 def test_captioner_rejects_unported_modes_and_mismatched_models():
     _, model = e2e_pair(TINY_E2E, 21)
-    captioner = Captioner(model, TINY_E2E)
+    captioner = Captioner(model, TINY_E2E, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
         captioner(np.zeros((1, 32, 32, 3), np.uint8), mode="sampling")
     with pytest.raises(ValueError):
-        Captioner(model, TINY_E2E.captioner)
+        Captioner(model, TINY_E2E.captioner, device="cpu")
 
 
 def test_demo_refuses_cuda_without_a_card(monkeypatch):
