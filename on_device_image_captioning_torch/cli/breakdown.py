@@ -1,7 +1,8 @@
 """Where the time goes on the port's main path, on one NVIDIA card.
 
     python -m on_device_image_captioning_torch.cli.breakdown [--out FILE] \
-        [--swin_attention_impl pallas|fused]
+        [--swin_attention_impl pallas|fused] [--stage_modes default|halves] \
+        [--step_impl pallas|pallas_fused]
 
 For each cell, serve (b8 / beam 3 / L20) and latency (b1 / beam 5 / L74), on
 Swin-L/384 + the d512 captioner (V = 10000, bf16, seeded random weights), the
@@ -18,7 +19,10 @@ images in) and decode (`Captioner.decode`). For each part it prints:
 
 The last line is one JSON object holding all of it; `--out` writes it to a
 file as well. With random weights no caption emits EOS, so every decode runs
-to max_seq_len, the worst case of each cell.
+to max_seq_len, the worst case of each cell. `--stage_modes halves` puts every
+stage of the "fused" backbone path on the half-block kernels (the default is
+the whole-block kernel up to a width of 384); `--step_impl pallas_fused` takes
+the decode step that runs the cross-attention in the step kernel's launch.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import torch
 
 from ..api import Captioner
 from ..config import ATTENTION_IMPLS, end_expansionnet_v2_coco
+from ..decode.cache import STEP_IMPLS
 from ..models.end_to_end import EndExpansionNetV2, init_weights
 
 # cell -> (images, beam size, max_seq_len)
@@ -103,6 +108,8 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=str, default=None)
     parser.add_argument("--swin_attention_impl", choices=ATTENTION_IMPLS, default="pallas")
+    parser.add_argument("--stage_modes", choices=("default", "halves"), default="default")
+    parser.add_argument("--step_impl", choices=STEP_IMPLS, default="pallas")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("breakdown: needs a CUDA card")
@@ -114,10 +121,14 @@ def main(argv=None) -> dict:
     cfg = end_expansionnet_v2_coco(compute_dtype=torch.bfloat16)
     cfg = dataclasses.replace(
         cfg, swin=dataclasses.replace(cfg.swin, attention_impl=args.swin_attention_impl))
-    model = init_weights(EndExpansionNetV2(cfg), torch.Generator().manual_seed(SEED))
-    result = {"card": card, "swin_attention_impl": args.swin_attention_impl, "cells": {}}
+    modes = {i: "halves" for i in range(cfg.swin.num_layers)} if args.stage_modes == "halves" else None
+    model = init_weights(EndExpansionNetV2(cfg, modes), torch.Generator().manual_seed(SEED))
+    result = {"card": card, "swin_attention_impl": args.swin_attention_impl,
+              "stage_modes": model.swin_transf.stage_modes, "step_impl": args.step_impl,
+              "cells": {}}
     for cell, (b, beam, max_len) in CELLS.items():
-        captioner = Captioner(model, cfg, {"beam_size": beam, "beam_max_seq_len": max_len})
+        captioner = Captioner(model, cfg, {"beam_size": beam, "beam_max_seq_len": max_len},
+                              step_impl=args.step_impl)
         images = np.random.default_rng(SEED + b).integers(
             0, 256, (b, 384, 384, 3), dtype=np.uint8)
         parts = measure_cell(captioner, images)

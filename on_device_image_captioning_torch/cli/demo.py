@@ -11,7 +11,9 @@ the host, and runs beam search on the chosen device:
 
 `--device cuda` is the default. Without a CUDA card it raises; it never runs
 on the CPU unless `--device cpu` is asked for. `--swin_attention_impl fused`
-takes the window-resident backbone path (`config.SwinConfig.attention_impl`).
+takes the window-resident backbone path (`config.SwinConfig.attention_impl`);
+`--step_impl pallas_fused` takes the decode step that runs the cross-attention
+in the step kernel's launch (`decode/cache.py`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import pickle
 import torch
 
 from ..config import ATTENTION_IMPLS
+from ..decode.cache import STEP_IMPLS
 
 
 def build_vocab(args):
@@ -58,6 +61,7 @@ def main(argv=None):
     parser.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--swin_attention_impl", choices=ATTENTION_IMPLS, default="pallas")
+    parser.add_argument("--step_impl", choices=STEP_IMPLS, default="pallas")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -102,6 +106,7 @@ def main(argv=None):
             "eos_idx": vocab.eos_idx,
         },
         device=device,
+        step_impl=args.step_impl,
     )
     images = preprocess_batch(args.image_paths, cfg.swin.img_size)
     caps, _ = captioner.beam_search(images)

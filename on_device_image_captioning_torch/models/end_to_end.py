@@ -7,6 +7,8 @@ end-to-end module is the caption head with a `swin_transf` attribute.
 """
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 from torch import nn
 
@@ -16,10 +18,12 @@ from .swin import SwinTransformer
 
 
 class EndExpansionNetV2(ExpansionNetV2):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, stage_modes: Optional[Dict[int, str]] = None):
+        """stage_modes: per-stage override of the "fused" backbone path's
+        block kernels (see `SwinTransformer`)."""
         super().__init__(cfg.captioner)
         self.cfg = cfg
-        self.swin_transf = SwinTransformer(cfg.swin)
+        self.swin_transf = SwinTransformer(cfg.swin, stage_modes)
 
     def prepare_inference(self) -> None:
         """Pre-expand the Swin relative-position biases and lay out the fused

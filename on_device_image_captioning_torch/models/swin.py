@@ -8,13 +8,17 @@ is kernel K1 (`ops/window_attention.py`), with the qkv and proj GEMMs left to
 `torch.matmul`.
 
 "fused": the window-resident path (`_swin_apply_window_resident` and
-`_run_stage_fused_windows` of the JAX file, in its `halves` mode). Activations
-enter window layout at the patch-embed kernel and stay there: every block of
-a multi-window stage is the attention-half kernel (reading its input through
-the shift transition from the previous block's layout) and the MLP-half
-kernel, a stage ends with the standalone transition back to shift 0 and the
-downsample kernel, and a single-window stage (Swin-L stage 3), whose window
-layout is the flat layout, runs as on the "pallas" path.
+`_run_stage_fused_windows` of the JAX file). Activations enter window layout
+at the patch-embed kernel and stay there. Every block of a multi-window stage
+runs in the stage's mode: "full", the whole-block kernel, or "halves", the
+attention-half kernel and the MLP-half kernel; either reads its input through
+the shift transition from the previous block's layout. A stage ends with the
+standalone transition back to shift 0 and the downsample kernel, and a
+single-window stage (Swin-L stage 3), whose window layout is the flat layout,
+runs as on the "pallas" path. The mode of a stage is "full" up to a width of
+384 and "halves" above, which is what the JAX package picks at Swin-L in bf16
+(`_stage_fused_mode`); `SwinTransformer(cfg, stage_modes={stage: mode})`
+overrides it per stage, as `set_stage_mode_override` does there.
 
 Parameter and module names are the reference repo's
 (models/swin_transformer_mod.py), so its state_dict loads unchanged once the
@@ -23,7 +27,7 @@ non-parameter buffers (`attn_mask`, `relative_position_index`) are dropped.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -32,7 +36,9 @@ from torch import nn
 
 from ..config import SwinConfig
 from ..ops.stage_boundary import downsample_fused, patch_embed_fused
-from ..ops.swin_block_fused import swin_attn_half, swin_mlp_half, window_transition
+from ..ops.swin_block_fused import (
+    swin_attn_half, swin_block, swin_mlp_half, window_transition,
+)
 from ..ops.window_attention import window_attention
 from ..ops.window_layout import window_partition, window_reverse
 from .common import layernorm, linear
@@ -87,6 +93,19 @@ def effective_window(cfg: SwinConfig, stage: int, block: int):
     if res <= window:
         window, shift = res, 0
     return window, shift
+
+
+STAGE_MODES = ("full", "halves")
+# the widest stage the whole-block kernel takes
+FULL_MODE_MAX_WIDTH = 384
+
+
+def default_stage_mode(width: int) -> str:
+    """Mirrors the JAX package's `eligible` (ops/swin_block_fused.py) at
+    Swin-L in bf16: a stage whose whole weight set fits its kernel's budget
+    (widths 192 and 384) runs the whole-block kernel, a wider one the halves.
+    The rule is the width alone; no memory model of the TPU is carried over."""
+    return "full" if width <= FULL_MODE_MAX_WIDTH else "halves"
 
 
 def _norm_operands(norm: nn.LayerNorm):
@@ -200,10 +219,11 @@ class SwinTransformerBlock(nn.Module):
             mask = torch.from_numpy(shift_attn_mask(self.res, self.window, self.shift))
         self.register_buffer("attn_mask", mask, persistent=False)
         self.fused_cache = None  # (dtype, device, operands), set by prepare_inference()
+        self.mode = default_stage_mode(dim)  # of the stage; SwinTransformer may override
 
     def fused_operands(self, dtype):
-        """The half-block kernels' operands: LayerNorm parameters and (in,
-        out) weights in the compute dtype. Prepared once by
+        """The block kernels' operands (whole block or halves): LayerNorm
+        parameters and (in, out) weights in the compute dtype. Prepared once by
         prepare_inference(); built per call otherwise."""
         cached = self.fused_cache
         if cached is not None and cached[:2] == (dtype, self.norm1.weight.device):
@@ -222,6 +242,12 @@ class SwinTransformerBlock(nn.Module):
         the from_shift layout; the result lies in this block's shift layout."""
         ops = self.fused_operands(xw.dtype)
         transition = None if from_shift == self.shift else (self.res, from_shift, self.shift)
+        if self.mode == "full":
+            return swin_block(
+                xw, ops["norm1"], ops["qkv"], ops["proj"], ops["norm2"], ops["fc1"], ops["fc2"],
+                self.attn.bias(), self.attn_mask, self.attn.heads, float(self.attn.scale),
+                self.cfg.ln_eps, transition,
+            )
         xw = swin_attn_half(
             xw, ops["norm1"], ops["qkv"], ops["proj"], self.attn.bias(), self.attn_mask,
             self.attn.heads, float(self.attn.scale), self.cfg.ln_eps, transition,
@@ -283,7 +309,9 @@ class SwinTransformer(nn.Module):
     """Backbone without the classification head: images NHWC (B, img, img, 3)
     -> tokens (B, (img/32)^2, num_features)."""
 
-    def __init__(self, cfg: SwinConfig):
+    def __init__(self, cfg: SwinConfig, stage_modes: Optional[Dict[int, str]] = None):
+        """stage_modes: {stage index: "full" | "halves"} for the "fused" path,
+        overriding `default_stage_mode` for those stages."""
         super().__init__()
         self.cfg = cfg
         if cfg.attention_impl == "fused":
@@ -294,6 +322,19 @@ class SwinTransformer(nn.Module):
             self.absolute_pos_embed = nn.Parameter(torch.zeros(1, n, cfg.embed_dim))
         self.layers = nn.ModuleList(BasicLayer(cfg, i) for i in range(cfg.num_layers))
         self.norm = nn.LayerNorm(cfg.num_features)
+        for stage, mode in (stage_modes or {}).items():
+            if mode not in STAGE_MODES or not 0 <= stage < cfg.num_layers:
+                raise ValueError(
+                    f"stage_modes[{stage!r}] = {mode!r}; expected a stage index and one of "
+                    f"{STAGE_MODES}")
+            for blk in self.layers[stage].blocks:
+                blk.mode = mode
+
+    @property
+    def stage_modes(self) -> Dict[int, str]:
+        """The mode of every multi-window stage on the "fused" path."""
+        return {i: layer.blocks[0].mode for i, layer in enumerate(self.layers)
+                if layer.blocks[0].res > layer.blocks[0].window}
 
     def _check_window_resident(self) -> None:
         """What the window-resident path needs of a configuration (the JAX
@@ -318,9 +359,9 @@ class SwinTransformer(nn.Module):
     def prepare_inference(self, dtype=None) -> None:
         """Expand every block's relative-position bias to (H, N, N) once (the
         JAX package's `prepare_inference_params`) and, on the "fused" path,
-        lay out every multi-window block's weights for the half-block kernels
-        in `dtype` (the compute dtype; fp32 when None). Inference only: call
-        again after the weights change or move."""
+        lay out every multi-window block's weights for the block kernels
+        (whole block or halves) in `dtype` (the compute dtype; fp32 when
+        None). Inference only: call again after the weights change or move."""
         dtype = dtype or torch.float32
         for layer in self.layers:
             for blk in layer.blocks:

@@ -4,7 +4,8 @@ PyTorch version on CUDA tensors, with the tolerance of every check.
 The shapes are the ones the main path gives each kernel: Swin-L/384 windows
 at B=2 (for the window-resident path's kernels too: every stage width, masked
 and unmasked, with and without the shift transition), the d512 decoder at
-B·beam = 24 rows, V = 10000 log-prob rows, and every LayerNorm width.
+B·beam = 24 rows (with its cross-attention over 144 encoder tokens for the
+fused step), V = 10000 log-prob rows, and every LayerNorm width.
 `chip_smoke.py` checks and times these cases, and
 `tests/test_torch_kernels.py` checks them under pytest; both read them from
 here so the two cannot drift apart.
@@ -154,6 +155,61 @@ def dyn_exp_step_cases(dev) -> Iterator[Case]:
                 )
 
 
+def dyn_exp_cross_step_cases(dev) -> Iterator[Case]:
+    """B16 at B=24 rows (8 images x 3 beams), S=144 encoder tokens, d=512, 8
+    heads, E=16, L in {20, 74}, a non-identity reorder, a pad mask with 0 and
+    16 pads, pos in {0, 7, L-1}, fp32 and bf16; and the 5 rows of one image
+    (beam 5) at L=74. Checks the output row and all six destination caches."""
+    E, d, heads, S = 16, 512, 8, 144
+    for dt in (torch.float32, torch.bfloat16):
+        tol = TOL[dt]
+        for b, group, L, positions in ((24, 3, 20, (0, 7, 19)), (24, 3, 74, (0, 7, 73)),
+                                       (5, 5, 74, (7,))):
+            g = torch.Generator().manual_seed(1000 + 10 * L + b)
+            src = [_randn((b, L, d), g, dev, dtype=dt) for _ in range(4)]
+            src += [_randn((b, L, E, d), g, dev, dtype=dt) for _ in range(2)]
+            reorder = torch.randint(0, b, (b,), generator=g, dtype=torch.int32)
+            reorder[0] = 4  # non-identity for sure
+            reorder = reorder.to(dev)
+            q_i = _randn((b, E, d), g, dev, dtype=dt)
+            bias_i = _randn((b, E, d), g, dev, dtype=dt)
+            rows = [_randn((b, d), g, dev, dtype=dt) for _ in range(4)]
+            sel = torch.sigmoid(_randn((b, d), g, dev))
+            embed = _randn((E, d), g, dev, dtype=dt)
+            y = _randn((b, d), g, dev)
+            ln2 = _norm(d, g, dev)
+            (wq, bq), (wo, bo) = _linear(d, d, g, dev, dt), _linear(d, d, g, dev, dt)
+            kc = _randn((b // group, S, d), g, dev, dtype=dt)
+            vc = _randn((b // group, S, d), g, dev, dtype=dt)
+            pads = torch.tensor([0, 16] * 4)[: b // group]
+            mask = (torch.arange(S)[None, :] < (S - pads)[:, None]).float().to(dev)
+            dst = [torch.empty_like(t) for t in src]
+            kw = dict(heads=heads, ln_eps=1e-5, attn_fill=-1e4, group=group, eps=1e-9,
+                      compute_dtype=dt)
+            for pos in positions:
+                a = (pos, reorder, q_i, bias_i, *rows, sel, embed, y, ln2, wq, bq, wo, bo,
+                     kc, vc, mask, src)
+
+                def run_kernel(a=a, dst=dst, kw=kw):
+                    return k2.dyn_exp_cross_step(*a, dst, **kw), dst
+
+                def checks(got, want, tol=tol):
+                    (out, new), (want_out, want_new) = got, want
+                    pairs = [("y_out", out, want_out, tol)]
+                    names = ("keys", "ca", "cb", "cond", "vals_a", "vals_b")
+                    return pairs + [(n, g_, w_, tol) for n, g_, w_ in zip(names, new, want_new)]
+
+                yield Case(
+                    "dyn_exp_cross_step", f"B{b} L{L} pos{pos} {_dtype_name(dt)}",
+                    run_kernel, lambda a=a, kw=kw: k2.dyn_exp_cross_step_reference(*a, **kw),
+                    checks, args=a,
+                    # K2's bytes plus y, LN2, Wq, Wo, the images' K and V and the mask
+                    nbytes=2 * _nbytes(*src) + _nbytes(reorder, q_i, bias_i, *rows, sel, embed)
+                    + _nbytes(y, *ln2, wq, bq, wo, bo, kc, vc, mask) + b * d * 4,
+                    flops=10 * b * (pos + 1) * E * d + b * (4 * d * d + 4 * S * d), matmul=True,
+                )
+
+
 def topk_cases(dev) -> Iterator[Case]:
     """(24, V) log-prob rows with planted exact ties, a row of dense exact
     ties, a row with fewer than k finite values and a NaN row; k up to 8,
@@ -217,6 +273,35 @@ def _linear(k, n, g, dev, dt, bias=True):
     """(in, out) weight of unit output variance and its fp32 bias."""
     return _randn((k, n), g, dev, scale=k**-0.5, dtype=dt), (
         _randn((n,), g, dev, scale=0.2) if bias else None)
+
+
+def swin_block_cases(dev) -> Iterator[Case]:
+    """B6 on the two stages that run it (C = 192 and 384) at B=2: block 0 (no
+    mask, no transition) and block 1 (mask, transition 0 -> 6), fp32 and bf16."""
+    for dt in (torch.float32, torch.bfloat16):
+        for stage, (c, heads, res) in enumerate(STAGES[:2]):
+            g = torch.Generator().manual_seed(1100 + stage)
+            bw = 2 * (res // WINDOW) ** 2
+            x = _randn((bw, N_TOKENS, c), g, dev, dtype=dt)
+            norm1, qkv, proj = _norm(c, g, dev), _linear(c, 3 * c, g, dev, dt), _linear(c, c, g, dev, dt)
+            norm2, fc1, fc2 = _norm(c, g, dev), _linear(c, 4 * c, g, dev, dt), _linear(4 * c, c, g, dev, dt)
+            bias = _randn((heads, N_TOKENS, N_TOKENS), g, dev, scale=0.5)
+            mask = torch.from_numpy(shift_attn_mask(res, WINDOW, SHIFT)).to(dev)
+            for m, trans in ((None, None), (mask, (res, 0, SHIFT))):
+                a = (x, norm1, qkv, proj, norm2, fc1, fc2, bias, m, heads, k1.HEAD_DIM**-0.5,
+                     1e-5, trans)
+                name = "notrans" if trans is None else f"trans{trans[1]}to{trans[2]}"
+                yield Case(
+                    "swin_block",
+                    f"stage{stage} x{tuple(x.shape)} {'mask' if m is not None else 'nomask'} "
+                    f"{name} {_dtype_name(dt)}",
+                    lambda a=a: sbf.swin_block(*a),
+                    lambda a=a: sbf.swin_block_reference(*a),
+                    _one(TOL[dt]), args=a,
+                    nbytes=2 * _nbytes(x)
+                    + _nbytes(*norm1, *qkv, *proj, *norm2, *fc1, *fc2, bias, m),
+                    flops=bw * N_TOKENS * (24 * c * c + 4 * N_TOKENS * c), matmul=True,
+                )
 
 
 def swin_attn_half_cases(dev) -> Iterator[Case]:
@@ -329,6 +414,8 @@ CASES = {
     "swin_attn_half": swin_attn_half_cases,
     "swin_mlp_half": swin_mlp_half_cases,
     "window_transition": window_transition_cases,
+    "swin_block": swin_block_cases,
+    "dyn_exp_cross_step": dyn_exp_cross_step_cases,
 }
 
 

@@ -1,8 +1,11 @@
-"""The half-block kernels of the window-resident Swin backbone and the
-standalone window transition, each beside its plain version.
+"""The whole-block and half-block kernels of the window-resident Swin backbone
+and the standalone window transition, each beside its plain version.
 
 Replaces, from `on_device_image_captioning_tpu/ops/swin_block_fused.py`:
 
+- `swin_block_fused` -> `swin_block` (B6, `csrc/swin_block.cu`): the whole
+  block in one launch, qkv, the attention output, the post-attention x and
+  the MLP hidden activation never leaving the chip;
 - `swin_attn_half_fused` -> `swin_attn_half` (B4, `csrc/swin_attn_half.cu`):
   x + proj(window_attention(LN1(x))) on the window layout, optionally reading
   x from the previous block's shift layout;
@@ -36,7 +39,9 @@ from .window_attention import HEAD_DIM
 from .window_layout import window_transition_perm
 
 # wrapper calls that launched their kernels since the last reset (plain-version
-# calls do not count); one call of B4 is a chain of three launches, of B5 two
+# calls do not count); one call of B6 is one launch, of B4 a chain of three,
+# of B5 two
+block_launches = 0
 attn_half_launches = 0
 mlp_half_launches = 0
 transition_launches = 0
@@ -115,6 +120,17 @@ def swin_mlp_half_reference(
     return x + linear_reference(h, *fc2)
 
 
+def swin_block_reference(
+    x: torch.Tensor, norm1: Norm, qkv: Linear, proj: Linear, norm2: Norm, fc1: Linear,
+    fc2: Linear, bias: torch.Tensor, mask: Optional[torch.Tensor], heads: int, scale: float,
+    eps: float, transition: Optional[Transition] = None,
+) -> torch.Tensor:
+    """The two halves composed: the TPU kernel's `_block_body` rounds at the
+    same places (LN outputs, every product, GELU, both residual sums)."""
+    x = swin_attn_half_reference(x, norm1, qkv, proj, bias, mask, heads, scale, eps, transition)
+    return swin_mlp_half_reference(x, norm2, fc1, fc2, eps)
+
+
 def _check_device(x: torch.Tensor, name: str) -> bool:
     """True for the kernel (CUDA tensor), False for the plain version (CPU)."""
     if x.device.type == "cpu":
@@ -151,6 +167,85 @@ def _flat(operands):
     return [t for t in operands if t is not None]
 
 
+def _check_attention(name, x, qkv, proj, bias, mask, heads, transition):
+    """What B4 and B6 share: weight shapes, head width, bias and mask, and the
+    transition's geometry. Returns (num_windows, res, window, delta)."""
+    bw, n, c = x.shape
+    if qkv[0].shape != (c, 3 * c) or proj[0].shape != (c, c):
+        raise ValueError(f"{name}: qkv must be (C, 3C) and proj (C, C)")
+    if c != heads * HEAD_DIM:
+        raise ValueError(f"{name}: built for head width {HEAD_DIM}, got {c} / {heads}")
+    if bias.dtype != torch.float32 or bias.shape != (heads, n, n):
+        raise ValueError(f"{name}: bias must be fp32 (H, N, N)")
+    num_windows = 1
+    if mask is not None:
+        num_windows = mask.shape[0]
+        if mask.dtype != torch.float32 or mask.shape[1:] != (n, n) or bw % num_windows:
+            raise ValueError(f"{name}: mask must be fp32 (nW, N, N), nW | BW")
+    res = window = delta = 0
+    if transition is not None:
+        res, from_shift, to_shift = transition
+        window = _window_of(n)
+        if res % window or bw % (res // window) ** 2:
+            raise ValueError(f"{name}: x does not tile the transition's grid")
+        delta = (to_shift - from_shift) % res
+    return num_windows, res, window, delta
+
+
+BLOCK_TOKENS = 144  # the window B6 is built for
+BLOCK_WIDTHS = (192, 384)  # and its widths (Swin-L stages 0 and 1)
+
+
+def swin_block(
+    x: torch.Tensor, norm1: Norm, qkv: Linear, proj: Linear, norm2: Norm, fc1: Linear,
+    fc2: Linear, bias: torch.Tensor, mask: Optional[torch.Tensor], heads: int, scale: float,
+    eps: float, transition: Optional[Transition] = None,
+) -> torch.Tensor:
+    """The whole Swin block on window-partitioned x (B*nW, N, C): the
+    attention half (see `swin_attn_half`, transition included) and the MLP
+    half in one pass. CPU tensors get the plain version; CUDA tensors get
+    kernel B6, which is built for windows of 144 tokens, heads of 32 and
+    C = 192 or 384, and raises on anything else."""
+    global block_launches
+    if not _check_device(x, "swin_block"):
+        return swin_block_reference(
+            x, norm1, qkv, proj, norm2, fc1, fc2, bias, mask, heads, scale, eps, transition)
+    bw, n, c = x.shape
+    if n != BLOCK_TOKENS or c not in BLOCK_WIDTHS:
+        raise ValueError(
+            f"swin_block: B6 takes windows of {BLOCK_TOKENS} tokens at C in {BLOCK_WIDTHS}, "
+            f"got N={n}, C={c}")
+    _check_norm("swin_block", norm1, c)
+    _check_norm("swin_block", norm2, c)
+    _check_linears("swin_block", x.dtype, qkv, proj, fc1, fc2)
+    num_windows, res, window, delta = _check_attention(
+        "swin_block", x, qkv, proj, bias, mask, heads, transition)
+    hidden = fc1[0].shape[1]
+    if fc1[0].shape[0] != c or fc2[0].shape != (hidden, c) or hidden % 96:
+        raise ValueError(
+            "swin_block: fc1 must be (C, hidden) and fc2 (hidden, C), hidden a multiple of 96")
+    _build.check_cuda_tensors(
+        *_flat([x, *norm1, *qkv, *proj, *norm2, *fc1, *fc2, bias, mask]))
+    out = torch.empty_like(x)
+    fn = _build.cuda_function(
+        "swin_block", "swin_block_launch",
+        [_P] * 16 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [_P],
+    )
+    status = fn(
+        x.data_ptr(), norm1[0].data_ptr(), norm1[1].data_ptr(),
+        qkv[0].data_ptr(), _ptr(qkv[1]), proj[0].data_ptr(), _ptr(proj[1]),
+        norm2[0].data_ptr(), norm2[1].data_ptr(),
+        fc1[0].data_ptr(), _ptr(fc1[1]), fc2[0].data_ptr(), _ptr(fc2[1]),
+        bias.data_ptr(), _ptr(mask), out.data_ptr(),
+        bw, n, c, heads, hidden, num_windows, float(scale), float(eps),
+        int(transition is not None), res, window, delta, _DTYPE_CODE[x.dtype],
+        _build.current_stream(),
+    )
+    _build.check_status(status, "swin_block")
+    block_launches += 1
+    return out
+
+
 def swin_attn_half(
     x: torch.Tensor, norm1: Norm, qkv: Linear, proj: Linear, bias: torch.Tensor,
     mask: Optional[torch.Tensor], heads: int, scale: float, eps: float,
@@ -167,26 +262,10 @@ def swin_attn_half(
     bw, n, c = x.shape
     _check_norm("swin_attn_half", norm1, c)
     _check_linears("swin_attn_half", x.dtype, qkv, proj)
-    if qkv[0].shape != (c, 3 * c) or proj[0].shape != (c, c):
-        raise ValueError("swin_attn_half: qkv must be (C, 3C) and proj (C, C)")
-    if c != heads * HEAD_DIM:
-        raise ValueError(f"swin_attn_half: B4 takes head width {HEAD_DIM}, got {c} / {heads}")
+    num_windows, res, window, delta = _check_attention(
+        "swin_attn_half", x, qkv, proj, bias, mask, heads, transition)
     if 2 * n * HEAD_DIM * 4 > 48 * 1024:
         raise ValueError(f"swin_attn_half: window of {n} tokens exceeds shared memory")
-    if bias.dtype != torch.float32 or bias.shape != (heads, n, n):
-        raise ValueError("swin_attn_half: bias must be fp32 (H, N, N)")
-    num_windows = 1
-    if mask is not None:
-        num_windows = mask.shape[0]
-        if mask.dtype != torch.float32 or mask.shape[1:] != (n, n) or bw % num_windows:
-            raise ValueError("swin_attn_half: mask must be fp32 (nW, N, N), nW | BW")
-    res = window = delta = 0
-    if transition is not None:
-        res, from_shift, to_shift = transition
-        window = _window_of(n)
-        if res % window or bw % (res // window) ** 2:
-            raise ValueError("swin_attn_half: x does not tile the transition's grid")
-        delta = (to_shift - from_shift) % res
     _build.check_cuda_tensors(*_flat([x, *norm1, *qkv, *proj, bias, mask]))
     qkv_buf = torch.empty((bw, n, 3 * c), dtype=x.dtype, device=x.device)
     attn_buf = torch.empty_like(x)

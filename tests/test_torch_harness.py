@@ -212,7 +212,8 @@ def test_port_imports_neither_jax_nor_triton():
         names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
         mods = {n: importlib.import_module(n) for n in names}
         assert len(names) >= 25, names
-        for leaf in ("api", "cli.demo", "cli.breakdown", "data.text", "ops.stage_boundary",
+        for leaf in ("api", "cli.demo", "cli.breakdown", "data.text", "decode.sampling",
+                     "ops.stage_boundary",
                      "ops.swin_block_fused", "ops.window_layout", "utils.image"):
             assert port.__name__ + "." + leaf in mods, leaf
         from on_device_image_captioning_torch import api, config
@@ -230,12 +231,15 @@ def test_port_imports_neither_jax_nor_triton():
             model = end_to_end.init_weights(end_to_end.EndExpansionNetV2(cfg),
                                             torch.Generator().manual_seed(0))
             imgs = np.zeros((1, 32, 32, 3), np.uint8)
-            api.Captioner(model, cfg, {"beam_size": 2, "beam_max_seq_len": 6}, device="cpu")(imgs)
+            for step_impl in ("pallas", "pallas_fused"):
+                api.Captioner(model, cfg, {"beam_size": 2, "beam_max_seq_len": 6}, device="cpu",
+                              step_impl=step_impl)(imgs)
         counts = [m.launches for m in (dyn_exp_step, layernorm, topk, window_attention)]
         counts += [stage_boundary.patch_embed_launches, stage_boundary.downsample_launches,
                    swin_block_fused.attn_half_launches, swin_block_fused.mlp_half_launches,
-                   swin_block_fused.transition_launches]
-        assert counts == [0] * 9, counts
+                   swin_block_fused.transition_launches, swin_block_fused.block_launches,
+                   dyn_exp_step.cross_launches]
+        assert counts == [0] * 11, counts
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "triton", "on_device_image_captioning_tpu")]
         assert not bad, bad

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from on_device_image_captioning_torch.ops import _cases
+from on_device_image_captioning_torch.ops import dyn_exp_step as k2
 from on_device_image_captioning_torch.ops import stage_boundary as sb
 from on_device_image_captioning_torch.ops import swin_block_fused as sbf
 from on_device_image_captioning_torch.ops import topk as k3
@@ -89,3 +90,63 @@ def test_window_resident_kernels_raise_outside_their_shapes(cuda):
                             ones(768, 384), 3, 12, 1e-5)
     assert before == (sbf.attn_half_launches, sbf.mlp_half_launches, sbf.transition_launches,
                       sb.patch_embed_launches, sb.downsample_launches)
+
+
+@pytest.mark.cuda
+def test_swin_block_raises_outside_its_shapes(cuda):
+    """B6 is built for windows of 144 tokens, heads of 32 and C = 192 or 384;
+    on the card the wrapper launches it or raises."""
+    ones = lambda *shape: torch.ones(shape, device=cuda)  # noqa: E731
+    norm = lambda c: (ones(c), ones(c))  # noqa: E731
+
+    def block(x, c, heads, hidden=None, n=144, dtype=torch.float32):
+        hidden = hidden or 4 * c
+        lin = lambda k, m: (ones(k, m).to(dtype), None)  # noqa: E731
+        return sbf.swin_block(x, norm(c), lin(c, 3 * c), lin(c, c), norm(c), lin(c, hidden),
+                              lin(hidden, c), ones(heads, n, n), None, heads, 0.125, 1e-5)
+
+    before = sbf.block_launches
+    with pytest.raises(ValueError, match="C in"):  # stage 2 runs the halves
+        block(torch.randn((4, 144, 768), device=cuda), 768, 24)
+    with pytest.raises(ValueError, match="144 tokens"):
+        block(torch.randn((4, 16, 192), device=cuda), 192, 6, n=16)
+    with pytest.raises(ValueError, match="head width"):
+        block(torch.randn((4, 144, 192), device=cuda), 192, 3)
+    with pytest.raises(ValueError, match="multiple of 96"):
+        block(torch.randn((4, 144, 192), device=cuda), 192, 6, hidden=800)
+    with pytest.raises(ValueError, match="weights must be"):
+        block(torch.randn((4, 144, 192), device=cuda).bfloat16(), 192, 6)
+    assert sbf.block_launches == before
+
+
+@pytest.mark.cuda
+def test_dyn_exp_cross_step_raises_outside_its_shapes(cuda):
+    """B16 takes compute dtype == cache dtype, fp32 pad masks, one K/V row per
+    group of rows, and distinct source and destination caches."""
+    case = next(c for c in _cases.dyn_exp_cross_step_cases(cuda) if "B5" in c.label)
+    (pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, y, ln2, wq, bq, wo, bo,
+     kc, vc, mask, src) = case.args
+    dst = [torch.empty_like(t) for t in src]
+    kw = dict(heads=8, ln_eps=1e-5, attn_fill=-1e4, group=5, eps=1e-9,
+              compute_dtype=torch.float32)
+
+    def step(**over):
+        a = dict(wq=wq, mask=mask, dst=dst, kw=kw)
+        a.update(over)
+        return k2.dyn_exp_cross_step(
+            pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, y, ln2, a["wq"],
+            bq, wo, bo, kc, vc, a["mask"], src, a["dst"], **a["kw"])
+
+    before = k2.cross_launches
+    with pytest.raises(ValueError, match="compute dtype == cache dtype"):
+        step(kw=dict(kw, compute_dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="enc_mask must be fp32"):
+        step(mask=mask > 0)
+    with pytest.raises(ValueError, match="groups of"):
+        step(kw=dict(kw, group=2))
+    with pytest.raises(ValueError, match="wq, wo must be"):
+        step(wq=wq.bfloat16())
+    with pytest.raises(ValueError, match="alias"):
+        step(dst=list(src))
+    assert k2.cross_launches == before
+    assert step().shape == (5, 512) and k2.cross_launches == before + 1

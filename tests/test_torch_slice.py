@@ -85,9 +85,9 @@ def test_captioner_bf16_runs_and_is_well_formed():
 def test_captioner_rejects_unported_modes_and_mismatched_models():
     _, model = e2e_pair(TINY_E2E, 21)
     captioner = Captioner(model, TINY_E2E, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        captioner(np.zeros((1, 32, 32, 3), np.uint8), mode="sampling")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown mode"):  # "forward" is not ported
+        captioner(np.zeros((1, 32, 32, 3), np.uint8), mode="forward")
+    with pytest.raises(ValueError, match="ModelConfig"):
         Captioner(model, TINY_E2E.captioner, device="cpu")
 
 
