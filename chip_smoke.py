@@ -2,7 +2,11 @@
 """Smoke test of the PyTorch port (`on_device_image_captioning_torch`) on one
 NVIDIA card: the quickest proof that the port builds, is right and runs.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [kernel ...]
+
+With kernel names (keys of KERNELS, e.g. `swin_attn_bwd swin_mlp_bwd`) only
+phases 1-3 and the kernels' part of phase 6 run, for those kernels, and no
+result line is printed: the quick check while working on a kernel.
 
 Phases, in order (any failure raises and exits non-zero before the result):
 
@@ -25,16 +29,33 @@ Phases, in order (any failure raises and exits non-zero before the result):
    runs' encoder outputs must agree within the bf16 tolerance. Then a
    sampling run (8 images x 5 samples, 20 tokens) and a two-model ensemble
    run on the same path, checked for shape.
+   Training (run "train"): Swin-L/384 + the d512 captioner on the "fused"
+   path at full width and depth, bf16 compute over fp32 master weights, 4
+   images, stochastic depth 0.1, caption-head dropouts 0.1, captions of 20
+   random ids, `train/train_step.py::make_xe_step` with PlainRAdam (RAdam
+   with its SGD fallback: plain RAdam takes no step at all before its
+   fifth), four steps on one batch. The loss must be finite at every step
+   and lower at the last than at the first, every parameter must have a
+   finite gradient, and in every step each training kernel must have been
+   launched exactly as often as the model has blocks (the counters are set
+   to 0 before each step and read after it).
 5. The runs held to the plain path: 2 images at fp32 through each run on the
    card and through the plain path on the CPU, same weights; then sampling
    and the ensemble, card against CPU with the same noise, and the two
    decode-step paths against each other.
+   Training held to the plain path: fp32, depths cut to (2, 2, 2, 2) at full
+   width, 2 images, no dropout, the same stochastic-depth scales: loss and
+   every gradient of the kernel path on the card against the plain path on
+   the CPU; then once more with the CPU's ReLU signs imposed on the card's
+   caption head, which holds every gradient to a quarter of the backbone's
+   tolerance.
 6. Times: each kernel against its plain version, its bound (the least time
    the card could take, from the case's bytes and operations) and, where one
    PyTorch call computes the same function, that call (CUDA events); encode
    ms of the three backbone forms; decode ms per step of both step paths;
    end-to-end img/s at b8/beam 3/L20 and p50 latency at b1/beam 5/L74, bf16,
-   on the default path.
+   on the default path; ms per XE step at b4 bf16 with its split into
+   forward, backward and optimizer, and the step's peak device memory.
 
 The next-to-last line is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
@@ -62,6 +83,8 @@ RUNS = {
 }
 ALL_RUNS = tuple(RUNS)
 WINDOW_RUNS = ("fused", "fused_halves")
+TRAIN = "train"  # the training run of phase 4: XE steps on the "fused" path
+B_TRAIN, L_TRAIN, TRAIN_STEPS, TRAIN_LR = 4, 20, 4, 2e-3
 # published peaks of one H100 SXM (dense): device memory bytes/s; bf16 matrix
 # products on the tensor cores; fp32 outside them
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
@@ -86,7 +109,7 @@ KERNELS = {
     "layernorm": dict(
         route="triton", source=_PORT + "ops/layernorm.py",
         replaces=_TPU + "layernorm.py:36", counter=("layernorm", "launches"),
-        paths=ALL_RUNS, headline="(18432, 192) bfloat16"),
+        paths=ALL_RUNS + (TRAIN,), headline="(18432, 192) bfloat16"),
     "patch_embed": dict(
         route="cuda", source=_PORT + "csrc/stage_boundary.cu",
         replaces=_TPU + "stage_boundary.py:100",
@@ -111,7 +134,7 @@ KERNELS = {
         route="cuda", source=_PORT + "csrc/window_transition.cu",
         replaces=_TPU + "swin_block_fused.py:625",
         counter=("swin_block_fused", "transition_launches"),
-        paths=WINDOW_RUNS, headline="stage0 x(128, 144, 192) 6to0 bfloat16"),
+        paths=WINDOW_RUNS + (TRAIN,), headline="stage0 x(128, 144, 192) 6to0 bfloat16"),
     "swin_block": dict(
         route="cuda", source=_PORT + "csrc/swin_block.cu",
         replaces=_TPU + "swin_block_fused.py:677",
@@ -122,7 +145,38 @@ KERNELS = {
         replaces=_TPU + "dyn_exp_step.py:502",
         counter=("dyn_exp_step", "cross_launches"),
         paths=("fused",), headline="B24 L20 pos7 bfloat16"),
+    "swin_block_train": dict(
+        route="cuda", source=_PORT + "csrc/swin_block.cu",
+        replaces=_TPU + "swin_block_fused.py:1285",
+        counter=("swin_block_fused", "block_train_launches"),
+        paths=(TRAIN,), headline="stage0 x(128, 144, 192) mask bfloat16"),
+    "swin_attn_bwd": dict(
+        route="cuda", source=_PORT + "csrc/swin_attn_bwd.cu",
+        replaces=_TPU + "swin_block_fused.py:2063",
+        counter=("swin_block_fused", "attn_bwd_launches"),
+        paths=(TRAIN,), headline="stage0 x(128, 144, 192) mask bfloat16"),
+    "swin_mlp_bwd": dict(
+        route="cuda", source=_PORT + "csrc/swin_mlp_bwd.cu",
+        replaces=_TPU + "swin_block_fused.py:1547",
+        counter=("swin_block_fused", "mlp_bwd_launches"),
+        paths=(TRAIN,), headline="stage0 x(128, 144, 192) bfloat16"),
+    "swin_attn_half_train": dict(
+        route="cuda", source=_PORT + "csrc/swin_attn_half.cu",
+        replaces=_TPU + "swin_block_fused.py:2274",
+        counter=("swin_block_fused", "attn_half_train_launches"),
+        paths=(TRAIN,), headline="stage2 x(8, 144, 768) mask bfloat16"),
+    "swin_mlp_half_train": dict(
+        route="cuda", source=_PORT + "csrc/swin_mlp_half.cu",
+        replaces=_TPU + "swin_block_fused.py:2396",
+        counter=("swin_block_fused", "mlp_half_train_launches"),
+        paths=(TRAIN,), headline="stage2 x(8, 144, 768) bfloat16"),
 }
+# launches of the training kernels in one XE step of Swin-L (depths 2, 2, 18,
+# 2): the whole-block forward at stages 0 and 1, the two half forwards at
+# stage 2, both backwards once per block of stages 0-2, and a transition
+# before every shifted block and after it, forward and backward
+TRAIN_LAUNCHES = {"swin_block_train": 4, "swin_attn_half_train": 18, "swin_mlp_half_train": 18,
+                  "swin_attn_bwd": 22, "swin_mlp_bwd": 22, "window_transition": 44}
 # launches of the window-resident kernels in one encode of Swin-L (depths
 # 2, 2, 18, 2): one per block of stages 0-2 (the whole-block kernel at stages
 # 0 and 1 unless every stage is on the halves), one per stage boundary, and
@@ -154,6 +208,7 @@ class Smoke:
         self.times = {}
         self.launches = {}  # run -> kernel -> launches in that main-path run
         self.serve = {}  # run -> bf16 Captioner at b8 / beam 3 / L20
+        self.trainer = None  # (cfg, model, optimizer, step, batch, generator) of the training run
 
     # -- helpers -------------------------------------------------------------
     def check(self, case) -> None:
@@ -262,14 +317,14 @@ class Smoke:
             f"the rest is the Triton JIT)")
 
     # -- phase 3 ---------------------------------------------------------------
-    def kernels(self):
+    def kernels(self, names=None):
         torch = self.torch
         from on_device_image_captioning_torch.ops import _cases
 
         log("phase 3 kernels against their plain versions (on the card; "
             "cases and tolerances from ops/_cases.py)")
-        for make in _cases.CASES.values():
-            for case in make(self.dev):
+        for name in names or _cases.CASES:
+            for case in _cases.CASES[name](self.dev):
                 self.check(case)
         torch.cuda.synchronize()
 
@@ -535,15 +590,215 @@ class Smoke:
         del gpu, gpu_model, gpu_model2, fused
         torch.cuda.empty_cache()
 
-    # -- phase 6 ---------------------------------------------------------------
-    def timing(self):
+    # -- training --------------------------------------------------------------
+    def train_model(self, dtype, device, depths=None, dropout=0.1):
+        """(cfg, model) of the training run: the "fused" path with stochastic
+        depth 0.1 and the caption head's dropouts, seeded random weights."""
+        import dataclasses
+
         torch = self.torch
-        from on_device_image_captioning_torch.api import Captioner
+        from on_device_image_captioning_torch.config import DropConfig, end_expansionnet_v2_coco
+        from on_device_image_captioning_torch.models.end_to_end import (
+            EndExpansionNetV2, init_weights,
+        )
+
+        drop = DropConfig(*([dropout] * 5))
+        cfg = end_expansionnet_v2_coco(drop, compute_dtype=dtype)
+        swin = dataclasses.replace(cfg.swin, attention_impl="fused", drop_path_rate=0.1)
+        if depths is not None:
+            swin = dataclasses.replace(swin, depths=depths)
+        cfg = dataclasses.replace(cfg, swin=swin)
+        model = init_weights(EndExpansionNetV2(cfg), torch.Generator().manual_seed(SEED))
+        return cfg, model.to(device)
+
+    def train_batch(self, n, cfg, device):
+        torch = self.torch
+        rng = np.random.default_rng(SEED + 7)
+        cap = cfg.captioner
+        captions = rng.integers(4, cap.vocab_size, (n, L_TRAIN))
+        captions[:, 0] = cap.sos_idx
+        return {"enc_input": torch.from_numpy(self.images(n, SEED + 7)).to(device),
+                "captions": torch.from_numpy(captions).to(device)}
+
+    def train_path(self):
+        """Phase 4, training: XE steps at full width and depth on the card."""
+        torch = self.torch
+        from on_device_image_captioning_torch.train.radam import PlainRAdam
+        from on_device_image_captioning_torch.train.train_step import make_xe_step
+
+        cfg, model = self.train_model(torch.bfloat16, self.dev)
+        batch = self.train_batch(B_TRAIN, cfg, self.dev)
+        optimizer = PlainRAdam(model.parameters(), TRAIN_LR)
+        step = make_xe_step(model, cfg, optimizer)
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        losses = []
+        for i in range(TRAIN_STEPS):
+            self.counters(reset=True)
+            losses.append(float(step(batch, gen)["loss"]))
+            torch.cuda.synchronize()
+            counts = self.counters()
+            got = {k: counts[k] for k in TRAIN_LAUNCHES}
+            if got != TRAIN_LAUNCHES:
+                raise AssertionError(f"training launches {got} != {TRAIN_LAUNCHES} in step {i}")
+            for name, k in KERNELS.items():
+                if (counts[name] > 0) != (TRAIN in k["paths"]):
+                    raise AssertionError(
+                        f"kernel {name}: {counts[name]} launches in an XE step, which "
+                        f"{'runs' if TRAIN in k['paths'] else 'does not run'} it")
+        self.launches[TRAIN] = counts
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        log(f"phase 4 training, run {TRAIN!r}: Swin-L/384 depths {cfg.swin.depths} + d512 "
+            f"captioner, attention_impl='fused', stage modes {model.swin_transf.stage_modes}, "
+            f"bf16 over fp32 masters, b{B_TRAIN}, drop-path 0.1, dropouts 0.1, captions of "
+            f"{L_TRAIN} ids, PlainRAdam lr {TRAIN_LR}: loss per step "
+            f"{[round(x, 4) for x in losses]}; launches per step {counts}; "
+            f"{sum(1 for _ in model.parameters())} parameters, {len(bad)} without a finite gradient")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"XE loss not finite or not falling: {losses}")
+        if bad:
+            raise AssertionError(f"parameters without a finite gradient: {bad[:5]}")
+        self.trainer = (cfg, model, optimizer, step, batch, gen)
+
+    def relu_signs(self, fn, impose=None):
+        """fn() with `torch.relu` replaced for the call (only the caption head
+        calls it): returns fn's result and the pattern `x > 0` of every call,
+        in order, on the CPU. With `impose`, such a list, each call passes its
+        input where the pattern says so and 0 elsewhere, whatever the input's
+        own sign, and its gradient follows the pattern too."""
+        torch = self.torch
+        real, seen, given = torch.relu, [], iter(impose or ())
+
+        def relu(x):
+            seen.append((x > 0).cpu())
+            if impose is None:
+                return real(x)
+            return torch.where(next(given).to(x.device), x, torch.zeros_like(x))
+
+        torch.relu = relu
+        try:
+            return fn(), seen
+        finally:
+            torch.relu = real
+
+    def train_check(self):
+        """Phase 5, training: fp32 loss and gradients of the kernel path on the
+        card against the plain path on the CPU, depths (2, 2, 2, 2)."""
+        torch = self.torch
+        from on_device_image_captioning_torch.models.common import drop_path_scale
+        from on_device_image_captioning_torch.train.train_step import xe_loss
+
+        depths = (2, 2, 2, 2)
+        cfg, cpu_model = self.train_model(torch.float32, "cpu", depths, dropout=0.0)
+        gen = torch.Generator().manual_seed(SEED + 9)
+        scales = [(drop_path_scale(0.3, 2, gen, "cpu"), drop_path_scale(0.3, 2, gen, "cpu"))
+                  for _ in range(sum(depths))]
+        batch = self.train_batch(2, cfg, "cpu")
+        loss_c, signs_c = self.relu_signs(
+            lambda: xe_loss(cpu_model, cfg, batch, drop_path_scales=scales))
+        loss_c.backward()
+        want = {n: p.grad for n, p in cpu_model.named_parameters()}
+        top = max(float(g.abs().max()) for g in want.values())
+        loss_c = float(loss_c.detach())
+        _, gpu_model = self.train_model(torch.float32, self.dev, depths, dropout=0.0)
+        gpu_batch = {k: v.to(self.dev) for k, v in batch.items()}
+        gpu_scales = [tuple(m.to(self.dev) for m in pair) for pair in scales]
+
+        def card(tols, impose=None):
+            """One forward and backward on the card: (loss, ReLU patterns,
+            per group the worst gradient as a share of its tolerance)."""
+            gpu_model.zero_grad(set_to_none=True)
+            loss, signs = self.relu_signs(
+                lambda: xe_loss(gpu_model, cfg, gpu_batch, drop_path_scales=gpu_scales), impose)
+            loss.backward()
+            torch.cuda.synchronize()
+            worst = {group: (0.0, "") for group in tols}
+            for name, p in gpu_model.named_parameters():
+                group = "swin_transf." if name.startswith("swin_transf.") else "caption head"
+                w, tol = want[name], tols[group]
+                err = float((p.grad.cpu() - w).abs().max())
+                share = err / (tol * float(w.abs().max()) + 0.1 * tol * top)
+                if not share <= worst[group][0]:  # also catches NaN
+                    worst[group] = (share, name)
+            return float(loss.detach()), signs, worst
+
+        def held(loss, worst):
+            return abs(loss - loss_c) <= 2e-4 * abs(loss_c) and all(
+                v <= 1.0 for v, _ in worst.values())
+
+        def show(tols, worst):
+            return "; ".join(f"{g} (tol {tols[g]:g}) {v:.3f} at {n}" for g, (v, n) in worst.items())
+
+        # fp32 on both sides through 8 blocks and 6 caption layers, forward and
+        # backward: the sums run in another order (atomic adds on the card). Each
+        # gradient is held relative to its own largest magnitude, plus a tenth
+        # of that relative to the largest gradient of the model for the tensors
+        # that are zero in exact arithmetic (the k bias under the softmax, a
+        # LayerNorm bias under the next norm). Free-running, the caption head
+        # (the same plain tensor code on both sides) gets 1e-3: another
+        # summation order flips a ReLU (FF, the expansions' ReLU(+-z)) wherever
+        # its input is within rounding of 0, and that moves one term of a
+        # weight gradient outright (and, through the head's backward, the
+        # backbone's gradients by less). The second pass shows it: the flips
+        # are counted (3 of 5.6 million on an H100), and with the CPU's ReLU
+        # patterns imposed on the card's head every gradient, the head's too,
+        # is held to 5e-5.
+        free_tols = {"swin_transf.": 2e-4, "caption head": 1e-3}
+        same_tols = {"swin_transf.": 5e-5, "caption head": 5e-5}
+        self.counters(reset=True)
+        loss_g, signs_g, free = card(free_tols)
+        counts = self.counters()
+        flips = sum(int((a != b).sum()) for a, b in zip(signs_g, signs_c))
+        loss_s, _, same = card(same_tols, impose=signs_c)
+        log(f"phase 5 training fp32, depths {depths}, b2, card kernels vs CPU plain path: loss "
+            f"{loss_g:.6f} vs {loss_c:.6f} (tol 2e-4 relative); gradients of {len(want)} "
+            f"parameters, each within tol x its tensor's max + 0.1 tol x the largest gradient "
+            f"({top:.3e}); worst share of that: {show(free_tols, free)}; launches "
+            f"{({k: counts[k] for k in TRAIN_LAUNCHES})}")
+        log(f"  {flips} of {sum(a.numel() for a in signs_c)} ReLU inputs in {len(signs_c)} calls "
+            f"have another sign on the card than on the CPU; with the CPU's signs imposed on the "
+            f"card: loss {loss_s:.6f}, worst share: {show(same_tols, same)}")
+        if len(signs_g) != len(signs_c) or not (held(loss_g, free) and held(loss_s, same)):
+            raise AssertionError("the training kernel path and the plain path disagree at fp32")
+        if counts["swin_block_train"] != 4 or counts["swin_attn_bwd"] != 6:
+            raise AssertionError("the fp32 training check did not go through the kernels")
+
+    def train_timing(self):
+        """Phase 6, training: ms per XE step and its split (CUDA events around
+        forward, backward and optimizer of the same steps), peak memory."""
+        torch = self.torch
+        from on_device_image_captioning_torch.train.train_step import xe_loss
+
+        cfg, model, optimizer, step, batch, gen = self.trainer
+        torch.cuda.reset_peak_memory_stats()
+        marks = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            optimizer.zero_grad(set_to_none=True)
+            ev[0].record()
+            loss = xe_loss(model, cfg, batch, gen)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            optimizer.step()
+            ev[3].record()
+            torch.cuda.synchronize()
+            marks.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        fwd, bwd, opt = (statistics.median(m[i] for m in marks) for i in range(3))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        whole = self.cuda_time(lambda: step(batch, gen), iters=3, warmup=0)
+        log(f"  XE step b{B_TRAIN} bf16, Swin-L/384 + d512, drop-path 0.1, dropouts 0.1: "
+            f"{whole:.2f} ms per step (CUDA events, 3 steps); forward {fwd:.2f} ms, backward "
+            f"{bwd:.2f} ms, optimizer {opt:.2f} ms (medians of 3 steps {marks}); peak device "
+            f"memory {peak:.0f} MiB of this step | {self.card}")
+
+    # -- phase 6 ---------------------------------------------------------------
+    def kernel_timing(self, names=None):
         from on_device_image_captioning_torch.ops import _cases
 
         log(f"phase 6 times, CUDA events, ms per call ({self.card})")
-        for make in _cases.CASES.values():
-            for case in make(self.dev):
+        for name in names or _cases.CASES:
+            for case in _cases.CASES[name](self.dev):
                 ms = self.cuda_time(case.run_kernel)
                 plain_ms = self.cuda_time(case.run_plain)
                 library = self.library_call(case)
@@ -559,6 +814,10 @@ class Smoke:
                 log(f"  {case.kernel} {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"bound {bound_ms:.5f} ms by {bound_by} ({case.nbytes} B, {case.flops} flop), "
                     f"library {lib} | {self.card}")
+
+    def path_timing(self):
+        torch = self.torch
+        from on_device_image_captioning_torch.api import Captioner
 
         imgs8 = self.images(B_SERVE, SEED + 2)
         order = ("pallas", "fused", "fused_halves", "fused_halves", "fused", "pallas")
@@ -614,22 +873,35 @@ class Smoke:
             f"(runs {[round(1000 * s, 2) for s in lat_s]} ms) | {self.card}")
 
 
-def main() -> int:
+def main(names) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
+    unknown = [n for n in names if n not in KERNELS]
+    if unknown:
+        print(f"chip_smoke: no kernel named {unknown}; there are {list(KERNELS)}", file=sys.stderr)
+        return 1
     smoke = Smoke(torch)
     smoke.device()
     smoke.build()
+    if names:
+        smoke.kernels(names)
+        smoke.kernel_timing(names)
+        log(f"checked and timed {names} only: no result")
+        return 0
     smoke.kernels()
     smoke.main_path()
+    smoke.train_path()
     smoke.self_check()
-    smoke.timing()
+    smoke.train_check()
+    smoke.kernel_timing()
+    smoke.path_timing()
+    smoke.train_timing()
     kernels = []
     for name, k in KERNELS.items():
-        by_path = {r: smoke.launches[r][name] for r in RUNS}
+        by_path = {r: smoke.launches[r][name] for r in smoke.launches}
         kernels.append({
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"], "launches": by_path[k["paths"][0]],
@@ -644,4 +916,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

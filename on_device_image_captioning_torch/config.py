@@ -22,8 +22,9 @@ ATTENTION_IMPLS = ("pallas", "fused")
 
 @dataclasses.dataclass(frozen=True)
 class DropConfig:
-    """Dropout rates (reference: train.py drop_args Namespace). Inference
-    ignores them; they are kept so configs round-trip with the JAX package."""
+    """Dropout rates of the caption head (reference: train.py drop_args
+    Namespace). Inference ignores them; the training forward (`train=True`
+    with a `torch.Generator`) applies them."""
 
     enc: float = 0.0
     dec: float = 0.0

@@ -41,6 +41,9 @@
 
 #include <mma.h>
 
+#include <cstdint>
+#include <type_traits>
+
 #include "common.cuh"
 #include "window_layout.cuh"
 
@@ -62,6 +65,11 @@ struct LinearArgs {
   Geometry geo;
   float eps;
   int gelu;
+  // per-image scale on the product before the residual add (the training
+  // forwards' stochastic-depth scale): row r takes row_scale[r / scale_rows];
+  // null = 1
+  const float* row_scale;
+  int scale_rows;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -137,15 +145,21 @@ __device__ __forceinline__ void row_stats(const LinearArgs& p,
 }
 
 // One output value through the epilogue: + bias and round; GELU and round;
-// + residual and round. `res` is the residual value (ignored without one).
+// + residual and round. `res` is the residual value (ignored without one) and
+// `m` the row's scale on the rounded product (1 without one: res + 1 * v is
+// res + v exactly).
 template <typename T>
 __device__ __forceinline__ float epilogue(const LinearArgs& p, float v, int c,
-                                          bool has_resid, float res) {
+                                          bool has_resid, float res, float m) {
   if (p.bias != nullptr) v += p.bias[c];
   v = round_t<T>(v);
   if (p.gelu) v = round_t<T>(gelu_exact(v));
-  if (has_resid) v = round_t<T>(res + v);
+  if (has_resid) v = round_t<T>(res + m * v);
   return v;
+}
+
+__device__ __forceinline__ float row_scale_of(const LinearArgs& p, long r) {
+  return p.row_scale == nullptr ? 1.0f : p.row_scale[r / p.scale_rows];
 }
 
 // acc += As^T . Bs for one K slab already in shared memory.
@@ -229,13 +243,14 @@ __global__ void __launch_bounds__(kThreads) fused_linear_kernel(LinearArgs p) {
     const long r = m0 + ty + 16 * i;
     if (r >= p.M) continue;
     const long rr = resid == nullptr ? 0 : map_row(p.resid_map, r, 0, p.geo);
+    const float m = row_scale_of(p, r);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = n0 + tx + 16 * j;
       if (c >= p.N) continue;
       const bool has_resid = resid != nullptr;
       const float v = epilogue<T>(
-          p, acc[i][j], c, has_resid, has_resid ? to_f<T>(resid[rr * p.N + c]) : 0.f);
+          p, acc[i][j], c, has_resid, has_resid ? to_f<T>(resid[rr * p.N + c]) : 0.f, m);
       if constexpr (LN_OUT)
         Cs[ty + 16 * i][tx + 16 * j] = v;
       else
@@ -391,6 +406,7 @@ __global__ void __launch_bounds__(kThreads) fused_linear_mma_kernel(LinearArgs p
     const long r = m0 + 32 * wm + 16 * i + pr;
     const bool row_ok = r < p.M;
     const long rr = (row_ok && resid != nullptr) ? map_row(p.resid_map, r, 0, p.geo) : 0;
+    const float m = row_ok ? row_scale_of(p, r) : 1.0f;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       wmma::store_matrix_sync(patch, acc[i][j], 16, wmma::mem_row_major);
@@ -410,7 +426,7 @@ __global__ void __launch_bounds__(kThreads) fused_linear_mma_kernel(LinearArgs p
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           o[e] = __float2bfloat16(epilogue<T>(p, accf[e], c + e, resid != nullptr,
-                                              __bfloat162float(res[e])));
+                                              __bfloat162float(res[e]), m));
         *reinterpret_cast<uint4*>(out + r * p.N + c) = out_raw;
       }
       __syncwarp();
@@ -454,4 +470,337 @@ cudaError_t launch_linear_wide<__nv_bfloat16>(const LinearArgs& p, cudaStream_t 
 template <typename T>
 static cudaError_t launch_linear_rows(const LinearArgs& p, cudaStream_t s) {
   return launch_linear<T, 2, 12, true>(p, s);
+}
+
+// ---------------------------------------------------------------------------
+// The products of the training backwards. The TPU backward kernels
+// (ops/swin_block_fused.py `_mlp_bwd_kernel`, `_attn_bwd_kernel`) form, beside
+// x @ W, the two shapes a forward never needs:
+//   dY @ W^T   contract over the OUTPUT width of W (the input gradients), and
+//   A^T @ B    reduced over the rows (the weight gradients, fp32 sums).
+// One kernel serves all three: operands are addressed by strides,
+//   A(m, k) = a[m * sam + k * sak]     B(k, n) = b[k * sbk + n * sbn],
+// so a transpose is a swap of two strides. Products of the stored values are
+// summed in fp32 (fp32 inputs on the CUDA cores as full fp32, bf16 inputs on
+// the tensor cores), as `preferred_element_type=float32` does there.
+//
+// The TPU kernels carry the weight-gradient sums across a sequential grid in
+// resident accumulators. Here the rows are split over blockIdx.z and every
+// CTA adds its partial tile into the fp32 output with atomicAdd; the caller
+// zeroes the output. The order of those additions varies from run to run.
+//
+// Epilogues (what the backward bodies do right after a product):
+//   kEpiPlain    v = acc + bias; stored as fp32 (out_f) and/or rounded (out_t)
+//   kEpiGeluFwd  v = acc + bias kept in fp32 (aux), out_t = round(GELU(v)):
+//                the recomputed h1 and g of `_mlp_bwd_kernel`
+//   kEpiGeluBwd  out_t = round(acc * GELU'(aux)): dh1 = dg * GELU'(h1)
+// gemm_kernel (fp32) loads its tiles element by element, at any stride;
+// gemm_mma_kernel (bf16) moves them in 16-byte chunks and takes the three
+// operand layouts the backwards give it. PERF.md has the times.
+enum GemmEpilogue { kEpiPlain = 0, kEpiGeluFwd = 1, kEpiGeluBwd = 2 };
+
+struct GemmArgs {
+  const void* a;
+  long sam, sak;
+  const void* b;
+  long sbk, sbn;
+  int M, N, K;
+  int k_chunk;        // reduction length of one blockIdx.z (set by launch_gemm)
+  const float* bias;  // (N) or null
+  float* out_f;       // fp32 (M, N): stored, or added atomically when split
+  void* out_t;        // storage type (M, N), rounded; or null
+  float* aux;         // fp32 (M, N) pre-activation of the GELU epilogues
+  int epi;
+};
+
+// d/dv of the exact GELU: Phi(v) + v phi(v)
+__device__ __forceinline__ float gelu_grad(float v) {
+  return 0.5f * (1.0f + erff(v * 0.7071067811865476f)) +
+         v * expf(-0.5f * v * v) * 0.3989422804014327f;
+}
+
+template <typename T>
+__device__ __forceinline__ void gemm_store(const GemmArgs& p, long r, int c, float v) {
+  const long at = r * p.N + c;
+  if (p.epi == kEpiGeluBwd) {
+    v *= gelu_grad(p.aux[at]);
+  } else if (p.bias != nullptr) {
+    v += p.bias[c];
+  }
+  if (p.epi == kEpiGeluFwd) {
+    p.aux[at] = v;
+    v = gelu_exact(v);
+  }
+  if (p.out_f != nullptr) {
+    if (gridDim.z > 1)
+      atomicAdd(p.out_f + at, v);
+    else
+      p.out_f[at] = v;
+  }
+  if (p.out_t != nullptr) static_cast<T*>(p.out_t)[at] = from_f<T>(v);
+}
+
+// fp32 on the CUDA cores: the 128 x 96 tile and block_gemm of above.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
+  constexpr int TM = 8, TN = 6, BM = 16 * TM, BN = 16 * TN;
+  __shared__ float As[kBK][BM + 1];
+  __shared__ float Bs[kBK][BN];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long m0 = (long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int kbeg = blockIdx.z * p.k_chunk;
+  const int kend = min(p.K, kbeg + p.k_chunk);
+  const T* a = static_cast<const T*>(p.a);
+  const T* b = static_cast<const T*>(p.b);
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
+    // consecutive threads along whichever index is contiguous in memory
+    for (int e = tid; e < BM * kBK; e += kThreads) {
+      int m, kk;
+      if (p.sak == 1) { kk = e % kBK; m = e / kBK; } else { m = e % BM; kk = e / BM; }
+      const long r = m0 + m;
+      const int k = k0 + kk;
+      As[kk][m] = (r < p.M && k < kend) ? to_f<T>(a[r * p.sam + k * p.sak]) : 0.f;
+    }
+    for (int e = tid; e < kBK * BN; e += kThreads) {
+      int n, kk;
+      if (p.sbn == 1) { n = e % BN; kk = e / BN; } else { kk = e % kBK; n = e / kBK; }
+      const int c = n0 + n, k = k0 + kk;
+      Bs[kk][n] = (c < p.N && k < kend) ? to_f<T>(b[k * p.sbk + c * p.sbn]) : 0.f;
+    }
+    __syncthreads();
+    block_gemm<TM, TN>(acc, As, Bs, ty, tx);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long r = m0 + ty + 16 * i;
+    if (r >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + tx + 16 * j;
+      if (c < p.N) gemm_store<T>(p, r, c, acc[i][j]);
+    }
+  }
+}
+
+// bf16 on the tensor cores: the warp layout of fused_linear_mma_kernel, the
+// tiles moved in 16-byte chunks of 8 values, for operands whose contiguous
+// index is known and whose sizes, strides and pointers are multiples of 8
+// values (launch_gemm checks, and refuses any other). A_T: A is given
+// transposed, contiguous along m (the weight gradients' A^T), and sits in
+// shared memory as [k][m], read as a column-major fragment; else contiguous
+// along k, as [m][k]. B_T: B is contiguous along k (the input gradients' W^T),
+// held as [n][k] and read column-major; else contiguous along n, as [k][n].
+// A slab is fetched into registers while the one before it is multiplied.
+template <bool A_T, bool B_T>
+__global__ void __launch_bounds__(kThreads) gemm_mma_kernel(GemmArgs p) {
+  using namespace nvcuda;
+  typedef __nv_bfloat16 T;
+  constexpr int BM = kMmaBM, BN = kMmaBN, BK = kMmaBK;
+  constexpr int LDA = A_T ? BM + 8 : kLdA, LDB = B_T ? BK + 8 : kLdB;
+  __shared__ __align__(32) T As[(A_T ? BK : BM) * LDA];
+  __shared__ __align__(32) T Bs[(B_T ? BN : BK) * LDB];
+  __shared__ __align__(32) float Cw[kThreads / 32][16 * 16];
+  using LayoutA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
+  using LayoutB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const long m0 = (long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int kbeg = blockIdx.z * p.k_chunk;
+  const int kend = min(p.K, kbeg + p.k_chunk);
+  const T* a = static_cast<const T*>(p.a);
+  const T* b = static_cast<const T*>(p.b);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][3];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  constexpr int kChunksA = BM * BK / 8, kChunksB = BK * BN / 8;
+  constexpr int kPerA = kChunksA / kThreads, kPerB = (kChunksB + kThreads - 1) / kThreads;
+  static_assert(kChunksA % kThreads == 0, "every thread moves the same number of A chunks");
+  uint4 ra[kPerA], rb[kPerB];
+  // chunk e of a slab: its place in shared memory, and in the operand from
+  // the slab's first k (or a negative offset when it lies outside)
+  auto place_a = [&](int e, int* at_s, int* m, int* k) {
+    if (A_T) {
+      *k = e / (BM / 8), *m = (e % (BM / 8)) * 8;
+    } else {
+      *m = e / (BK / 8), *k = (e % (BK / 8)) * 8;
+    }
+    *at_s = A_T ? *k * LDA + *m : *m * LDA + *k;
+  };
+  auto place_b = [&](int e, int* at_s, int* n, int* k) {
+    if (B_T) {
+      *n = e / (BK / 8), *k = (e % (BK / 8)) * 8;
+    } else {
+      *k = e / (BN / 8), *n = (e % (BN / 8)) * 8;
+    }
+    *at_s = B_T ? *n * LDB + *k : *k * LDB + *n;
+  };
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kPerA; ++i) {
+      int at_s, m, k;
+      place_a(tid + i * kThreads, &at_s, &m, &k);
+      ra[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + m < p.M && k0 + k < kend)
+        ra[i] = *reinterpret_cast<const uint4*>(a + (m0 + m) * p.sam + (long)(k0 + k) * p.sak);
+    }
+#pragma unroll
+    for (int i = 0; i < kPerB; ++i) {
+      const int e = tid + i * kThreads;
+      if (e >= kChunksB) break;
+      int at_s, n, k;
+      place_b(e, &at_s, &n, &k);
+      rb[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (n0 + n < p.N && k0 + k < kend)
+        rb[i] = *reinterpret_cast<const uint4*>(b + (long)(k0 + k) * p.sbk +
+                                                (long)(n0 + n) * p.sbn);
+    }
+  };
+  auto stash = [&]() {
+#pragma unroll
+    for (int i = 0; i < kPerA; ++i) {
+      int at_s, m, k;
+      place_a(tid + i * kThreads, &at_s, &m, &k);
+      *reinterpret_cast<uint4*>(As + at_s) = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kPerB; ++i) {
+      const int e = tid + i * kThreads;
+      if (e >= kChunksB) break;
+      int at_s, n, k;
+      place_b(e, &at_s, &n, &k);
+      *reinterpret_cast<uint4*>(Bs + at_s) = rb[i];
+    }
+  };
+
+  fetch(kbeg);
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
+    stash();
+    __syncthreads();
+    if (k0 + BK < kend) fetch(k0 + BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LayoutA> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LayoutB> fb[3];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = 32 * wm + 16 * i;
+        wmma::load_matrix_sync(fa[i], As + (A_T ? kk * LDA + m : m * LDA + kk), LDA);
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int n = 48 * wn + 16 * j;
+        wmma::load_matrix_sync(fb[j], Bs + (B_T ? n * LDB + kk : kk * LDB + n), LDB);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* patch = Cw[warp];
+  const int pr = lane >> 1, pc = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long r = m0 + 32 * wm + 16 * i + pr;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      wmma::store_matrix_sync(patch, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int c = n0 + 48 * wn + 16 * j + pc;
+      if (r < p.M) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (c + e < p.N) gemm_store<T>(p, r, c + e, patch[pr * 16 + pc + e]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Whether the bf16 operands can move in 16-byte chunks: one stride is 1, the
+// other and the extent along the contiguous index are multiples of 8, the
+// pointers are 16-byte aligned.
+static inline bool gemm_chunked(const GemmArgs& p, bool a_t, bool b_t) {
+  const bool a_ok = a_t ? (p.sam == 1 && p.sak % 8 == 0 && p.M % 8 == 0)
+                        : (p.sak == 1 && p.sam % 8 == 0 && p.K % 8 == 0);
+  const bool b_ok = b_t ? (p.sbk == 1 && p.sbn % 8 == 0 && p.K % 8 == 0)
+                        : (p.sbn == 1 && p.sbk % 8 == 0 && p.N % 8 == 0);
+  return a_ok && b_ok && reinterpret_cast<uintptr_t>(p.a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.b) % 16 == 0;
+}
+
+// Launch with the reduction split `splits` ways over blockIdx.z (1 = no
+// split). A split product adds into out_f, which the caller has zeroed, and
+// takes neither a bias nor a rounded output nor a GELU epilogue.
+template <typename T>
+static cudaError_t launch_gemm(GemmArgs p, int splits, cudaStream_t s) {
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || splits < 1) return cudaErrorInvalidValue;
+  p.k_chunk = ((p.K + splits - 1) / splits + kMmaBK - 1) / kMmaBK * kMmaBK;
+  const unsigned z = (unsigned)((p.K + p.k_chunk - 1) / p.k_chunk);
+  if (z > 1 && (p.bias != nullptr || p.epi != kEpiPlain || p.out_t != nullptr ||
+                p.out_f == nullptr))
+    return cudaErrorInvalidValue;
+  dim3 grid((unsigned)((p.M + kMmaBM - 1) / kMmaBM),
+            (unsigned)((p.N + kMmaBN - 1) / kMmaBN), z);
+  if constexpr (sizeof(T) == 4) {
+    gemm_kernel<T><<<grid, kThreads, 0, s>>>(p);
+  } else {
+    // x @ W, dY @ W^T and A^T @ B as the backwards give them
+    if (gemm_chunked(p, false, false))
+      gemm_mma_kernel<false, false><<<grid, kThreads, 0, s>>>(p);
+    else if (gemm_chunked(p, false, true))
+      gemm_mma_kernel<false, true><<<grid, kThreads, 0, s>>>(p);
+    else if (gemm_chunked(p, true, false))
+      gemm_mma_kernel<true, false><<<grid, kThreads, 0, s>>>(p);
+    else
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// A weight gradient (M, N) = A^T @ B over `rows` rows of A (rows, M) and
+// B (rows, N), added into the zeroed fp32 `out`. The rows are split so that
+// a few hundred CTAs share the card.
+template <typename T>
+static cudaError_t launch_weight_grad(const void* a, const void* b, float* out,
+                                      int rows, int M, int N, cudaStream_t s) {
+  GemmArgs p = {};
+  p.a = a; p.sam = 1; p.sak = M;
+  p.b = b; p.sbk = N; p.sbn = 1;
+  p.M = M; p.N = N; p.K = rows;
+  p.out_f = out;
+  const int tiles = ((M + kMmaBM - 1) / kMmaBM) * ((N + kMmaBN - 1) / kMmaBN);
+  int splits = (528 + tiles - 1) / tiles;
+  if (splits > rows / 256) splits = rows / 256;
+  if (splits < 1) splits = 1;
+  return launch_gemm<T>(p, splits, s);
+}
+
+// An input gradient (rows, K_in) = dY (rows, N_out) @ W^T for W (K_in, N_out)
+// row-major: the contraction runs over W's output width.
+static inline GemmArgs input_grad_args(const void* dy, const void* w, int rows, int k_in,
+                                int n_out) {
+  GemmArgs p = {};
+  p.a = dy; p.sam = n_out; p.sak = 1;
+  p.b = w; p.sbk = 1; p.sbn = n_out;
+  p.M = rows; p.N = k_in; p.K = n_out;
+  return p;
 }

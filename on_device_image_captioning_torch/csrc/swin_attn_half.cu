@@ -43,6 +43,7 @@ static cudaError_t attn_half_typed(const void* x, const float* ln_g,
                                 void* out, int bw, int n, int c, int heads,
                                 int num_windows, float scale, float eps,
                                 int map, Geometry geo, int dtype,
+                                const float* m1, int rows_per_image,
                                 cudaStream_t s) {
   LinearArgs p = {};
   p.a = x; p.w = wqkv; p.bias = bqkv; p.ln_g = ln_g; p.ln_b = ln_b;
@@ -57,23 +58,20 @@ static cudaError_t attn_half_typed(const void* x, const float* ln_g,
   q.a = attn; q.w = wproj; q.bias = bproj; q.resid = x; q.resid_map = map;
   q.out = out; q.M = bw * n; q.N = c; q.K = c;
   q.a_map = kMapIdentity; q.segs = 1; q.geo = geo; q.eps = eps;
+  q.row_scale = m1; q.scale_rows = rows_per_image;
   return launch_linear_wide<T>(q, s);
 }
 
-// x, out (bw, n, c); wqkv (c, 3c), wproj (c, c) in the storage type; bias
-// (heads, n, n) fp32; mask (num_windows, n, n) fp32 or null; qkv (bw, n, 3c)
-// and attn (bw, n, c) scratch. transition != 0 reads x through the window
-// transition of a res grid with delta = (to_shift - from_shift) mod res.
-extern "C" int swin_attn_half_launch(const void* x, const void* ln_g,
-                                     const void* ln_b, const void* wqkv,
-                                     const void* bqkv, const void* wproj,
-                                     const void* bproj, const void* bias,
-                                     const void* mask, void* qkv, void* attn,
-                                     void* out, int bw, int n, int c,
-                                     int heads, int num_windows, float scale,
-                                     float eps, int transition, int res,
-                                     int window, int delta, int dtype,
-                                     void* stream) {
+static int attn_half_dispatch(const void* x, const void* ln_g,
+                              const void* ln_b, const void* wqkv,
+                              const void* bqkv, const void* wproj,
+                              const void* bproj, const void* bias,
+                              const void* mask, void* qkv, void* attn,
+                              void* out, int bw, int n, int c,
+                              int heads, int num_windows, float scale,
+                              float eps, int transition, int res,
+                              int window, int delta, const void* m1,
+                              int rows_per_image, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int map = kMapIdentity;
   Geometry geo = {0, 0, 0};
@@ -90,14 +88,56 @@ extern "C" int swin_attn_half_launch(const void* x, const void* ln_g,
   const float* fp = static_cast<const float*>(bproj);
   const float* fbias = static_cast<const float*>(bias);
   const float* fmask = static_cast<const float*>(mask);
+  const float* fm1 = static_cast<const float*>(m1);
   if (dtype == kFloat32)
     return attn_half_typed<float>(x, g, b, wqkv, fq, wproj, fp, fbias, fmask, qkv,
                                attn, out, bw, n, c, heads, num_windows, scale,
-                               eps, map, geo, dtype, s);
+                               eps, map, geo, dtype, fm1, rows_per_image, s);
   if (dtype == kBFloat16)
     return attn_half_typed<__nv_bfloat16>(x, g, b, wqkv, fq, wproj, fp, fbias,
                                        fmask, qkv, attn, out, bw, n, c, heads,
                                        num_windows, scale, eps, map, geo, dtype,
-                                       s);
+                                       fm1, rows_per_image, s);
   return cudaErrorInvalidValue;
+}
+
+// x, out (bw, n, c); wqkv (c, 3c), wproj (c, c) in the storage type; bias
+// (heads, n, n) fp32; mask (num_windows, n, n) fp32 or null; qkv (bw, n, 3c)
+// and attn (bw, n, c) scratch. transition != 0 reads x through the window
+// transition of a res grid with delta = (to_shift - from_shift) mod res.
+extern "C" int swin_attn_half_launch(const void* x, const void* ln_g,
+                                     const void* ln_b, const void* wqkv,
+                                     const void* bqkv, const void* wproj,
+                                     const void* bproj, const void* bias,
+                                     const void* mask, void* qkv, void* attn,
+                                     void* out, int bw, int n, int c,
+                                     int heads, int num_windows, float scale,
+                                     float eps, int transition, int res,
+                                     int window, int delta, int dtype,
+                                     void* stream) {
+  return attn_half_dispatch(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                            qkv, attn, out, bw, n, c, heads, num_windows, scale,
+                            eps, transition, res, window, delta, nullptr, 1,
+                            dtype, stream);
+}
+
+// B10a, the training forward (`_attn_half_train_fwd_call`): the same with the
+// per-image stochastic-depth scale on the branch, out = x + m1[image] * proj(...),
+// where window w belongs to image w / windows_per_image; m1 is fp32 (bw /
+// windows_per_image). x is already in the block's layout: the backward saves
+// this x, so the transition before it is a launch of its own. The scale
+// multiplies the rounded proj output in fp32 in launch 3's epilogue, before
+// the residual add and its rounding.
+extern "C" int swin_attn_half_train_launch(
+    const void* x, const void* ln_g, const void* ln_b, const void* wqkv,
+    const void* bqkv, const void* wproj, const void* bproj, const void* bias,
+    const void* mask, const void* m1, void* qkv, void* attn, void* out, int bw,
+    int n, int c, int heads, int num_windows, int windows_per_image, float scale,
+    float eps, int dtype, void* stream) {
+  if (m1 == nullptr || windows_per_image <= 0 || bw % windows_per_image != 0)
+    return cudaErrorInvalidValue;
+  return attn_half_dispatch(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                            qkv, attn, out, bw, n, c, heads, num_windows, scale,
+                            eps, 0, 0, 0, 0, m1, windows_per_image * n, dtype,
+                            stream);
 }

@@ -119,6 +119,11 @@ struct BlockArgs {
   float scale, eps;
   int map;
   Geometry geo;
+  // training forward (B9a): per-image scales on the two branches (null = 1),
+  // window w of image w / windows_per_image, and the mid-block residual out
+  const float *m1, *m2;
+  void* x2;
+  int windows_per_image;
 };
 
 // Column of W that column n of a 96-wide product tile reads: contiguous
@@ -379,6 +384,9 @@ __global__ void __cluster_dims__(kTiles, 1, 1)
   const T* wproj = static_cast<const T*>(p.wproj);
   const T* wfc1 = static_cast<const T*>(p.wfc1);
   const T* wfc2 = static_cast<const T*>(p.wfc2);
+  const float s1 = p.m1 == nullptr ? 1.0f : p.m1[w / p.windows_per_image];
+  const float s2 = p.m2 == nullptr ? 1.0f : p.m2[w / p.windows_per_image];
+  T* x2 = static_cast<T*>(p.x2);
 
   for (int m = tid; m < kR; m += kThreads)
     src_row[m] = (int)map_row(p.map, (long)w * kN + row0 + m, 0, p.geo);
@@ -509,7 +517,11 @@ __global__ void __cluster_dims__(kTiles, 1, 1)
       const int c = nt * kBN + n;
       v = round_t<T>(v + bias_at(p.bproj, c));
       const float res = to_f<T>(x[(long)src_row[r] * C + c]);
-      x1[r * LDA + c] = from_f<T>(res + v);
+      // rounded to the storage type here: LN2, the residual and the backward
+      // all read this value
+      const T mid = from_f<T>(res + s1 * v);
+      x1[r * LDA + c] = mid;
+      if (x2 != nullptr) x2[((long)w * kN + row0 + r) * C + c] = mid;
     });
   }
   __syncthreads();
@@ -557,7 +569,7 @@ __global__ void __cluster_dims__(kTiles, 1, 1)
     gemm_epilogue(acc2[nt], patches, [&](int r, int n, float v) {
       const int c = nt * kBN + n;
       v = round_t<T>(v + bias_at(p.bfc2, c));
-      out[((long)w * kN + row0 + r) * C + c] = from_f<T>(to_f<T>(x1[r * LDA + c]) + v);
+      out[((long)w * kN + row0 + r) * C + c] = from_f<T>(to_f<T>(x1[r * LDA + c]) + s2 * v);
     });
 }
 
@@ -582,13 +594,14 @@ cudaError_t launch_typed(const BlockArgs& p, cudaStream_t s) {
 // 144) fp32 or null. transition != 0 reads x through the window transition of
 // a res grid with delta = (to_shift - from_shift) mod res. Built for windows
 // of 144 tokens, heads of 32 and c = 192 or 384.
-extern "C" int swin_block_launch(
+static int block_dispatch(
     const void* x, const void* g1, const void* b1, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* g2, const void* b2,
     const void* wfc1, const void* bfc1, const void* wfc2, const void* bfc2,
     const void* bias, const void* mask, void* out, int bw, int n, int c, int heads,
     int hidden, int num_windows, float scale, float eps, int transition, int res,
-    int window, int delta, int dtype, void* stream) {
+    int window, int delta, const void* m1, const void* m2, void* x2,
+    int windows_per_image, int dtype, void* stream) {
   if (n != kN || c != heads * kDK || (c != 192 && c != 384) || hidden <= 0 ||
       hidden % kBN != 0 || bw <= 0 || num_windows <= 0)
     return cudaErrorInvalidValue;
@@ -604,6 +617,8 @@ extern "C" int swin_block_launch(
   p.scale = scale; p.eps = eps;
   p.map = kMapIdentity;
   p.geo = Geometry{0, 0, 0};
+  p.m1 = static_cast<const float*>(m1); p.m2 = static_cast<const float*>(m2);
+  p.x2 = x2; p.windows_per_image = windows_per_image;
   if (transition) {
     if (window <= 0 || window * window != n || res % window != 0 ||
         bw % ((res / window) * (res / window)) != 0 || delta < 0 || delta >= res)
@@ -617,4 +632,39 @@ extern "C" int swin_block_launch(
   if (dtype == kBFloat16)
     return c == 192 ? launch_typed<bf16, 2>(p, s) : launch_typed<bf16, 4>(p, s);
   return cudaErrorInvalidValue;
+}
+
+extern "C" int swin_block_launch(
+    const void* x, const void* g1, const void* b1, const void* wqkv, const void* bqkv,
+    const void* wproj, const void* bproj, const void* g2, const void* b2,
+    const void* wfc1, const void* bfc1, const void* wfc2, const void* bfc2,
+    const void* bias, const void* mask, void* out, int bw, int n, int c, int heads,
+    int hidden, int num_windows, float scale, float eps, int transition, int res,
+    int window, int delta, int dtype, void* stream) {
+  return block_dispatch(x, g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, wfc1, bfc1, wfc2, bfc2,
+                        bias, mask, out, bw, n, c, heads, hidden, num_windows, scale, eps,
+                        transition, res, window, delta, nullptr, nullptr, nullptr, 1, dtype,
+                        stream);
+}
+
+// B9a, the training forward (ops/swin_block_fused.py::_train_fwd_call,
+// `_block_kernel_train`): the same launch with the per-image stochastic-depth
+// scales m1, m2 (bw / windows_per_image, fp32) on the two branches,
+//   x2  = x + m1[image] * proj(...)      written to x2 (bw, 144, c) as it is
+//   out = x2 + m2[image] * mlp(...)      formed, for the backward to recompute from,
+// each scale multiplying the rounded branch in fp32 before the residual add
+// and its rounding. x is already in the block's layout (no transition).
+extern "C" int swin_block_train_launch(
+    const void* x, const void* g1, const void* b1, const void* wqkv, const void* bqkv,
+    const void* wproj, const void* bproj, const void* g2, const void* b2,
+    const void* wfc1, const void* bfc1, const void* wfc2, const void* bfc2,
+    const void* bias, const void* mask, const void* m1, const void* m2, void* x2, void* out,
+    int bw, int n, int c, int heads, int hidden, int num_windows, int windows_per_image,
+    float scale, float eps, int dtype, void* stream) {
+  if (m1 == nullptr || m2 == nullptr || x2 == nullptr || windows_per_image <= 0 ||
+      bw % windows_per_image != 0)
+    return cudaErrorInvalidValue;
+  return block_dispatch(x, g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, wfc1, bfc1, wfc2, bfc2,
+                        bias, mask, out, bw, n, c, heads, hidden, num_windows, scale, eps, 0,
+                        0, 0, 0, m1, m2, x2, windows_per_image, dtype, stream);
 }

@@ -32,6 +32,7 @@ static cudaError_t launch_typed(const void* x, const float* ln_g,
                                 const float* b1, const void* w2,
                                 const float* b2, void* hidden, void* out,
                                 int rows, int c, int hid, float eps,
+                                const float* m2, int rows_per_image,
                                 cudaStream_t s) {
   LinearArgs p = {};
   p.a = x; p.w = w1; p.bias = b1; p.ln_g = ln_g; p.ln_b = ln_b;
@@ -43,7 +44,28 @@ static cudaError_t launch_typed(const void* x, const float* ln_g,
   q.a = hidden; q.w = w2; q.bias = b2; q.resid = x; q.resid_map = kMapIdentity;
   q.out = out; q.M = rows; q.N = c; q.K = hid;
   q.a_map = kMapIdentity; q.segs = 1; q.eps = eps;
+  q.row_scale = m2; q.scale_rows = rows_per_image;
   return launch_linear_wide<T>(q, s);
+}
+
+static int mlp_half_dispatch(const void* x, const void* ln_g, const void* ln_b,
+                             const void* w1, const void* b1, const void* w2,
+                             const void* b2, void* hidden, void* out, int rows,
+                             int c, int hid, float eps, const void* m2,
+                             int rows_per_image, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(ln_g);
+  const float* b = static_cast<const float*>(ln_b);
+  const float* fb1 = static_cast<const float*>(b1);
+  const float* fb2 = static_cast<const float*>(b2);
+  const float* fm2 = static_cast<const float*>(m2);
+  if (dtype == kFloat32)
+    return launch_typed<float>(x, g, b, w1, fb1, w2, fb2, hidden, out, rows, c,
+                               hid, eps, fm2, rows_per_image, s);
+  if (dtype == kBFloat16)
+    return launch_typed<__nv_bfloat16>(x, g, b, w1, fb1, w2, fb2, hidden, out,
+                                       rows, c, hid, eps, fm2, rows_per_image, s);
+  return cudaErrorInvalidValue;
 }
 
 // x, out (rows, c); w1 (c, hid), w2 (hid, c) in the storage type; LayerNorm
@@ -54,16 +76,24 @@ extern "C" int swin_mlp_half_launch(const void* x, const void* ln_g,
                                     const void* b2, void* hidden, void* out,
                                     int rows, int c, int hid, float eps,
                                     int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(ln_g);
-  const float* b = static_cast<const float*>(ln_b);
-  const float* fb1 = static_cast<const float*>(b1);
-  const float* fb2 = static_cast<const float*>(b2);
-  if (dtype == kFloat32)
-    return launch_typed<float>(x, g, b, w1, fb1, w2, fb2, hidden, out, rows, c,
-                               hid, eps, s);
-  if (dtype == kBFloat16)
-    return launch_typed<__nv_bfloat16>(x, g, b, w1, fb1, w2, fb2, hidden, out,
-                                       rows, c, hid, eps, s);
-  return cudaErrorInvalidValue;
+  return mlp_half_dispatch(x, ln_g, ln_b, w1, b1, w2, b2, hidden, out, rows, c,
+                           hid, eps, nullptr, 1, dtype, stream);
+}
+
+// B10b, the training forward (`_mlp_half_train_fwd_call`): the same with the
+// per-image stochastic-depth scale on the branch, out = x + m2[image] * mlp,
+// where row r belongs to image r / rows_per_image; m2 is fp32 (rows /
+// rows_per_image). The scale multiplies the rounded fc2 output in fp32 in
+// launch 2's epilogue, before the residual add and its rounding.
+extern "C" int swin_mlp_half_train_launch(const void* x, const void* ln_g,
+                                          const void* ln_b, const void* w1,
+                                          const void* b1, const void* w2,
+                                          const void* b2, const void* m2,
+                                          void* hidden, void* out, int rows,
+                                          int c, int hid, int rows_per_image,
+                                          float eps, int dtype, void* stream) {
+  if (m2 == nullptr || rows_per_image <= 0 || rows % rows_per_image != 0)
+    return cudaErrorInvalidValue;
+  return mlp_half_dispatch(x, ln_g, ln_b, w1, b1, w2, b2, hidden, out, rows, c,
+                           hid, eps, m2, rows_per_image, dtype, stream);
 }

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..config import CaptionerConfig
 from ..ops.masks import causal_pad_mask, pad_mask
-from .common import embedding, layernorm, linear
+from .common import dropout, embedding, layernorm, linear
 from .expansion import DecoderLayer, EncoderLayer
 
 
@@ -50,20 +50,25 @@ class ExpansionNetV2(nn.Module):
         features: torch.Tensor,
         enc_num_pads: Optional[torch.Tensor] = None,
         dtype: Optional[torch.dtype] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """features (B, S_enc, img_feature_dim) -> (B, S_enc, d_model)
-        (reference models/ExpansionNet_v2.py:77-101)."""
+        (reference models/ExpansionNet_v2.py:77-101). The dropouts (rates of
+        `cfg.drop`) are off unless `train` and a generator is given."""
         cfg = self.cap_cfg
         b, s, _ = features.shape
-        x = linear(self.input_linear, features, dtype)
+        x = dropout(linear(self.input_linear, features, dtype), cfg.drop.enc_input, train,
+                    generator)
         mask = None
         if enc_num_pads is not None:
             mask = pad_mask(b, cfg.sum_exp_enc, s, col_pads=enc_num_pads, device=x.device)
         x_list = []
         for layer in self.encoders:
-            x = layer(x, mask, dtype)
+            x = layer(x, mask, dtype, train, generator)
             x_list.append(x)
-        x = x + linear(self.enc_reduce_group, torch.cat(x_list, dim=-1), dtype)
+        x = x + dropout(linear(self.enc_reduce_group, torch.cat(x_list, dim=-1), dtype),
+                        cfg.drop.other, train, generator)
         return layernorm(self.enc_reduce_norm, x, cfg.ln_eps)
 
     def forward_dec(
@@ -74,6 +79,8 @@ class ExpansionNetV2(nn.Module):
         enc_num_pads: Optional[torch.Tensor] = None,
         apply_log_softmax: bool = False,
         dtype: Optional[torch.dtype] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Decoder over a full token prefix (reference
         models/ExpansionNet_v2.py:103-156). cross_input (B, S_enc, d);
@@ -89,13 +96,15 @@ class ExpansionNetV2(nn.Module):
                 b, t, cross_input.shape[1], row_pads=dec_num_pads,
                 col_pads=enc_num_pads, device=dev,
             )
-        y = embedding(self.out_embedder.embed.weight, dec_input) * math.sqrt(float(cfg.d_model))
+        y = dropout(embedding(self.out_embedder.embed.weight, dec_input), cfg.drop.dec_input,
+                    train, generator) * math.sqrt(float(cfg.d_model))
         y = y + self.pos_encoder.weight[:t][None]
         y_list = []
         for layer in self.decoders:
-            y = layer(y, cross_input, self_mask, cross_mask, dtype)
+            y = layer(y, cross_input, self_mask, cross_mask, dtype, train, generator)
             y_list.append(y)
-        y = y + linear(self.dec_reduce_group, torch.cat(y_list, dim=-1), dtype)
+        y = y + dropout(linear(self.dec_reduce_group, torch.cat(y_list, dim=-1), dtype),
+                        cfg.drop.other, train, generator)
         y = layernorm(self.dec_reduce_norm, y, cfg.ln_eps)
         y = linear(self.vocab_linear, y, dtype)
         if apply_log_softmax:

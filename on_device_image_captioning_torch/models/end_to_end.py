@@ -30,12 +30,27 @@ class EndExpansionNetV2(ExpansionNetV2):
         path's weights in the compute dtype (inference only)."""
         self.swin_transf.prepare_inference(self.cfg.compute_dtype)
 
-    def forward_enc(self, images: torch.Tensor) -> torch.Tensor:
+    def forward_enc(self, images: torch.Tensor, train: bool = False, generator=None,
+                    drop_path_scales=None) -> torch.Tensor:
         """Normalized images NHWC (B, H, W, 3) -> encoder output
-        (B, (H/32)^2, d_model). The end-to-end path has no encoder pads."""
+        (B, (H/32)^2, d_model). The end-to-end path has no encoder pads.
+        train, generator, drop_path_scales: see `SwinTransformer.forward`."""
         dtype = self.cfg.compute_dtype
-        feats = self.swin_transf(images, dtype)
-        return super().forward_enc(feats, None, dtype)
+        feats = self.swin_transf(images, dtype, train, generator, drop_path_scales)
+        return super().forward_enc(feats, None, dtype, train, generator)
+
+    def forward(self, images: torch.Tensor, dec_input: torch.Tensor,
+                dec_num_pads: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None, drop_path_scales=None,
+                apply_log_softmax: bool = False) -> torch.Tensor:
+        """Teacher-forced forward (the JAX package's `end_to_end.forward`):
+        normalized images and a token prefix (B, T) -> logits (B, T, vocab).
+        With train=True it is differentiable, and dropout and stochastic depth
+        are drawn from `generator` (off without one)."""
+        cross = self.forward_enc(images, train, generator, drop_path_scales)
+        return self.forward_dec(
+            cross, dec_input, dec_num_pads, None, apply_log_softmax, self.cfg.compute_dtype,
+            train, generator)
 
 
 @torch.no_grad()

@@ -1,5 +1,5 @@
 """Block Static / Dynamic Expansion, multi-head attention, feed-forward and the
-encoder / decoder layers of ExpansionNet v2 (inference).
+encoder / decoder layers of ExpansionNet v2 (inference and training).
 
 Counterpart of the JAX package's `models/expansion.py`; parameter names are
 the reference repo's (models/layers.py), so a reference state_dict loads
@@ -11,7 +11,12 @@ unchanged. Semantics kept exactly:
 - the static block's backward path is not masked;
 - attention scores are masked with a -1e4 fill before the softmax, written
   as matmul -> masked fill -> softmax -> matmul so the fill matches exactly;
-- eps = 1e-9 on every normalization denominator.
+- eps = 1e-9 on every normalization denominator;
+- the dropouts sit where the JAX package's `static_expansion`,
+  `dynamic_expansion`, `feed_forward` and the layers have them (on z, on the
+  class sums before and after the backward path, after the FF's ReLU, on each
+  sublayer's output), at `cfg.drop.enc` / `cfg.drop.dec`, and are off unless
+  `train` is set and a `torch.Generator` is given.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from torch import nn
 
 from ..config import CaptionerConfig
 from ..ops.masks import expand_mask_cols, expand_mask_rows
-from .common import f32_einsum, layernorm, linear
+from .common import dropout, f32_einsum, layernorm, linear
 
 
 def _l1_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -51,13 +56,15 @@ class StaticExpansionBlock(nn.Module):
         self.class_b_embed = nn.Linear(d, d)
         self.selector_embed = nn.Linear(d, d)
 
-    def forward(self, x, mask: Optional[torch.Tensor], dtype=None) -> torch.Tensor:
+    def forward(self, x, mask: Optional[torch.Tensor], dtype=None, train: bool = False,
+                generator=None) -> torch.Tensor:
         """x (B, S, d); mask bool (B, sum_exp, S) or None. Returns fp32."""
         cfg = self.cfg
+        drop = lambda t: dropout(t, cfg.drop.enc, train, generator)  # noqa: E731
         q = self.query_exp_vectors.weight  # (sum_exp, d), full table in index order
         bias = self.bias_exp_vectors.weight
         x_key = linear(self.key_embed, x, dtype)
-        z = f32_einsum("ed,bsd->bes", q.to(x_key.dtype), x_key) / (cfg.d_model**0.5)
+        z = drop(f32_einsum("ed,bsd->bes", q.to(x_key.dtype), x_key) / (cfg.d_model**0.5))
 
         a_fw = torch.relu(z)
         b_fw = torch.relu(-z)
@@ -66,15 +73,17 @@ class StaticExpansionBlock(nn.Module):
             b_fw = torch.where(mask, b_fw, 0.0)
         a_fw = _l1_normalize(a_fw, cfg.eps)
         b_fw = _l1_normalize(b_fw, cfg.eps)
-        class_a = f32_einsum("bes,bsd->bed", a_fw, linear(self.class_a_embed, x, dtype)) + bias
-        class_b = f32_einsum("bes,bsd->bed", b_fw, linear(self.class_b_embed, x, dtype)) + bias
+        class_a = drop(
+            f32_einsum("bes,bsd->bed", a_fw, linear(self.class_a_embed, x, dtype)) + bias)
+        class_b = drop(
+            f32_einsum("bes,bsd->bed", b_fw, linear(self.class_b_embed, x, dtype)) + bias)
 
         zt = z.transpose(-1, -2)  # backward path: group-normalized, not masked
         a_bw = _group_l1_normalize(torch.relu(zt), cfg.num_exp_enc_list, cfg.eps)
         b_bw = _group_l1_normalize(torch.relu(-zt), cfg.num_exp_enc_list, cfg.eps)
         n_groups = float(len(cfg.num_exp_enc_list))
-        class_a = torch.matmul(a_bw, class_a) / n_groups
-        class_b = torch.matmul(b_bw, class_b) / n_groups
+        class_a = drop(torch.matmul(a_bw, class_a) / n_groups)
+        class_b = drop(torch.matmul(b_bw, class_b) / n_groups)
 
         selector = torch.sigmoid(linear(self.selector_embed, x, dtype).float())
         return selector * class_a + (1.0 - selector) * class_b
@@ -96,29 +105,31 @@ class DynamicExpansionBlock(nn.Module):
         self.class_b_embed = nn.Linear(d, d)
         self.selector_embed = nn.Linear(d, d)
 
-    def forward(self, x, mask: torch.Tensor, dtype=None) -> torch.Tensor:
+    def forward(self, x, mask: torch.Tensor, dtype=None, train: bool = False,
+                generator=None) -> torch.Tensor:
         """x (B, T, d); mask bool (B, T, T) causal(+pad). Returns fp32."""
         cfg = self.cfg
+        drop = lambda t_: dropout(t_, cfg.drop.dec, train, generator)  # noqa: E731
         b, t, d = x.shape
         e = cfg.num_exp_dec
         cond = linear(self.cond_embed, x, dtype).reshape(b, t, 1, d)
         q = (self.query_exp_vectors.weight[None, None] + cond).reshape(b, t * e, d)
         bias = (self.bias_exp_vectors.weight[None, None] + cond).reshape(b, t * e, d)
         x_key = linear(self.key_linear, x, dtype)
-        z = f32_einsum("bqd,btd->bqt", q.to(x_key.dtype), x_key) / (d**0.5)
+        z = drop(f32_einsum("bqd,btd->bqt", q.to(x_key.dtype), x_key) / (d**0.5))
 
         mask_rows = expand_mask_rows(mask, e)
         a_fw = _l1_normalize(torch.where(mask_rows, torch.relu(z), 0.0), cfg.eps)
         b_fw = _l1_normalize(torch.where(mask_rows, torch.relu(-z), 0.0), cfg.eps)
-        class_a = f32_einsum("bqt,btd->bqd", a_fw, linear(self.class_a_embed, x, dtype))
-        class_b = f32_einsum("bqt,btd->bqd", b_fw, linear(self.class_b_embed, x, dtype))
+        class_a = drop(f32_einsum("bqt,btd->bqd", a_fw, linear(self.class_a_embed, x, dtype)))
+        class_b = drop(f32_einsum("bqt,btd->bqd", b_fw, linear(self.class_b_embed, x, dtype)))
 
         mask_cols = expand_mask_cols(mask, e)
         zt = z.transpose(-1, -2)  # (B, T, T*e)
         a_bw = _l1_normalize(torch.where(mask_cols, torch.relu(zt), 0.0), cfg.eps)
         b_bw = _l1_normalize(torch.where(mask_cols, torch.relu(-zt), 0.0), cfg.eps)
-        class_a = torch.matmul(a_bw, class_a + bias.float())
-        class_b = torch.matmul(b_bw, class_b + bias.float())
+        class_a = drop(torch.matmul(a_bw, class_a + bias.float()))
+        class_b = drop(torch.matmul(b_bw, class_b + bias.float()))
 
         selector = torch.sigmoid(linear(self.selector_embed, x, dtype).float())
         return selector * class_a + (1.0 - selector) * class_b
@@ -153,15 +164,17 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """linear -> relu -> linear (reference models/layers.py:298-308)."""
+    """linear -> relu -> dropout -> linear (reference models/layers.py:298-308)."""
 
     def __init__(self, cfg: CaptionerConfig):
         super().__init__()
         self.linear_1 = nn.Linear(cfg.d_model, cfg.ff)
         self.linear_2 = nn.Linear(cfg.ff, cfg.d_model)
 
-    def forward(self, x, dtype=None) -> torch.Tensor:
-        return linear(self.linear_2, torch.relu(linear(self.linear_1, x, dtype)), dtype)
+    def forward(self, x, dtype=None, rate: float = 0.0, train: bool = False,
+                generator=None) -> torch.Tensor:
+        h = dropout(torch.relu(linear(self.linear_1, x, dtype)), rate, train, generator)
+        return linear(self.linear_2, h, dtype)
 
 
 class EncoderLayer(nn.Module):
@@ -175,11 +188,13 @@ class EncoderLayer(nn.Module):
         self.stc_exp = StaticExpansionBlock(cfg)
         self.ff = FeedForward(cfg)
 
-    def forward(self, x, mask: Optional[torch.Tensor], dtype=None) -> torch.Tensor:
-        eps = self.cfg.ln_eps
-        x = x + self.stc_exp(layernorm(self.norm_1, x, eps), mask, dtype).to(x.dtype)
-        x = x + self.ff(layernorm(self.norm_2, x, eps), dtype).to(x.dtype)
-        return x
+    def forward(self, x, mask: Optional[torch.Tensor], dtype=None, train: bool = False,
+                generator=None) -> torch.Tensor:
+        eps, rate = self.cfg.ln_eps, self.cfg.drop.enc
+        stc = self.stc_exp(layernorm(self.norm_1, x, eps), mask, dtype, train, generator)
+        x = x + dropout(stc.to(x.dtype), rate, train, generator)
+        ff = self.ff(layernorm(self.norm_2, x, eps), dtype, rate, train, generator)
+        return x + dropout(ff.to(x.dtype), rate, train, generator)
 
 
 class DecoderLayer(nn.Module):
@@ -196,10 +211,13 @@ class DecoderLayer(nn.Module):
         self.mha = MultiHeadAttention(cfg)
         self.ff = FeedForward(cfg)
 
-    def forward(self, x, cross_x, self_mask, cross_mask, dtype=None) -> torch.Tensor:
-        eps = self.cfg.ln_eps
-        x = x + self.dyn_exp(layernorm(self.norm_1, x, eps), self_mask, dtype).to(x.dtype)
+    def forward(self, x, cross_x, self_mask, cross_mask, dtype=None, train: bool = False,
+                generator=None) -> torch.Tensor:
+        eps, rate = self.cfg.ln_eps, self.cfg.drop.dec
+        dyn = self.dyn_exp(layernorm(self.norm_1, x, eps), self_mask, dtype, train, generator)
+        x = x + dropout(dyn.to(x.dtype), rate, train, generator)
         x2 = layernorm(self.norm_2, x, eps)
-        x = x + self.mha(x2, cross_x, cross_x, cross_mask, dtype).to(x.dtype)
-        x = x + self.ff(layernorm(self.norm_3, x, eps), dtype).to(x.dtype)
-        return x
+        mha = self.mha(x2, cross_x, cross_x, cross_mask, dtype)
+        x = x + dropout(mha.to(x.dtype), rate, train, generator)
+        ff = self.ff(layernorm(self.norm_3, x, eps), dtype, rate, train, generator)
+        return x + dropout(ff.to(x.dtype), rate, train, generator)

@@ -1,5 +1,6 @@
-"""Swin Transformer backbone, inference path (counterpart of the JAX package's
-`models/swin.py`), on either of two paths chosen by `SwinConfig.attention_impl`.
+"""Swin Transformer backbone, inference and training (counterpart of the JAX
+package's `models/swin.py`), on either of two paths chosen by
+`SwinConfig.attention_impl`.
 
 "pallas": NHWC layout; the patch-embed conv (stride == kernel) is a
 space-to-depth reshape plus one matmul; the cyclic shift is `torch.roll`;
@@ -20,6 +21,20 @@ runs as on the "pallas" path. The mode of a stage is "full" up to a width of
 (`_stage_fused_mode`); `SwinTransformer(cfg, stage_modes={stage: mode})`
 overrides it per stage, as `set_stage_mode_override` does there.
 
+Training (`forward(..., train=True)`, `_run_stage_fused_windows_train` of the
+JAX file): the patch embed, the patch merging, the final norm and the
+single-window stage are plain tensor code under autograd. On the "fused" path
+every multi-window stage runs window-resident: partitioned once, each block a
+differentiable transition (`window_transition_train`) and then the
+whole-block training kernel ("full") or the two training halves ("halves"),
+whose backwards are kernels too; the relative-position bias is gathered from
+its table per block, so the table's gradient flows through the gather.
+Stochastic depth is per image: a block takes two (B,) fp32 scales, drawn from
+the caller's `torch.Generator` or handed in through `drop_path_scales`.
+Nonzero `drop_rate` or `attn_drop_rate` send every stage to the plain block,
+as `_fused_train_mode` does. `attention_impl="pallas"` trains on the plain
+backbone under autograd.
+
 Parameter and module names are the reference repo's
 (models/swin_transformer_mod.py), so its state_dict loads unchanged once the
 non-parameter buffers (`attn_mask`, `relative_position_index`) are dropped.
@@ -27,7 +42,7 @@ non-parameter buffers (`attn_mask`, `relative_position_index`) are dropped.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,11 +52,12 @@ from torch import nn
 from ..config import SwinConfig
 from ..ops.stage_boundary import downsample_fused, patch_embed_fused
 from ..ops.swin_block_fused import (
-    swin_attn_half, swin_block, swin_mlp_half, window_transition,
+    swin_attn_half, swin_attn_half_train, swin_block, swin_block_train, swin_mlp_half,
+    swin_mlp_half_train, window_transition, window_transition_train,
 )
 from ..ops.window_attention import window_attention
 from ..ops.window_layout import window_partition, window_reverse
-from .common import layernorm, linear
+from .common import drop_path_scale, dropout, f32_einsum, layernorm, linear
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,6 +180,7 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, window: int, heads: int, cfg: SwinConfig):
         super().__init__()
         self.heads = heads
+        self.attn_drop, self.proj_drop = cfg.attn_drop_rate, cfg.drop_rate
         dk = dim // heads
         self.scale = cfg.qk_scale if cfg.qk_scale is not None else dk**-0.5
         self.relative_position_bias_table = nn.Parameter(
@@ -190,6 +207,28 @@ class WindowAttention(nn.Module):
         out = window_attention(qkv, self.bias(), mask, self.heads, float(self.scale))
         return linear(self.proj, out, dtype)
 
+    def table_bias(self) -> torch.Tensor:
+        """The (H, N, N) bias gathered from the table under autograd (never
+        the pre-expanded copy): the table's gradient flows through the gather."""
+        return expand_rel_bias(self.relative_position_bias_table, self.relative_position_index)
+
+    def forward_train(self, x, mask, dtype=None, generator=None) -> torch.Tensor:
+        """The plain attention of the training path (the JAX package's
+        `window_attention` with `train`): q scaled in the compute dtype, scores
+        and softmax in fp32, dropout on the probabilities and on the output."""
+        bw, n, c = x.shape
+        qkv = linear(self.qkv, x, dtype).reshape(bw, n, 3, self.heads, c // self.heads)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        attn = f32_einsum("bhnd,bhmd->bhnm", q * float(self.scale), k) + self.table_bias()[None]
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = attn.reshape(bw // nw, nw, self.heads, n, n) + mask[None, :, None]
+            attn = attn.reshape(bw, self.heads, n, n)
+        attn = dropout(torch.softmax(attn, dim=-1), self.attn_drop, True, generator)
+        out = f32_einsum("bhnm,bhmd->bhnd", attn.to(v.dtype), v).to(v.dtype)
+        out = linear(self.proj, out.transpose(1, 2).reshape(bw, n, c), dtype)
+        return dropout(out, self.proj_drop, True, generator)
+
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
@@ -197,10 +236,12 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype=None, drop: float = 0.0, train: bool = False,
+                generator=None) -> torch.Tensor:
         h = linear(self.fc1, x, dtype)
         h = F.gelu(h.float()).to(h.dtype)  # exact-erf GELU in fp32
-        return linear(self.fc2, h, dtype)
+        h = dropout(h, drop, train, generator)
+        return dropout(linear(self.fc2, h, dtype), drop, train, generator)
 
 
 class SwinTransformerBlock(nn.Module):
@@ -253,6 +294,48 @@ class SwinTransformerBlock(nn.Module):
             self.attn.heads, float(self.attn.scale), self.cfg.ln_eps, transition,
         )
         return swin_mlp_half(xw, ops["norm2"], ops["fc1"], ops["fc2"], self.cfg.ln_eps)
+
+    def forward_windows_train(self, xw: torch.Tensor, m1: torch.Tensor,
+                              m2: torch.Tensor) -> torch.Tensor:
+        """One training block on window-resident activations already in this
+        block's shift layout, with the per-image scales m1, m2 (B,) on its two
+        branches; differentiable (the backwards are kernels on the card)."""
+        attn, mlp, eps = self.attn, self.mlp, self.cfg.ln_eps
+        norm1 = (self.norm1.weight, self.norm1.bias)
+        norm2 = (self.norm2.weight, self.norm2.bias)
+        # (in, out) views of the master weights: cast once per call inside
+        qkv, proj = (attn.qkv.weight.t(), attn.qkv.bias), (attn.proj.weight.t(), attn.proj.bias)
+        fc1, fc2 = (mlp.fc1.weight.t(), mlp.fc1.bias), (mlp.fc2.weight.t(), mlp.fc2.bias)
+        bias, scale = attn.table_bias(), float(attn.scale)
+        if self.mode == "full":
+            return swin_block_train(xw, norm1, qkv, proj, norm2, fc1, fc2, bias, self.attn_mask,
+                                    m1, m2, attn.heads, scale, eps)
+        xw = swin_attn_half_train(xw, norm1, qkv, proj, bias, self.attn_mask, m1, attn.heads,
+                                  scale, eps)
+        return swin_mlp_half_train(xw, norm2, fc1, fc2, m2, eps)
+
+    def forward_train(self, x: torch.Tensor, dtype, m1: torch.Tensor, m2: torch.Tensor,
+                      generator=None) -> torch.Tensor:
+        """The plain training block (the JAX package's `swin_block` off the
+        kernels): dropouts from the generator, the per-image scales m1, m2 on
+        the two branches."""
+        b, l, c = x.shape
+        res, window, shift = self.res, self.window, self.shift
+        eps, drop = self.cfg.ln_eps, self.cfg.drop_rate
+
+        def scaled(h, m):
+            return (h.float() * m[:, None, None]).to(h.dtype)
+
+        h = layernorm(self.norm1, x, eps).reshape(b, res, res, c)
+        if shift > 0:
+            h = torch.roll(h, shifts=(-shift, -shift), dims=(1, 2))
+        h = self.attn.forward_train(window_partition(h, window), self.attn_mask, dtype, generator)
+        h = window_reverse(h, window, res, res)
+        if shift > 0:
+            h = torch.roll(h, shifts=(shift, shift), dims=(1, 2))
+        x = x + scaled(h.reshape(b, l, c), m1)
+        h = self.mlp(layernorm(self.norm2, x, eps), dtype, drop, True, generator)
+        return x + scaled(h, m2)
 
     def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
         b, l, c = x.shape
@@ -407,7 +490,65 @@ class SwinTransformer(nn.Module):
             xw = window_reverse(xw, window, res, res)
         return layernorm(self.norm, xw.reshape(b, res * res, -1), cfg.ln_eps)
 
-    def forward(self, images: torch.Tensor, dtype=None) -> torch.Tensor:
+    def _run_stage_windows_train(self, layer, x, scales, dtype) -> torch.Tensor:
+        """A multi-window stage of the "fused" training path: partition once,
+        then per block a differentiable transition and the training kernels."""
+        b, l, c = x.shape
+        res, window = layer.blocks[0].res, layer.blocks[0].window
+        xw = window_partition(x.reshape(b, res, res, c), window)
+        if dtype is not None:
+            xw = xw.to(dtype)
+        xw = xw.contiguous()
+        shift = 0
+        for blk, (m1, m2) in zip(layer.blocks, scales):
+            xw = window_transition_train(xw, res, window, shift, blk.shift)
+            xw = blk.forward_windows_train(xw, m1, m2)
+            shift = blk.shift
+        xw = window_transition_train(xw, res, window, shift, 0)
+        return window_reverse(xw, window, res, res).reshape(b, l, c)
+
+    def _forward_train(self, images, dtype, generator, drop_path_scales) -> torch.Tensor:
+        cfg = self.cfg
+        b = images.shape[0]
+        total = sum(cfg.depths)
+        if drop_path_scales is None:
+            # the stochastic depth decay rule: the rate grows linearly with depth
+            rates = [cfg.drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+            drop_path_scales = [
+                (drop_path_scale(r, b, generator, images.device),
+                 drop_path_scale(r, b, generator, images.device)) for r in rates]
+        elif len(drop_path_scales) != total:
+            raise ValueError(f"drop_path_scales: want {total} (m1, m2) pairs, one per block")
+        x = self.patch_embed(images, dtype)
+        if cfg.ape:
+            x = x + self.absolute_pos_embed
+        x = dropout(x, cfg.drop_rate, True, generator)
+        kernels = (cfg.attention_impl == "fused" and cfg.drop_rate == 0.0
+                   and cfg.attn_drop_rate == 0.0)
+        first = 0
+        for layer in self.layers:
+            scales = drop_path_scales[first:first + len(layer.blocks)]
+            first += len(layer.blocks)
+            if kernels and layer.blocks[0].res > layer.blocks[0].window:
+                x = self._run_stage_windows_train(layer, x, scales, dtype)
+            else:
+                for blk, (m1, m2) in zip(layer.blocks, scales):
+                    x = blk.forward_train(x, dtype, m1, m2, generator)
+            if layer.downsample is not None:
+                x = layer.downsample(x, dtype)
+        return layernorm(self.norm, x, cfg.ln_eps)
+
+    def forward(
+        self, images: torch.Tensor, dtype=None, train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        drop_path_scales: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+    ) -> torch.Tensor:
+        """train=True is the differentiable training forward: dropout and
+        stochastic depth are drawn from `generator` (none without one), or the
+        per-block (m1, m2) scales, each (B,) fp32, are handed in through
+        `drop_path_scales` (one pair per block, in network order)."""
+        if train:
+            return self._forward_train(images, dtype, generator, drop_path_scales)
         if self.cfg.attention_impl == "fused":
             return self._forward_window_resident(images, dtype)
         x = self.patch_embed(images, dtype)

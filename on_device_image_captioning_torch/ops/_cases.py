@@ -404,6 +404,162 @@ def downsample_cases(dev) -> Iterator[Case]:
             )
 
 
+def _rel_to_max(t):
+    """Tolerance of a gradient against its plain version: t times the largest
+    magnitude of the tensor. The sums over every row or window of the grid
+    are atomic adds in another order each run, so single elements near zero
+    are held to the size of the tensor, not to their own."""
+    return lambda want: (t * float(want.float().abs().max()), 0.0)
+
+
+# gradients, relative to each tensor's max: fp32 differs in summation order
+# only; bf16 operands are rounded at the same places on both sides, and a
+# flipped rounding upstream moves a sum by a fraction of a bf16 ulp of its terms
+GRAD_TOL = {torch.float32: _rel_to_max(2e-5), torch.bfloat16: _rel_to_max(2e-2)}
+
+
+def _scales(b, dev, zero_at):
+    """(B,) fp32 stochastic-depth scales: 1 / keep with one image dropped."""
+    m = torch.full((b,), 1.0 / 0.9)
+    m[zero_at] = 0.0
+    return m.to(dev)
+
+
+def _named(names, tol_of):
+    def checks(got, want):
+        return [(n, g_, w_, tol_of(w_)) for n, g_, w_ in zip(names, got, want)]
+    return checks
+
+
+def _block_operands(stage, seed, dev, dt):
+    c, heads, res = STAGES[stage]
+    g = torch.Generator().manual_seed(seed + stage)
+    bw = 2 * (res // WINDOW) ** 2
+    x = _randn((bw, N_TOKENS, c), g, dev, dtype=dt)
+    dy = _randn((bw, N_TOKENS, c), g, dev, dtype=dt)
+    ops = dict(
+        norm1=_norm(c, g, dev), qkv=_linear(c, 3 * c, g, dev, dt), proj=_linear(c, c, g, dev, dt),
+        norm2=_norm(c, g, dev), fc1=_linear(c, 4 * c, g, dev, dt), fc2=_linear(4 * c, c, g, dev, dt),
+        bias=_randn((heads, N_TOKENS, N_TOKENS), g, dev, scale=0.5),
+        mask=torch.from_numpy(shift_attn_mask(res, WINDOW, SHIFT)).to(dev),
+        m1=_scales(2, dev, 1), m2=_scales(2, dev, 0),
+    )
+    return x, dy, ops, heads, k1.HEAD_DIM**-0.5
+
+
+def swin_block_train_cases(dev) -> Iterator[Case]:
+    """B9a on the two stages that run it at B=2, with and without the mask,
+    one image dropped on each branch; checks y and x2; fp32 and bf16."""
+    for dt in (torch.float32, torch.bfloat16):
+        for stage in (0, 1):
+            x, _, o, heads, scale = _block_operands(stage, 1200, dev, dt)
+            c = x.shape[-1]
+            for m in (o["mask"], None):
+                a = (x, o["norm1"], o["qkv"], o["proj"], o["norm2"], o["fc1"], o["fc2"],
+                     o["bias"], m, o["m1"], o["m2"], heads, scale, 1e-5)
+                yield Case(
+                    "swin_block_train",
+                    f"stage{stage} x{tuple(x.shape)} {'mask' if m is not None else 'nomask'} "
+                    f"{_dtype_name(dt)}",
+                    lambda a=a: sbf.swin_block_train_forward(*a),
+                    lambda a=a: sbf.swin_block_train_reference(*a),
+                    _named(("y", "x2"), lambda w_, dt=dt: TOL[dt]), args=a,
+                    nbytes=3 * _nbytes(x) + _nbytes(
+                        *o["norm1"], *o["qkv"], *o["proj"], *o["norm2"], *o["fc1"], *o["fc2"],
+                        o["bias"], m, o["m1"], o["m2"]),
+                    flops=x.shape[0] * N_TOKENS * (24 * c * c + 4 * N_TOKENS * c), matmul=True,
+                )
+
+
+def swin_attn_half_train_cases(dev) -> Iterator[Case]:
+    """B10a on the three multi-window stages at B=2, with and without the
+    mask, one image dropped; fp32 and bf16."""
+    for dt in (torch.float32, torch.bfloat16):
+        for stage in (0, 1, 2):
+            x, _, o, heads, scale = _block_operands(stage, 1300, dev, dt)
+            c = x.shape[-1]
+            for m in (o["mask"], None):
+                a = (x, o["norm1"], o["qkv"], o["proj"], o["bias"], m, o["m1"], heads, scale, 1e-5)
+                yield Case(
+                    "swin_attn_half_train",
+                    f"stage{stage} x{tuple(x.shape)} {'mask' if m is not None else 'nomask'} "
+                    f"{_dtype_name(dt)}",
+                    lambda a=a: sbf.swin_attn_half_train_forward(*a),
+                    lambda a=a: sbf.swin_attn_half_train_reference(*a),
+                    _one(TOL[dt]), args=a,
+                    nbytes=2 * _nbytes(x) + _nbytes(
+                        *o["norm1"], *o["qkv"], *o["proj"], o["bias"], m, o["m1"]),
+                    flops=x.shape[0] * N_TOKENS * (8 * c * c + 4 * N_TOKENS * c), matmul=True,
+                )
+
+
+def swin_mlp_half_train_cases(dev) -> Iterator[Case]:
+    """B10b on the rows of the three multi-window stages at B=2, one image
+    dropped; fp32 and bf16."""
+    for dt in (torch.float32, torch.bfloat16):
+        for stage in (0, 1, 2):
+            x, _, o, _, _ = _block_operands(stage, 1400, dev, dt)
+            a = (x, o["norm2"], o["fc1"], o["fc2"], o["m2"], 1e-5)
+            yield Case(
+                "swin_mlp_half_train", f"stage{stage} x{tuple(x.shape)} {_dtype_name(dt)}",
+                lambda a=a: sbf.swin_mlp_half_train_forward(*a),
+                lambda a=a: sbf.swin_mlp_half_train_reference(*a),
+                _one(TOL[dt]), args=a,
+                nbytes=2 * _nbytes(x) + _nbytes(*o["norm2"], *o["fc1"], *o["fc2"], o["m2"]),
+                flops=x.numel() * 16 * x.shape[-1], matmul=True,
+            )
+
+
+def swin_mlp_bwd_cases(dev) -> Iterator[Case]:
+    """B9c on the rows of the three multi-window stages at B=2, one image
+    dropped, one case without the fc1 bias; all seven gradients; fp32 and
+    bf16."""
+    names = ("dx2", "dg2", "dbe2", "dw1", "db1", "dw2", "db2")
+    for dt in (torch.float32, torch.bfloat16):
+        for stage in (0, 1, 2):
+            x2, dy, o, _, _ = _block_operands(stage, 1500, dev, dt)
+            c = x2.shape[-1]
+            fc1 = o["fc1"] if stage else (o["fc1"][0], None)
+            a = (x2, dy, o["norm2"], fc1, o["fc2"], o["m2"], 1e-5)
+            yield Case(
+                "swin_mlp_bwd", f"stage{stage} x{tuple(x2.shape)} {_dtype_name(dt)}",
+                lambda a=a: sbf.swin_mlp_bwd(*a),
+                lambda a=a: sbf.swin_mlp_bwd_reference(*a),
+                _named(names, GRAD_TOL[dt]), args=a,
+                # x2, dy in and dx2 out; the weights in and their fp32 gradients out
+                nbytes=3 * _nbytes(x2) + _nbytes(*o["norm2"], *fc1, o["fc2"][0], o["m2"])
+                + 4 * (8 * c * c + 7 * c),
+                flops=x2.numel() * 40 * c, matmul=True,
+            )
+
+
+def swin_attn_bwd_cases(dev) -> Iterator[Case]:
+    """B9b on the three multi-window stages at B=2, with and without the
+    mask, one image dropped, one case without the qkv bias; all eight
+    gradients (dbias among them); fp32 and bf16."""
+    names = ("dx", "dg1", "dbe1", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+    for dt in (torch.float32, torch.bfloat16):
+        for stage in (0, 1, 2):
+            x, dy, o, heads, scale = _block_operands(stage, 1600, dev, dt)
+            c = x.shape[-1]
+            for m in (o["mask"], None):
+                qkv = o["qkv"] if m is not None else (o["qkv"][0], None)
+                a = (x, dy, o["norm1"], qkv, o["proj"], o["bias"], m, o["m1"], heads, scale, 1e-5)
+                yield Case(
+                    "swin_attn_bwd",
+                    f"stage{stage} x{tuple(x.shape)} {'mask' if m is not None else 'nomask'} "
+                    f"{_dtype_name(dt)}",
+                    lambda a=a: sbf.swin_attn_bwd(*a),
+                    lambda a=a: sbf.swin_attn_bwd_reference(*a),
+                    _named(names, GRAD_TOL[dt]), args=a,
+                    # x, dx2 in and dx out; weights, bias and mask in; fp32 gradients out
+                    nbytes=3 * _nbytes(x) + _nbytes(*o["norm1"], *qkv, o["proj"][0], o["bias"],
+                                                    m, o["m1"])
+                    + 4 * (4 * c * c + 6 * c) + _nbytes(o["bias"]),
+                    flops=x.shape[0] * N_TOKENS * (22 * c * c + 12 * N_TOKENS * c), matmul=True,
+                )
+
+
 CASES = {
     "window_attention": window_attention_cases,
     "dyn_exp_step": dyn_exp_step_cases,
@@ -416,6 +572,11 @@ CASES = {
     "window_transition": window_transition_cases,
     "swin_block": swin_block_cases,
     "dyn_exp_cross_step": dyn_exp_cross_step_cases,
+    "swin_block_train": swin_block_train_cases,
+    "swin_attn_half_train": swin_attn_half_train_cases,
+    "swin_mlp_half_train": swin_mlp_half_train_cases,
+    "swin_mlp_bwd": swin_mlp_bwd_cases,
+    "swin_attn_bwd": swin_attn_bwd_cases,
 }
 
 

@@ -1,7 +1,8 @@
 """Row LayerNorm over the last axis: a Triton kernel and its plain version.
 
-Replaces `on_device_image_captioning_tpu/ops/layernorm.py::layernorm_pallas`
-(inference forward only).
+Replaces `on_device_image_captioning_tpu/ops/layernorm.py::layernorm_pallas`:
+the kernel is the forward; as there, the gradient (`layernorm_autograd`) is
+the plain formula from the saved (x, scale), on either device.
 
 What bounds it on the H100: bytes. Each row is read once and written once
 (2 x rows x C x itemsize) with a handful of flops per element, far below the
@@ -89,3 +90,38 @@ def layernorm(
     )
     launches += 1
     return out
+
+
+class _LayerNorm(torch.autograd.Function):
+    """`layernorm` with the gradient of `layernorm_pallas` (its `_bwd`): the
+    forward is the kernel on CUDA tensors, the backward plain tensor code in
+    fp32 from the saved x and scale."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return layernorm(x.detach(), weight.detach(), bias.detach(), eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt(var + ctx.eps)
+        xhat = (xf - mean) * rstd
+        gy = gf * weight.float()
+        dx = rstd * (gy - gy.mean(dim=-1, keepdim=True)
+                     - xhat * (gy * xhat).mean(dim=-1, keepdim=True))
+        lead = tuple(range(x.dim() - 1))
+        dweight = (gf * xhat).sum(dim=lead).to(weight.dtype)
+        dbias = gf.sum(dim=lead).to(weight.dtype)
+        return dx.to(x.dtype), dweight, dbias, None
+
+
+def layernorm_autograd(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """Differentiable `layernorm` (x contiguous)."""
+    return _LayerNorm.apply(x, weight, bias, eps)

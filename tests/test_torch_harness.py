@@ -201,9 +201,10 @@ def test_init_weights_seeded_distributions():
 
 
 def test_port_imports_neither_jax_nor_triton():
-    """Importing every module of the port (the package is walked) and running
-    both backbone paths leaves jax, triton and every module of the JAX package
-    out of sys.modules, and on the CPU no kernel launch counter moves."""
+    """Importing every module of the port (the package is walked, the
+    `train` subpackage included), running both backbone paths and taking an XE
+    training step on each leaves jax, triton and every module of the JAX
+    package out of sys.modules, and on the CPU no kernel launch counter moves."""
     code = textwrap.dedent(
         """
         import dataclasses, importlib, pkgutil, sys
@@ -211,13 +212,15 @@ def test_port_imports_neither_jax_nor_triton():
         import on_device_image_captioning_torch as port
         names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
         mods = {n: importlib.import_module(n) for n in names}
-        assert len(names) >= 25, names
+        assert len(names) >= 30, names
         for leaf in ("api", "cli.demo", "cli.breakdown", "data.text", "decode.sampling",
                      "ops.stage_boundary",
-                     "ops.swin_block_fused", "ops.window_layout", "utils.image"):
+                     "ops.swin_block_fused", "ops.window_layout", "utils.image",
+                     "train.losses", "train.radam", "train.schedules", "train.train_step"):
             assert port.__name__ + "." + leaf in mods, leaf
         from on_device_image_captioning_torch import api, config
         from on_device_image_captioning_torch.models import end_to_end
+        from on_device_image_captioning_torch.train import radam, train_step
         from on_device_image_captioning_torch.ops import (
             dyn_exp_step, layernorm, stage_boundary, swin_block_fused, topk, window_attention)
         for impl in config.ATTENTION_IMPLS:
@@ -234,12 +237,19 @@ def test_port_imports_neither_jax_nor_triton():
             for step_impl in ("pallas", "pallas_fused"):
                 api.Captioner(model, cfg, {"beam_size": 2, "beam_max_seq_len": 6}, device="cpu",
                               step_impl=step_impl)(imgs)
+            step = train_step.make_xe_step(model, cfg, radam.PlainRAdam(model.parameters(), 1e-3))
+            batch = {"enc_input": torch.from_numpy(imgs),
+                     "captions": torch.tensor([[2, 5, 6, 3, 0]])}
+            assert torch.isfinite(step(batch, torch.Generator().manual_seed(0))["loss"])
         counts = [m.launches for m in (dyn_exp_step, layernorm, topk, window_attention)]
         counts += [stage_boundary.patch_embed_launches, stage_boundary.downsample_launches,
                    swin_block_fused.attn_half_launches, swin_block_fused.mlp_half_launches,
                    swin_block_fused.transition_launches, swin_block_fused.block_launches,
-                   dyn_exp_step.cross_launches]
-        assert counts == [0] * 11, counts
+                   dyn_exp_step.cross_launches, swin_block_fused.block_train_launches,
+                   swin_block_fused.attn_half_train_launches,
+                   swin_block_fused.mlp_half_train_launches,
+                   swin_block_fused.attn_bwd_launches, swin_block_fused.mlp_bwd_launches]
+        assert counts == [0] * 16, counts
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "triton", "on_device_image_captioning_tpu")]
         assert not bad, bad
@@ -269,7 +279,8 @@ def test_port_sources_name_no_jax_import():
     the JAX package."""
     sources = sorted((REPO / "on_device_image_captioning_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
-    assert len(sources) >= 25
+    assert len(sources) >= 30
+    assert any(path.parent.name == "train" for path in sources)
     for path in sources:
         found = _FOREIGN_IMPORT.search(path.read_text())
         assert found is None, f"{path.relative_to(REPO)}: {found.group(0).strip()!r}"

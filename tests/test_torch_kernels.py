@@ -150,3 +150,59 @@ def test_dyn_exp_cross_step_raises_outside_its_shapes(cuda):
         step(dst=list(src))
     assert k2.cross_launches == before
     assert step().shape == (5, 512) and k2.cross_launches == before + 1
+
+
+@pytest.mark.cuda
+def test_training_kernels_raise_outside_their_shapes(cuda):
+    """On the card the training wrappers launch their kernel or raise: B9a is
+    built for C = 192 or 384, scales are per image in fp32, the backwards take
+    a gradient of x's own type and weights in it."""
+    case = next(c for c in _cases.swin_block_train_cases(cuda) if "stage0" in c.label)
+    x, norm1, qkv, proj, norm2, fc1, fc2, bias, mask, m1, m2, heads, scale, eps = case.args
+    before = (sbf.block_train_launches, sbf.attn_half_train_launches,
+              sbf.mlp_half_train_launches, sbf.attn_bwd_launches, sbf.mlp_bwd_launches)
+    wide = next(c for c in _cases.swin_attn_half_train_cases(cuda) if "stage2" in c.label).args
+    with pytest.raises(ValueError, match="C in"):  # stage 2 runs the halves
+        sbf.swin_block_train_forward(wide[0], wide[1], wide[2], wide[3], wide[1], wide[2],
+                                     wide[3], wide[4], None, m1, m2, 24, scale, eps)
+    with pytest.raises(ValueError, match="per image"):
+        sbf.swin_block_train_forward(x, norm1, qkv, proj, norm2, fc1, fc2, bias, mask,
+                                     torch.ones(3, device=cuda), m2, heads, scale, eps)
+    with pytest.raises(ValueError, match="fp32"):
+        sbf.swin_mlp_half_train_forward(x, norm2, fc1, fc2, m2.double(), eps)
+    with pytest.raises(ValueError, match="weights must be"):
+        sbf.swin_attn_half_train_forward(x.bfloat16(), norm1, qkv, proj, bias, mask, m1, heads,
+                                         scale, eps)
+    with pytest.raises(ValueError, match="shape and dtype"):
+        sbf.swin_mlp_bwd(x, x.bfloat16(), norm2, fc1, fc2, m2, eps)
+    with pytest.raises(ValueError, match="shape and dtype"):
+        sbf.swin_attn_bwd(x, x[:2], norm1, qkv, proj, bias, mask, m1, heads, scale, eps)
+    assert before == (sbf.block_train_launches, sbf.attn_half_train_launches,
+                      sbf.mlp_half_train_launches, sbf.attn_bwd_launches, sbf.mlp_bwd_launches)
+
+
+@pytest.mark.cuda
+def test_training_functions_backward_on_the_card(cuda):
+    """The autograd functions on CUDA tensors: fp32 master weights in, bf16
+    compute, gradients in each parameter's dtype, launched through B9a and
+    then B9c and B9b; the transition's gradient is the inverse transition."""
+    case = next(c for c in _cases.swin_block_train_cases(cuda)
+                if "stage0" in c.label and "bfloat16" in c.label)
+    x, norm1, qkv, proj, norm2, fc1, fc2, bias, mask, m1, m2, heads, scale, eps = case.args
+    master = lambda lin: (lin[0].float().requires_grad_(), lin[1].clone().requires_grad_())  # noqa: E731
+    lins = [master(l) for l in (qkv, proj, fc1, fc2)]
+    xg = x.clone().requires_grad_()
+    before = (sbf.block_train_launches, sbf.mlp_bwd_launches, sbf.attn_bwd_launches)
+    y = sbf.swin_block_train(xg, norm1, lins[0], lins[1], norm2, lins[2], lins[3], bias, mask,
+                             m1, m2, heads, scale, eps)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert (sbf.block_train_launches, sbf.mlp_bwd_launches, sbf.attn_bwd_launches) == tuple(
+        n + 1 for n in before)
+    assert xg.grad.dtype == torch.bfloat16 and bool(torch.isfinite(xg.grad).all())
+    for w, b in lins:
+        assert w.grad.dtype == torch.float32 and w.grad.shape == w.shape
+        assert bool(torch.isfinite(w.grad).all()) and bool(torch.isfinite(b.grad).all())
+    t = sbf.window_transition_train(xg, 96, 12, 0, 6)
+    (g,) = torch.autograd.grad(t, xg, x)
+    torch.testing.assert_close(g, sbf.window_transition_reference(x, 96, 12, 6, 0), rtol=0, atol=0)
