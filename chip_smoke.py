@@ -29,6 +29,17 @@ Phases, in order (any failure raises and exits non-zero before the result):
    runs' encoder outputs must agree within the bf16 tolerance. Then a
    sampling run (8 images x 5 samples, 20 tokens) and a two-model ensemble
    run on the same path, checked for shape.
+   Quantized serving (runs of QUANT_RUNS): the "fused" model with every
+   linear quantized by `deploy/quantization.py::quantize_model`, as
+   `--quantize` does in the JAX package's evaluate CLI: "w8a8" (int8
+   activations; the "pallas" step) and "w8" (weight-only; the "pallas_fused"
+   step, which gives way to K2 on a quantized Wq), b8 / beam 3 / L20, bf16.
+   The model's bytes before and after; the launches of each kernel in the
+   beam search and in one encode, held exactly to the counts derived from
+   the model (B12 once per int8 linear outside the window-resident stages
+   per encode, once per int8 linear of the decoder per step and for the
+   cross K/V once; B13 and B4 once per w8a8 block; B5, B6, B7, B8, B16 not at
+   all under w8a8).
    Training (run "train"): Swin-L/384 + the d512 captioner on the "fused"
    path at full width and depth, bf16 compute over fp32 master weights, 4
    images, stochastic depth 0.1, caption-head dropouts 0.1, captions of 20
@@ -42,7 +53,19 @@ Phases, in order (any failure raises and exits non-zero before the result):
 5. The runs held to the plain path: 2 images at fp32 through each run on the
    card and through the plain path on the CPU, same weights; then sampling
    and the ensemble, card against CPU with the same noise, and the two
-   decode-step paths against each other.
+   decode-step paths against each other. The quantized runs: 2 images at
+   fp32 through the w8a8 and w8 models on the card and on the CPU's plain
+   path, same quantized weights. Per-tensor int8 activations make the
+   full-depth model chaotic: a 1e-7 change of the input moves the encoder
+   output by percents on the CPU alone (the int8 roundings downstream of a
+   shifted tensor maximum all shift; under w8 the bf16 roundings of the
+   activations do the same, more weakly). So each module of the encoder is
+   held on the CPU's input to it (1e-2 of its max, 1e-3 of its RMS); the
+   free-running encoder output may depart from the CPU's no more than 5
+   times as far as the CPU's own output does when the patch embed's
+   LayerNorm scale is nudged by 1e-7; the decode of the CPU's encoder
+   output gives the CPU's tokens
+   under the margin rule (near-ties up to 2e-2: int8 noise).
    Training held to the plain path: fp32, depths cut to (2, 2, 2, 2) at full
    width, 2 images, no dropout, the same stochastic-depth scales: loss and
    every gradient of the kernel path on the card against the plain path on
@@ -54,7 +77,8 @@ Phases, in order (any failure raises and exits non-zero before the result):
    PyTorch call computes the same function, that call (CUDA events); encode
    ms of the three backbone forms; decode ms per step of both step paths;
    end-to-end img/s at b8/beam 3/L20 and p50 latency at b1/beam 5/L74, bf16,
-   on the default path; ms per XE step at b4 bf16 with its split into
+   on the default path; encode ms of the w8a8 model against the "fused"
+   bf16 one in turns, its decode ms per step and img/s at b8; ms per XE step at b4 bf16 with its split into
    forward, backward and optimizer, and the step's peak device memory.
 
 The next-to-last line is {"kernels": [...]} and the last line is
@@ -84,10 +108,13 @@ RUNS = {
 ALL_RUNS = tuple(RUNS)
 WINDOW_RUNS = ("fused", "fused_halves")
 TRAIN = "train"  # the training run of phase 4: XE steps on the "fused" path
+# quantized serving runs on the "fused" path: name -> (quantize_model mode, step_impl)
+QUANT_RUNS = {"w8a8": ("w8a8", "pallas"), "w8": ("w8", "pallas_fused")}
+Q_RUNS = tuple(QUANT_RUNS)
 B_TRAIN, L_TRAIN, TRAIN_STEPS, TRAIN_LR = 4, 20, 4, 2e-3
 # published peaks of one H100 SXM (dense): device memory bytes/s; bf16 matrix
 # products on the tensor cores; fp32 outside them
-HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS, INT8_OPS = 3.35e12, 989e12, 67e12, 1979e12
 _TPU = "on_device_image_captioning_tpu/ops/"
 _PORT = "on_device_image_captioning_torch/"
 # kernel -> route, source, the TPU kernel it replaces, (ops module, launch
@@ -97,19 +124,19 @@ KERNELS = {
     "window_attention": dict(
         route="cuda", source=_PORT + "csrc/window_attention.cu",
         replaces=_TPU + "window_attention.py:55", counter=("window_attention", "launches"),
-        paths=ALL_RUNS, headline="stage0 qkv(128, 144, 576) H6 mask bfloat16"),
+        paths=ALL_RUNS + Q_RUNS, headline="stage0 qkv(128, 144, 576) H6 mask bfloat16"),
     "dyn_exp_step": dict(
         route="cuda", source=_PORT + "csrc/dyn_exp_step.cu",
         replaces=_TPU + "dyn_exp_step.py:226", counter=("dyn_exp_step", "launches"),
-        paths=("pallas", "fused_halves"), headline="B24 L20 pos7 bfloat16"),
+        paths=("pallas", "fused_halves") + Q_RUNS, headline="B24 L20 pos7 bfloat16"),
     "topk": dict(
         route="cuda", source=_PORT + "csrc/topk.cu",
         replaces=_TPU + "topk.py:78", counter=("topk", "launches"),
-        paths=ALL_RUNS, headline="R24 V10000 k3 float32"),
+        paths=ALL_RUNS + Q_RUNS, headline="R24 V10000 k3 float32"),
     "layernorm": dict(
         route="triton", source=_PORT + "ops/layernorm.py",
         replaces=_TPU + "layernorm.py:36", counter=("layernorm", "launches"),
-        paths=ALL_RUNS + (TRAIN,), headline="(18432, 192) bfloat16"),
+        paths=ALL_RUNS + (TRAIN,) + Q_RUNS, headline="(18432, 192) bfloat16"),
     "patch_embed": dict(
         route="cuda", source=_PORT + "csrc/stage_boundary.cu",
         replaces=_TPU + "stage_boundary.py:100",
@@ -124,22 +151,22 @@ KERNELS = {
         route="cuda", source=_PORT + "csrc/swin_attn_half.cu",
         replaces=_TPU + "swin_block_fused.py:872",
         counter=("swin_block_fused", "attn_half_launches"),
-        paths=WINDOW_RUNS, headline="stage2 x(8, 144, 768) mask trans0to6 bfloat16"),
+        paths=WINDOW_RUNS + Q_RUNS, headline="stage2 x(8, 144, 768) mask trans0to6 bfloat16"),
     "swin_mlp_half": dict(
         route="cuda", source=_PORT + "csrc/swin_mlp_half.cu",
         replaces=_TPU + "swin_block_fused.py:1113",
         counter=("swin_block_fused", "mlp_half_launches"),
-        paths=WINDOW_RUNS, headline="stage2 x(8, 144, 768) bfloat16"),
+        paths=WINDOW_RUNS + ("w8",), headline="stage2 x(8, 144, 768) bfloat16"),
     "window_transition": dict(
         route="cuda", source=_PORT + "csrc/window_transition.cu",
         replaces=_TPU + "swin_block_fused.py:625",
         counter=("swin_block_fused", "transition_launches"),
-        paths=WINDOW_RUNS + (TRAIN,), headline="stage0 x(128, 144, 192) 6to0 bfloat16"),
+        paths=WINDOW_RUNS + (TRAIN,) + Q_RUNS, headline="stage0 x(128, 144, 192) 6to0 bfloat16"),
     "swin_block": dict(
         route="cuda", source=_PORT + "csrc/swin_block.cu",
         replaces=_TPU + "swin_block_fused.py:677",
         counter=("swin_block_fused", "block_launches"),
-        paths=("fused",), headline="stage0 x(128, 144, 192) mask trans0to6 bfloat16"),
+        paths=("fused", "w8"), headline="stage0 x(128, 144, 192) mask trans0to6 bfloat16"),
     "dyn_exp_cross_step": dict(
         route="cuda", source=_PORT + "csrc/dyn_exp_step.cu",
         replaces=_TPU + "dyn_exp_step.py:502",
@@ -170,6 +197,15 @@ KERNELS = {
         replaces=_TPU + "swin_block_fused.py:2396",
         counter=("swin_block_fused", "mlp_half_train_launches"),
         paths=(TRAIN,), headline="stage2 x(8, 144, 768) bfloat16"),
+    "quant_matmul": dict(
+        route="cuda", source=_PORT + "csrc/quant_matmul.cu",
+        replaces=_TPU + "quant_matmul.py:48", counter=("quant_matmul", "launches"),
+        paths=("w8a8",), headline="stage3 fc1 x(288, 1536) N6144 float32"),
+    "swin_mlp_half_a8": dict(
+        route="cuda", source=_PORT + "csrc/swin_mlp_half_a8.cu",
+        replaces=_TPU + "swin_block_fused.py:1076",
+        counter=("swin_block_fused", "mlp_half_a8_launches"),
+        paths=("w8a8",), headline="stage2 x(8, 144, 768) bfloat16"),
 }
 # launches of the training kernels in one XE step of Swin-L (depths 2, 2, 18,
 # 2): the whole-block forward at stages 0 and 1, the two half forwards at
@@ -217,7 +253,8 @@ class Smoke:
 
         for part, got, want, tol in case.check():
             abs_err, rel_err, ok = _cases.compare(got, want, tol)
-            self.errors[case.kernel] = max(self.errors[case.kernel], abs_err)
+            if "int8" not in part:  # int8 parts count codes and steps, not errors of values
+                self.errors[case.kernel] = max(self.errors[case.kernel], abs_err)
             log(f"  [{'ok' if ok else 'FAIL'}] {case.kernel} {case.label} {part}: "
                 f"max_abs={abs_err:.3e} max_rel={rel_err:.3e} "
                 f"tol=atol {tol[0]:g} + rtol {tol[1]:g}")
@@ -275,6 +312,19 @@ class Smoke:
             x, w, b = case.args
             w, b = w.to(x.dtype), b.to(x.dtype)
             return lambda: F.layer_norm(x, (x.shape[-1],), w, b, 1e-5)
+        if case.kernel == "quant_matmul":
+            # the int8 product alone, on operands quantized beforehand
+            from on_device_image_captioning_torch.ops import quant_matmul as qm
+
+            x, w_q, _, _, x_scale = case.args
+            xq = qm.quantize(x, qm.dynamic_scale(x) if x_scale is None else x_scale)
+            w_t = w_q.t()
+            try:
+                torch._int_mm(xq, w_t)
+            except RuntimeError as err:  # a yardstick only: report, do not fail
+                log(f"  torch._int_mm refused {case.label}: {str(err).splitlines()[0]}")
+                return None
+            return lambda: torch._int_mm(xq, w_t)
         if case.kernel == "window_transition":
             from on_device_image_captioning_torch.ops.window_layout import window_transition_perm
 
@@ -346,6 +396,99 @@ class Smoke:
         model = EndExpansionNetV2(cfg, modes)
         init_weights(model, torch.Generator().manual_seed(seed))
         return cfg, model.to(device), step_impl
+
+    def quant_model(self, dtype, device, mode, seed=SEED):
+        """(cfg, model) of a quantized run: the "fused" model of run "fused"
+        with every linear quantized (`quantize_model`), built on the CPU and
+        then moved, so the card and the CPU hold the same int8 weights."""
+        from on_device_image_captioning_torch.deploy.quantization import (
+            quantize_model, quantized_size_bytes,
+        )
+
+        cfg, model, _ = self.model(dtype, "cpu", "fused", seed)
+        before = quantized_size_bytes(model)
+        quantize_model(model, mode)
+        return cfg, model.to(device), (before, quantized_size_bytes(model))
+
+    def quant_launches(self, model, steps):
+        """The launches one encode and one decode of `steps` steps must make,
+        derived from the quantized model: (encode counts, decode counts)."""
+        from on_device_image_captioning_torch.deploy.quantization import is_a8
+
+        swin = model.swin_transf
+        multi = [l for l in swin.layers if l.blocks[0].res > l.blocks[0].window]
+        single = [b for l in swin.layers if l not in multi for b in l.blocks]
+        blocks = [b for l in multi for b in l.blocks]
+        b12 = is_a8(swin.patch_embed.proj) + sum(
+            is_a8(l.downsample.reduction) for l in swin.layers if l.downsample is not None)
+        b12 += sum(is_a8(m) for b in single for m in (b.attn.qkv, b.attn.proj, b.mlp.fc1, b.mlp.fc2))
+        named = dict(model.named_modules())
+        b12 += sum(is_a8(m) for n, m in named.items()
+                   if n.split(".")[0] in ("input_linear", "encoders", "enc_reduce_group"))
+        encode = {
+            "quant_matmul": b12,
+            "swin_mlp_half_a8": sum(b.mlp_a8 for b in blocks),
+            "swin_attn_half": sum(b.run_mode == "halves" for b in blocks),
+            "swin_mlp_half": sum(b.run_mode == "halves" and not b.mlp_a8 for b in blocks),
+            "swin_block": sum(b.run_mode == "full" for b in blocks),
+            "window_transition": sum(l.blocks[-1].shift != 0 for l in multi),
+            "window_attention": len(single), "patch_embed": 0, "downsample": 0,
+        }
+        dec = [m for n, m in named.items()
+               if n.split(".")[0] in ("decoders", "dec_reduce_group", "vocab_linear")]
+        cross = [m for layer in model.decoders for m in (layer.mha.Wk, layer.mha.Wv)]
+        per_step = sum(is_a8(m) for m in dec) - sum(is_a8(m) for m in cross)
+        decode = {"quant_matmul": sum(is_a8(m) for m in cross) + steps * per_step,
+                  "dyn_exp_step": N_DEC * steps, "dyn_exp_cross_step": 0}
+        return encode, decode
+
+    def quant_path(self):
+        """Phase 4, quantized serving: each run of QUANT_RUNS once through
+        `Captioner.beam_search`, its launches held to the model's counts."""
+        torch = self.torch
+        from on_device_image_captioning_torch.api import Captioner
+
+        imgs = self.images(B_SERVE, SEED)
+        args = {"beam_size": BEAM_SERVE, "beam_max_seq_len": L_SERVE}
+        dense = self.serve["fused"].forward_enc(imgs).float()
+        for run, (mode, step_impl) in QUANT_RUNS.items():
+            cfg, model, (before, after) = self.quant_model(torch.bfloat16, self.dev, mode)
+            serve = Captioner(model, cfg, args, step_impl=step_impl)
+            self.serve[run] = serve
+            self.counters(reset=True)
+            caps, _ = serve.beam_search(imgs)
+            torch.cuda.synchronize()
+            self.launches[run] = self.counters()
+            encode, decode = self.quant_launches(model, L_SERVE - 1)
+            log(f"phase 4 quantized serving, run {run!r}: quantize_model(model, {mode!r}) over "
+                f"every linear, {before / 1e6:.1f} MB -> {after / 1e6:.1f} MB of parameters; "
+                f"attention_impl='fused', stage modes {model.swin_transf.stage_modes}, "
+                f"step_impl={step_impl!r}, b{B_SERVE}/beam {BEAM_SERVE}/L{L_SERVE} bf16; lengths "
+                f"{[len(c[0]) for c in caps]}; launches {self.launches[run]}")
+            self.check_captions(caps, cfg.captioner, 1, L_SERVE)
+            for name, k in KERNELS.items():
+                n = self.launches[run][name]
+                if (n > 0) != (run in k["paths"]):
+                    raise AssertionError(
+                        f"kernel {name}: {n} launches in run {run!r}, which "
+                        f"{'runs' if run in k['paths'] else 'does not run'} it")
+            want = {k: encode.get(k, 0) + decode.get(k, 0) for k in set(encode) | set(decode)}
+            got = {k: self.launches[run][k] for k in want}
+            if got != want:
+                raise AssertionError(f"launches {got} != {want} in run {run!r}")
+            self.counters(reset=True)
+            enc = serve.forward_enc(imgs)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in self.counters().items() if k in encode}
+            log(f"  kernels in one encode, run {run!r}: {got}")
+            if got != encode:
+                raise AssertionError(f"encode launches {got} != {encode} in run {run!r}")
+            diff = float((enc.float() - dense).square().mean().sqrt())
+            log(f"  bf16 encoder output {tuple(enc.shape)} {enc.dtype}, run {run!r} against the "
+                f"unquantized 'fused' run: rms of the difference {diff:.3e} on an rms of "
+                f"{float(dense.square().mean().sqrt()):.3e}")
+            if not bool(torch.isfinite(enc).all()):
+                raise AssertionError(f"run {run!r}: encoder output not finite")
 
     def images(self, n, seed):
         return np.random.default_rng(seed).integers(0, 256, (n, 384, 384, 3), dtype=np.uint8)
@@ -468,7 +611,7 @@ class Smoke:
         torch.cuda.empty_cache()
 
     # -- phase 5 ---------------------------------------------------------------
-    def compare_tokens(self, what, got, want, margin_of):
+    def compare_tokens(self, what, got, want, margin_of, near_tie=1e-4):
         """Token lists of the card against the CPU's. Where they part, the
         CPU's margin between the two tokens at that step must be a near-tie
         (fp32 sums in another order can flip one); anything else fails."""
@@ -483,7 +626,7 @@ class Smoke:
                          min(len(a), len(b)))
                 margin = margin_of(i, j, t, a, b) if t < min(len(a), len(b)) else float("inf")
                 log(f"  {what}: image {i} caption {j} diverges at step {t}, margin {margin:.3e}")
-                if not margin < 1e-4:
+                if not margin < near_tie:
                     raise AssertionError(f"{what}: captions diverge at more than a near-tie")
         log(f"  {what}: token agreement {agree}/{total}")
 
@@ -589,6 +732,148 @@ class Smoke:
         self.compare_tokens("ensemble, card vs CPU", e_gpu, e_cpu, ensemble_margin)
         del gpu, gpu_model, gpu_model2, fused
         torch.cuda.empty_cache()
+
+    def quant_modules(self, cpu_model, gpu_model, x, dtype):
+        """Every module of the quantized encoder on the card, fed the CPU plain
+        path's input to it (so each comparison starts from the same values):
+        the patch embed, each block of the multi-window stages (window
+        layout), the transitions back, each patch merging, the single-window
+        blocks, the caption encoder's input linear, layers and reduction.
+        Each output within 1e-2 of its max and 1e-3 of its RMS: an int8 (or,
+        under w8, bf16) rounding of an activation can go one step the other
+        way and move its row. Returns [(module, share of max, share of RMS)]."""
+        torch = self.torch
+        from on_device_image_captioning_torch.models.common import layernorm, linear
+        from on_device_image_captioning_torch.ops.swin_block_fused import window_transition
+        from on_device_image_captioning_torch.ops.window_layout import window_partition, window_reverse
+
+        dev, shares = self.dev, []
+
+        def hold(what, got, want):
+            diff = got.float().cpu() - want.float()
+            shares.append((what, float(diff.abs().max()) / float(want.abs().max()),
+                           float(diff.square().mean().sqrt()) / float(want.float().square().mean().sqrt())))
+
+        sc, sg = cpu_model.swin_transf, gpu_model.swin_transf
+        xc = sc.patch_embed(x, dtype)
+        hold("patch embed", sg.patch_embed(x.to(dev), dtype), xc)
+        for i, (lc, lg) in enumerate(zip(sc.layers, sg.layers)):
+            b, l, c = xc.shape
+            res, window = lc.blocks[0].res, lc.blocks[0].window
+            if res > window:
+                xw, shift = window_partition(xc.reshape(b, res, res, c), window).contiguous(), 0
+                for j, (bc, bg) in enumerate(zip(lc.blocks, lg.blocks)):
+                    want = bc.forward_windows(xw, shift)
+                    hold(f"stage {i} block {j}", bg.forward_windows(xw.to(dev), shift), want)
+                    xw, shift = want, bc.shift
+                if shift:
+                    want = window_transition(xw, res, window, shift, 0)
+                    hold(f"stage {i} exit transition",
+                         window_transition(xw.to(dev), res, window, shift, 0), want)
+                    xw = want
+                xc = window_reverse(xw, window, res, res).reshape(b, l, c)
+            else:
+                for j, (bc, bg) in enumerate(zip(lc.blocks, lg.blocks)):
+                    want = bc(xc, dtype)
+                    hold(f"stage {i} block {j}", bg(xc.to(dev), dtype), want)
+                    xc = want
+            if lc.downsample is not None:
+                want = lc.downsample(xc, dtype)
+                hold(f"patch merging {i}", lg.downsample(xc.to(dev), dtype), want)
+                xc = want
+        feats = layernorm(sc.norm, xc)
+        # the caption encoder (`ExpansionNetV2.forward_enc` without pads), layer by layer
+        xc = linear(cpu_model.input_linear, feats, dtype)
+        hold("input linear", linear(gpu_model.input_linear, feats.to(dev), dtype), xc)
+        outs = []
+        for k, (ec, eg) in enumerate(zip(cpu_model.encoders, gpu_model.encoders)):
+            want = ec(xc, None, dtype)
+            hold(f"caption encoder layer {k}", eg(xc.to(dev), None, dtype), want)
+            xc = want
+            outs.append(want)
+        cat = torch.cat(outs, dim=-1)
+        want = layernorm(cpu_model.enc_reduce_norm,
+                         xc + linear(cpu_model.enc_reduce_group, cat, dtype))
+        hold("caption encoder reduction", layernorm(
+            gpu_model.enc_reduce_norm,
+            xc.to(dev) + linear(gpu_model.enc_reduce_group, cat.to(dev), dtype)), want)
+        return shares
+
+    def quant_check(self):
+        """Phase 5, quantized: the w8a8 and w8 models at fp32, 2 images, on the
+        card against the CPU's plain path with the same int8 weights."""
+        import copy
+
+        torch = self.torch
+        from on_device_image_captioning_torch.api import Captioner
+        from on_device_image_captioning_torch.decode import beam_search as bs
+        from on_device_image_captioning_torch.deploy.quantization import quantize_model
+        from on_device_image_captioning_torch.utils.image import normalize_on_device
+
+        args = {"beam_size": BEAM_SERVE, "beam_max_seq_len": L_SERVE}
+        imgs = self.images(2, SEED + 1)
+        x = normalize_on_device(torch.from_numpy(imgs))
+        for run, (mode, step_impl) in QUANT_RUNS.items():
+            cfg, cpu_model, _ = self.model(torch.float32, "cpu", "fused")
+            quantize_model(cpu_model, mode)
+            gpu_model = copy.deepcopy(cpu_model).to(self.dev)
+            cpu = Captioner(cpu_model, cfg, args, device="cpu")
+            gpu = Captioner(gpu_model, cfg, args, step_impl=step_impl)
+            with torch.inference_mode():
+                shares = self.quant_modules(cpu_model, gpu_model, x, cfg.compute_dtype)
+                enc_c = cpu.forward_enc(imgs)
+                enc_g = gpu.forward_enc(imgs).cpu()
+            # the CPU against itself with the patch embed's LayerNorm scale nudged
+            # by 1e-7 relative: how far a last-place difference carries
+            scale = cpu_model.swin_transf.patch_embed.norm.weight
+            kept = scale.detach().clone()
+            with torch.no_grad():
+                scale.mul_(1 + 1e-7 * torch.randn(scale.shape, generator=torch.Generator().manual_seed(SEED)))
+            with torch.inference_mode():
+                enc_n = cpu.forward_enc(imgs)
+            with torch.no_grad():
+                scale.copy_(kept)
+            log(f"phase 5 fp32 card kernels (run {run!r}, step_impl={step_impl!r}) vs CPU plain "
+                f"path, same int8 weights, each module on the CPU's input to it (tol 1e-2 of its "
+                f"max, 1e-3 of its RMS): worst {max(m for _, m, _ in shares):.3e} of max, "
+                f"{max(r for _, _, r in shares):.3e} of RMS; per module (max, RMS): "
+                + "; ".join(f"{w} {m:.1e} {r:.1e}" for w, m, r in shares))
+            bad = [w for w, m, r in shares if not (m <= 1e-2 and r <= 1e-3)]
+            if bad:
+                raise AssertionError(f"run {run!r}: card against CPU outside tolerance at {bad}")
+
+            def rms(a):
+                return float(a.square().mean().sqrt())
+
+            card, self_ = rms(enc_g - enc_c), rms(enc_n - enc_c)
+            log(f"  free-running encoder output: card vs CPU rms of the difference {card:.3e}, "
+                f"max_abs {float((enc_g - enc_c).abs().max()):.3e} on a max of "
+                f"{float(enc_c.abs().max()):.3e}; the CPU against itself with the patch embed's "
+                f"LayerNorm scale nudged by 1e-7 relative: rms {self_:.3e}, max_abs "
+                f"{float((enc_n - enc_c).abs().max()):.3e} "
+                f"(tol: card <= 5 x that + 1e-5)")
+            if not card <= 5 * self_ + 1e-5:
+                raise AssertionError(f"run {run!r}: the card's encoder output departs from the "
+                                     "CPU's more than a last-place nudge does")
+
+            def margin(i, j, t, a, b, model=cpu_model, enc=enc_c):
+                with torch.inference_mode():
+                    prefix = torch.tensor([b[:t]], dtype=torch.int64)
+                    lp = model.forward_dec(enc[i:i + 1], prefix, apply_log_softmax=True)
+                return abs(float(lp[0, t - 1, a[t]] - lp[0, t - 1, b[t]]))
+
+            # decoding the CPU's encoder output on both sides; an int8 value one
+            # step off moves a log-prob by up to ~1e-2
+            with torch.inference_mode():
+                caps_g = bs.captions_from_result(gpu.decode(enc_c.to(self.dev)))[0]
+                caps_c = bs.captions_from_result(cpu.decode(enc_c))[0]
+            self.compare_tokens(f"decode of the CPU's encoder output, card ({run!r}) vs CPU",
+                                caps_g, caps_c, margin, near_tie=2e-2)
+            free_g, free_c = gpu.beam_search(imgs)[0], cpu.beam_search(imgs)[0]
+            same = sum(a == b for rg, rc in zip(free_g, free_c) for a, b in zip(rg, rc))
+            log(f"  free-running captions, card vs CPU: {same} of {len(free_c)} equal")
+            del gpu, gpu_model, cpu, cpu_model
+            torch.cuda.empty_cache()
 
     # -- training --------------------------------------------------------------
     def train_model(self, dtype, device, depths=None, dropout=0.1):
@@ -799,11 +1084,12 @@ class Smoke:
         log(f"phase 6 times, CUDA events, ms per call ({self.card})")
         for name in names or _cases.CASES:
             for case in _cases.CASES[name](self.dev):
-                ms = self.cuda_time(case.run_kernel)
-                plain_ms = self.cuda_time(case.run_plain)
+                ms = self.cuda_time(case.time_kernel or case.run_kernel)
+                plain_ms = self.cuda_time(case.time_plain or case.run_plain)
                 library = self.library_call(case)
                 library_ms = None if library is None else self.cuda_time(library)
-                peak = BF16_FLOPS if case.matmul and "bfloat16" in case.label else FP32_FLOPS
+                peak = (INT8_OPS if case.int8 else
+                        BF16_FLOPS if case.matmul and "bfloat16" in case.label else FP32_FLOPS)
                 by_bytes, by_ops = 1e3 * case.nbytes / HBM_BYTES_S, 1e3 * case.flops / peak
                 bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
                 if case.label == KERNELS[case.kernel]["headline"]:
@@ -856,6 +1142,29 @@ class Smoke:
                 f"of {L_SERVE - 1} steps in the order {', '.join(step_order)} twice: "
                 f"{[round(1000 * t, 3) for t in dec_s[impl]]} ms) | {self.card}")
 
+        # quantized serving: encode against the unquantized "fused" form in
+        # turns, decode per step and img/s of the w8a8 model
+        q_order = ("fused", "w8a8", "w8", "w8", "w8a8", "fused")
+        q_ms = {r: [] for r in ("fused", "w8a8", "w8")}
+        for run in q_order:
+            q_ms[run].append(self.cuda_time(
+                lambda: self.serve[run].forward_enc(imgs8), iters=5, warmup=1))
+        for run in ("w8a8", "w8"):
+            log(f"  encode b{B_SERVE} bf16, run {run!r}: {statistics.mean(q_ms[run]):.3f} ms against "
+                f"'fused' {statistics.mean(q_ms['fused']):.3f} ms (CUDA events, 2 x 5 calls in the "
+                f"order {', '.join(q_order)}: {[round(t, 3) for t in q_ms[run]]}) | {self.card}")
+        qserve = self.serve["w8a8"]
+        qcross = qserve.forward_enc(imgs8)
+        wall(lambda: qserve.decode(qcross))
+        q_dec = [wall(lambda: qserve.decode(qcross)) for _ in range(3)]
+        log(f"  decode b{B_SERVE}/beam {BEAM_SERVE}/L{L_SERVE} bf16, run 'w8a8': "
+            f"{1000 * statistics.median(q_dec) / (L_SERVE - 1):.4f} ms per step (host clock, "
+            f"median of 3 decodes {[round(1000 * t, 3) for t in q_dec]} ms) | {self.card}")
+        q_serve = [wall(lambda: qserve.beam_search(imgs8)) for _ in range(3)]
+        log(f"  end to end b{B_SERVE}/beam {BEAM_SERVE}/L{L_SERVE} bf16, run 'w8a8': "
+            f"{B_SERVE / statistics.median(q_serve):.3f} img/s (median of 3 runs "
+            f"{[round(t, 4) for t in q_serve]} s) | {self.card}")
+
         serve = self.serve["pallas"]
         run = lambda captioner, imgs: wall(lambda: captioner.beam_search(imgs))  # noqa: E731
         run(serve, imgs8)
@@ -893,8 +1202,10 @@ def main(names) -> int:
         return 0
     smoke.kernels()
     smoke.main_path()
+    smoke.quant_path()
     smoke.train_path()
     smoke.self_check()
+    smoke.quant_check()
     smoke.train_check()
     smoke.kernel_timing()
     smoke.path_timing()

@@ -2,7 +2,7 @@
 
     python -m on_device_image_captioning_torch.cli.breakdown [--out FILE] \
         [--swin_attention_impl pallas|fused] [--stage_modes default|halves] \
-        [--step_impl pallas|pallas_fused] [--train]
+        [--step_impl pallas|pallas_fused] [--quantize w8|w8a8] [--train]
 
 For each cell, serve (b8 / beam 3 / L20) and latency (b1 / beam 5 / L74), on
 Swin-L/384 + the d512 captioner (V = 10000, bf16, seeded random weights), the
@@ -29,6 +29,8 @@ to max_seq_len, the worst case of each cell. `--stage_modes halves` puts every
 stage of the "fused" backbone path on the half-block kernels (the default is
 the whole-block kernel up to a width of 384); `--step_impl pallas_fused` takes
 the decode step that runs the cross-attention in the step kernel's launch.
+`--quantize w8|w8a8` quantizes every linear of the serving model first
+(`deploy/quantization.py::quantize_model`).
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import torch
 from ..api import Captioner
 from ..config import ATTENTION_IMPLS, DropConfig, end_expansionnet_v2_coco
 from ..decode.cache import STEP_IMPLS
+from ..deploy.quantization import quantize_model
 from ..models.end_to_end import EndExpansionNetV2, init_weights
 from ..train.radam import PlainRAdam
 from ..train.train_step import xe_loss
@@ -166,6 +169,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--swin_attention_impl", choices=ATTENTION_IMPLS, default="pallas")
     parser.add_argument("--stage_modes", choices=("default", "halves"), default="default")
     parser.add_argument("--step_impl", choices=STEP_IMPLS, default="pallas")
+    parser.add_argument("--quantize", choices=("w8", "w8a8"), default=None,
+                        help="quantize every linear of the serving model")
     parser.add_argument("--train", action="store_true",
                         help="measure the XE training step instead of the serving cells")
     args = parser.parse_args(argv)
@@ -183,7 +188,12 @@ def main(argv=None) -> dict:
                                       drop_path_rate=0.1 if args.train else 0.0))
     modes = {i: "halves" for i in range(cfg.swin.num_layers)} if args.stage_modes == "halves" else None
     model = init_weights(EndExpansionNetV2(cfg, modes), torch.Generator().manual_seed(SEED))
-    result = {"card": card, "swin_attention_impl": args.swin_attention_impl,
+    if args.quantize:
+        if args.train:
+            raise ValueError("breakdown: --quantize measures serving, not --train")
+        quantize_model(model, args.quantize)
+    result = {"card": card, "quantize": args.quantize,
+              "swin_attention_impl": args.swin_attention_impl,
               "stage_modes": model.swin_transf.stage_modes, "step_impl": args.step_impl,
               "cells": {}}
     if args.train:

@@ -29,6 +29,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..config import CaptionerConfig
+from ..deploy.quantization import QuantLinear
 from ..models.captioner import ExpansionNetV2
 from ..models.common import embedding, layernorm, linear
 from ..ops.dyn_exp_step import dyn_exp_cross_step, dyn_exp_step
@@ -70,7 +71,9 @@ def init_state(
     enc_num_pads: Optional[torch.Tensor] = None,
 ) -> DecState:
     """Zeroed caches (one row per image) and the cross-attention K/V of every
-    layer, projected once in fp32 and stored in the cache dtype. enc_num_pads
+    layer, projected once in fp32 and stored in the cache dtype (a quantized
+    projection takes the encoder output in its own dtype, as the JAX
+    package's `linear` hands it to its int8 product). enc_num_pads
     (B,) counts the trailing pad rows of each enc_output row; it becomes the
     cross-attention mask the state carries."""
     b, s = enc_output.shape[:2]
@@ -83,14 +86,11 @@ def init_state(
         _alloc_caches(cfg, b, max_len, cache_dtype, dev, fill_zero=True)
         for _ in range(cfg.N_dec)
     ]
-    enc = enc_output.float()
-    cross = [
-        (
-            linear(layer.mha.Wk, enc).to(cache_dtype),
-            linear(layer.mha.Wv, enc).to(cache_dtype),
-        )
-        for layer in model.decoders
-    ]
+    def project(proj):
+        x = enc_output if isinstance(proj, QuantLinear) else enc_output.float()
+        return linear(proj, x).to(cache_dtype)
+
+    cross = [(project(layer.mha.Wk), project(layer.mha.Wv)) for layer in model.decoders]
     return DecState(caches=caches, spare=None, cross=cross, enc_mask=enc_mask)
 
 
@@ -204,7 +204,8 @@ def dec_step(
     state expands to beams). group: rows per image (beams or samples); the
     cross K/V and the pad mask keep one row per image. step_impl: "pallas"
     (the step kernel, then LN2 and the cross-attention as separate calls) or
-    "pallas_fused" (all of it in one kernel call per layer). Returns
+    "pallas_fused" (all of it in one kernel call per layer; a layer whose Wq
+    is quantized takes the "pallas" step, as in the JAX package). Returns
     (log_probs (R, vocab) fp32, new state). Matches
     forward_dec(..., apply_log_softmax=True)[:, pos]."""
     if step_impl not in STEP_IMPLS:
@@ -226,7 +227,7 @@ def dec_step(
     y = y + model.pos_encoder.weight[pos][None]
     y_list = []
     for layer, src, dst, (kc, vc) in zip(model.decoders, state.caches, spare, state.cross):
-        if step_impl == "pallas_fused":
+        if step_impl == "pallas_fused" and not isinstance(layer.mha.Wq, QuantLinear):
             y = _dyn_cross_fused_step(
                 layer, cfg, src, dst, y, kc, vc, state.enc_mask, pos, reorder, dtype, group)
         else:

@@ -14,13 +14,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..deploy.quantization import QuantLinear
 from ..ops.layernorm import layernorm as _layernorm_op
 from ..ops.layernorm import layernorm_autograd as _layernorm_autograd
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
     """y = x W^T + b in `dtype` (x's dtype when None); the result keeps the
-    compute dtype, as the JAX package's `linear` does."""
+    compute dtype, as the JAX package's `linear` does. A `QuantLinear` ignores
+    `dtype` and returns fp32."""
+    if isinstance(layer, QuantLinear):
+        return layer(x)
     if dtype is not None:
         x = x.to(dtype)
     w = layer.weight.to(x.dtype)

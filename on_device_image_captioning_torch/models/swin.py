@@ -21,6 +21,18 @@ runs as on the "pallas" path. The mode of a stage is "full" up to a width of
 (`_stage_fused_mode`); `SwinTransformer(cfg, stage_modes={stage: mode})`
 overrides it per stage, as `set_stage_mode_override` does there.
 
+Quantized serving (`deploy/quantization.py`) takes the route the JAX package
+takes once its boundary plan gives up on quantized weights: when the patch
+embed or a patch merging is a `QuantLinear`, the "fused" path runs stage by
+stage (`_forward_stagewise`, `swin_apply` -> `_run_stage` there): the plain
+patch embed and patch merging through `linear` (int8 products, fp32 out), each
+multi-window stage window-resident between a partition at its entry and a
+reverse at its exit, the single-window stage on plain blocks. Inside a
+multi-window stage a block whose MLP is w8a8 runs the halves with B13 in
+place of B5 (`_stage_fused_mode` / `swin_block` pick "halves" for it there);
+the attention half, and under "w8" the MLP half or the whole block, read the
+weights dequantized in the compute dtype (`_weight` there).
+
 Training (`forward(..., train=True)`, `_run_stage_fused_windows_train` of the
 JAX file): the patch embed, the patch merging, the final norm and the
 single-window stage are plain tensor code under autograd. On the "fused" path
@@ -50,10 +62,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SwinConfig
+from ..deploy.quantization import QuantLinear, is_a8
 from ..ops.stage_boundary import downsample_fused, patch_embed_fused
 from ..ops.swin_block_fused import (
     swin_attn_half, swin_attn_half_train, swin_block, swin_block_train, swin_mlp_half,
-    swin_mlp_half_train, window_transition, window_transition_train,
+    swin_mlp_half_a8, swin_mlp_half_train, window_transition, window_transition_train,
 )
 from ..ops.window_attention import window_attention
 from ..ops.window_layout import window_partition, window_reverse
@@ -128,11 +141,18 @@ def _norm_operands(norm: nn.LayerNorm):
     return norm.weight.detach(), norm.bias.detach()
 
 
-def _linear_operands(layer: nn.Linear, dtype):
+def _linear_operands(layer: nn.Module, dtype):
     """(in, out) weight in the compute dtype and the fp32 bias, as the fused
-    kernels read them."""
+    kernels read them; a `QuantLinear`'s weight dequantized in that dtype."""
+    if isinstance(layer, QuantLinear):
+        return layer.dequantized(dtype).t().contiguous(), layer.bias
     w = layer.weight.detach().to(dtype).t().contiguous()
     return w, None if layer.bias is None else layer.bias.detach()
+
+
+def _a8_operands(layer: QuantLinear, dtype=None):
+    """(w_q (out, in) int8, scale fp32, bias fp32 or None) of B13."""
+    return layer.w_q, layer.scale, layer.bias
 
 
 def expand_rel_bias(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -153,16 +173,20 @@ class PatchEmbed(nn.Module):
         self.norm = nn.LayerNorm(cfg.embed_dim) if cfg.patch_norm else None
 
     def forward(self, images: torch.Tensor, dtype=None) -> torch.Tensor:
-        """images NHWC (B, H, W, C) -> (B, (H/P)*(W/P), embed_dim)."""
+        """images NHWC (B, H, W, C) -> (B, (H/P)*(W/P), embed_dim); fp32 when
+        the projection is quantized (its int8 product ignores `dtype`)."""
         b, h, w, c = images.shape
         ps = self.cfg.patch_size
         x = images.reshape(b, h // ps, ps, w // ps, ps, c)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, (h // ps) * (w // ps), ps * ps * c)
-        # conv weight (O, C, kh, kw) -> (O, kh*kw*C) in the (u, v, c) patch order
-        weight = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
-        if dtype is not None:
-            x = x.to(dtype)
-        x = F.linear(x, weight.to(x.dtype), self.proj.bias.to(x.dtype))
+        if isinstance(self.proj, QuantLinear):
+            x = linear(self.proj, x)
+        else:
+            # conv weight (O, C, kh, kw) -> (O, kh*kw*C) in the (u, v, c) patch order
+            weight = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
+            if dtype is not None:
+                x = x.to(dtype)
+            x = F.linear(x, weight.to(x.dtype), self.proj.bias.to(x.dtype))
         if self.norm is not None:
             x = layernorm(self.norm, x, self.cfg.ln_eps)
         return x
@@ -262,20 +286,32 @@ class SwinTransformerBlock(nn.Module):
         self.fused_cache = None  # (dtype, device, operands), set by prepare_inference()
         self.mode = default_stage_mode(dim)  # of the stage; SwinTransformer may override
 
+    @property
+    def mlp_a8(self) -> bool:
+        """A w8a8 MLP: the block runs the halves, its MLP half on kernel B13."""
+        return is_a8(self.mlp.fc1)
+
+    @property
+    def run_mode(self) -> str:
+        """The mode this block runs in on the "fused" path."""
+        return "halves" if self.mlp_a8 else self.mode
+
     def fused_operands(self, dtype):
         """The block kernels' operands (whole block or halves): LayerNorm
-        parameters and (in, out) weights in the compute dtype. Prepared once by
-        prepare_inference(); built per call otherwise."""
+        parameters and (in, out) weights in the compute dtype (a w8a8 MLP's
+        int8 weights as they are). Prepared once by prepare_inference(); built
+        per call otherwise."""
         cached = self.fused_cache
         if cached is not None and cached[:2] == (dtype, self.norm1.weight.device):
             return cached[2]
+        mlp = _a8_operands if self.mlp_a8 else _linear_operands
         return {
             "norm1": _norm_operands(self.norm1),
             "qkv": _linear_operands(self.attn.qkv, dtype),
             "proj": _linear_operands(self.attn.proj, dtype),
             "norm2": _norm_operands(self.norm2),
-            "fc1": _linear_operands(self.mlp.fc1, dtype),
-            "fc2": _linear_operands(self.mlp.fc2, dtype),
+            "fc1": mlp(self.mlp.fc1, dtype),
+            "fc2": mlp(self.mlp.fc2, dtype),
         }
 
     def forward_windows(self, xw: torch.Tensor, from_shift: int) -> torch.Tensor:
@@ -283,7 +319,7 @@ class SwinTransformerBlock(nn.Module):
         the from_shift layout; the result lies in this block's shift layout."""
         ops = self.fused_operands(xw.dtype)
         transition = None if from_shift == self.shift else (self.res, from_shift, self.shift)
-        if self.mode == "full":
+        if self.run_mode == "full":
             return swin_block(
                 xw, ops["norm1"], ops["qkv"], ops["proj"], ops["norm2"], ops["fc1"], ops["fc2"],
                 self.attn.bias(), self.attn_mask, self.attn.heads, float(self.attn.scale),
@@ -293,7 +329,8 @@ class SwinTransformerBlock(nn.Module):
             xw, ops["norm1"], ops["qkv"], ops["proj"], self.attn.bias(), self.attn_mask,
             self.attn.heads, float(self.attn.scale), self.cfg.ln_eps, transition,
         )
-        return swin_mlp_half(xw, ops["norm2"], ops["fc1"], ops["fc2"], self.cfg.ln_eps)
+        mlp_half = swin_mlp_half_a8 if self.mlp_a8 else swin_mlp_half
+        return mlp_half(xw, ops["norm2"], ops["fc1"], ops["fc2"], self.cfg.ln_eps)
 
     def forward_windows_train(self, xw: torch.Tensor, m1: torch.Tensor,
                               m2: torch.Tensor) -> torch.Tensor:
@@ -416,7 +453,7 @@ class SwinTransformer(nn.Module):
     @property
     def stage_modes(self) -> Dict[int, str]:
         """The mode of every multi-window stage on the "fused" path."""
-        return {i: layer.blocks[0].mode for i, layer in enumerate(self.layers)
+        return {i: layer.blocks[0].run_mode for i, layer in enumerate(self.layers)
                 if layer.blocks[0].res > layer.blocks[0].window}
 
     def _check_window_resident(self) -> None:
@@ -455,6 +492,47 @@ class SwinTransformer(nn.Module):
                 if self.cfg.attention_impl == "fused" and blk.res > blk.window:
                     blk.fused_cache = None
                     blk.fused_cache = (dtype, blk.norm1.weight.device, blk.fused_operands(dtype))
+
+    def _quantized_boundaries(self) -> bool:
+        """Whether the patch embed or a patch merging is quantized: the JAX
+        package's `_boundary_fused_plan` then gives up (it needs their dense
+        weights) and `swin_apply` runs stage by stage."""
+        return isinstance(self.patch_embed.proj, QuantLinear) or any(
+            isinstance(layer.downsample.reduction, QuantLinear)
+            for layer in self.layers if layer.downsample is not None)
+
+    def _run_stage_windows(self, layer, x: torch.Tensor, dtype) -> torch.Tensor:
+        """A multi-window stage of the stage-by-stage route (`_run_stage_fused_
+        windows` of the JAX file): partition at entry in the compute dtype, the
+        blocks window-resident, the transition back to shift 0, reverse."""
+        b, l, c = x.shape
+        res, window = layer.blocks[0].res, layer.blocks[0].window
+        xw = window_partition(x.reshape(b, res, res, c), window)
+        if dtype is not None:
+            xw = xw.to(dtype)
+        xw = xw.contiguous()
+        shift = 0
+        for blk in layer.blocks:
+            xw = blk.forward_windows(xw, shift)
+            shift = blk.shift
+        if shift != 0:
+            xw = window_transition(xw, res, window, shift, 0)
+        return window_reverse(xw, window, res, res).reshape(b, l, c)
+
+    def _forward_stagewise(self, images: torch.Tensor, dtype=None) -> torch.Tensor:
+        """The "fused" path with quantized boundaries (see the module
+        docstring): plain patch embed and patch merging, multi-window stages
+        window-resident, the single-window stage on plain blocks."""
+        x = self.patch_embed(images, dtype)
+        for layer in self.layers:
+            if layer.blocks[0].res > layer.blocks[0].window:
+                x = self._run_stage_windows(layer, x, dtype)
+            else:
+                for blk in layer.blocks:
+                    x = blk(x, dtype)
+            if layer.downsample is not None:
+                x = layer.downsample(x, dtype)
+        return layernorm(self.norm, x, self.cfg.ln_eps)
 
     def _forward_window_resident(self, images: torch.Tensor, dtype=None) -> torch.Tensor:
         cfg = self.cfg
@@ -550,6 +628,8 @@ class SwinTransformer(nn.Module):
         if train:
             return self._forward_train(images, dtype, generator, drop_path_scales)
         if self.cfg.attention_impl == "fused":
+            if self._quantized_boundaries():
+                return self._forward_stagewise(images, dtype)
             return self._forward_window_resident(images, dtype)
         x = self.patch_embed(images, dtype)
         if self.cfg.ape:

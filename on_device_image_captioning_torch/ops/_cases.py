@@ -20,13 +20,14 @@ computes the least time the card could take.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterator, List, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 
 from ..models.swin import shift_attn_mask
 from . import dyn_exp_step as k2
 from . import layernorm as k4
+from . import quant_matmul as qm
 from . import stage_boundary as sb
 from . import swin_block_fused as sbf
 from . import topk as k3
@@ -55,6 +56,11 @@ class Case:
     nbytes: int = 0  # bytes the function must move: inputs once, outputs once
     flops: int = 0  # floating-point operations of the function on these inputs
     matmul: bool = False  # the operations are matrix products of the inputs' dtype
+    int8: bool = False  # the operations are int8 matrix products
+    # the calls to time where run_kernel / run_plain also return what only the
+    # checks read (None: time run_kernel and run_plain themselves)
+    time_kernel: Optional[Callable[[], object]] = None
+    time_plain: Optional[Callable[[], object]] = None
 
     def check(self) -> List[Check]:
         """Run the kernel and the plain version once each; the pairs to hold
@@ -560,6 +566,111 @@ def swin_attn_bwd_cases(dev) -> Iterator[Case]:
                 )
 
 
+def _int8_weight(n, k, g, dev):
+    """(w_q (N, K) int8, scale fp32 (N,)): uniform int8 codes and scales that
+    give the product unit output variance for unit inputs."""
+    w_q = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    scale = (torch.rand((n,), generator=g) + 0.5) * (k**-0.5 / 73.0)
+    return w_q.to(dev), scale.to(dev)
+
+
+def _within_max(t):
+    """Tolerance t times the largest magnitude of the wanted tensor."""
+    return lambda want: (t * float(want.float().abs().max()), 0.0)
+
+
+def quant_matmul_cases(dev) -> Iterator[Case]:
+    """B12 at the main path's shapes: Swin-L stage 3's fc1 (B = 2, 288 rows,
+    1536 -> 6144), a decoder linear at 24 rows (512 -> 2048), the vocab linear
+    (512 -> 10000, a ragged last column tile) and the patch embed (B = 2,
+    18432 rows, 48 -> 192); the dynamic scale in fp32 and bf16, and one
+    calibrated fp32 scale on bf16 x. The int8 x must equal the plain
+    version's bit for bit; the output is within 1e-6 of its max (the int32
+    sums are exact on both sides; fp32 roundings of the epilogue remain)."""
+    shapes = [("stage3 fc1", 288, 1536, 6144), ("decode ff", 24, 512, 2048),
+              ("vocab", 24, 512, VOCAB), ("patch embed", 18432, 48, 192)]
+    runs = [(name, m, k, n, dt, False) for name, m, k, n in shapes
+            for dt in (torch.float32, torch.bfloat16)]
+    runs.append(("decode ff", 24, 512, 2048, torch.bfloat16, True))
+    for name, m, k, n, dt, static in runs:
+        g = torch.Generator().manual_seed(1700 + k + n)
+        x = _randn((m, k), g, dev, scale=1.5, dtype=dt)
+        w_q, scale = _int8_weight(n, k, g, dev)
+        bias = _randn((n,), g, dev, scale=0.2)
+        x_scale = torch.tensor(2.5 / 127.0, device=dev) if static else None
+        a = (x, w_q, scale, bias, x_scale)
+
+        def run(fn, a=a):
+            xq = torch.empty(a[0].shape, dtype=torch.int8, device=a[0].device)
+            return fn(*a, xq_out=xq), xq
+
+        def checks(got, want):
+            (out, xq), (want_out, want_xq) = got, want
+            return [("xq int8", xq, want_xq, EXACT),
+                    ("out", out, want_out, _within_max(1e-6)(want_out))]
+
+        yield Case(
+            "quant_matmul",
+            f"{name} x({m}, {k}) N{n} {_dtype_name(dt)}{' static' if static else ''}",
+            lambda run=run: run(qm.quantized_matmul),
+            lambda run=run: run(qm.quantized_matmul_reference),
+            checks, args=a,
+            nbytes=_nbytes(x, w_q, scale, bias, x_scale) + 4 * m * n,
+            flops=2 * m * n * k, int8=True,
+            time_kernel=lambda a=a: qm.quantized_matmul(*a),
+            time_plain=lambda a=a: qm.quantized_matmul_reference(*a),
+        )
+
+
+def swin_mlp_half_a8_cases(dev) -> Iterator[Case]:
+    """B13 on the rows of the three multi-window stages at B=2, fp32 and bf16.
+    LN and GELU round at other places on the card (fp32 sums in another
+    order, erff against torch's erf), which now and then moves a value across
+    an int8 rounding boundary; such a step in LN2's int8 row moves the whole
+    row's output by about 3e-3 of the output's max. So: at most 0.1% of the
+    int8 values of LN2's rows and of the hidden rows differ, by one step; on
+    the rows whose int8 values all agree, the output within 1e-5 of its max
+    at fp32 (2e-2 + 2e-2 relative at bf16, a bf16 ulp); on every row within
+    1e-2 (fp32) / 2e-2 (bf16) of its max."""
+    def checks_of(dt):
+        def checks(got, want):
+            (out, xq, hq), (want_out, want_xq, want_hq) = got, want
+            zero = torch.zeros((), device=out.device)
+            parts = []
+            same = torch.ones(xq.shape[0], dtype=torch.bool, device=out.device)
+            for name, a, b in (("LN2", xq, want_xq), ("hidden", hq, want_hq)):
+                steps = (a.int() - b.int()).abs()
+                same &= (steps == 0).all(dim=1)
+                parts += [(f"{name} int8 share off", (steps > 0).float().mean(), zero, (1e-3, 0.0)),
+                          (f"{name} int8 largest step", steps.max().float(), zero, (1.0, 0.0))]
+            c = out.shape[-1]
+            rows, want_rows = out.reshape(-1, c)[same], want_out.reshape(-1, c)[same]
+            agree_tol = _within_max(1e-5)(want_out) if dt == torch.float32 else TOL[dt]
+            all_tol = _within_max(1e-2 if dt == torch.float32 else 2e-2)(want_out)
+            return parts + [("out, rows whose int8 agree", rows, want_rows, agree_tol),
+                            ("out", out, want_out, all_tol)]
+        return checks
+
+    for dt in (torch.float32, torch.bfloat16):
+        for stage, (c, _, res) in enumerate(STAGES[:3]):
+            g = torch.Generator().manual_seed(1800 + stage)
+            x = _randn((2 * (res // WINDOW) ** 2, N_TOKENS, c), g, dev, dtype=dt)
+            norm2 = _norm(c, g, dev)
+            fc1 = (*_int8_weight(4 * c, c, g, dev), _randn((4 * c,), g, dev, scale=0.2))
+            fc2 = (*_int8_weight(c, 4 * c, g, dev), _randn((c,), g, dev, scale=0.2))
+            a = (x, norm2, fc1, fc2, 1e-5)
+            yield Case(
+                "swin_mlp_half_a8", f"stage{stage} x{tuple(x.shape)} {_dtype_name(dt)}",
+                lambda a=a: sbf.swin_mlp_half_a8(*a, hidden=True),
+                lambda a=a: sbf.swin_mlp_half_a8_reference(*a, hidden=True),
+                checks_of(dt), args=a,
+                nbytes=2 * _nbytes(x) + _nbytes(*norm2, *fc1, *fc2),
+                flops=x.numel() * 16 * c, int8=True,
+                time_kernel=lambda a=a: sbf.swin_mlp_half_a8(*a),
+                time_plain=lambda a=a: sbf.swin_mlp_half_a8_reference(*a),
+            )
+
+
 CASES = {
     "window_attention": window_attention_cases,
     "dyn_exp_step": dyn_exp_step_cases,
@@ -577,6 +688,8 @@ CASES = {
     "swin_mlp_half_train": swin_mlp_half_train_cases,
     "swin_mlp_bwd": swin_mlp_bwd_cases,
     "swin_attn_bwd": swin_attn_bwd_cases,
+    "quant_matmul": quant_matmul_cases,
+    "swin_mlp_half_a8": swin_mlp_half_a8_cases,
 }
 
 

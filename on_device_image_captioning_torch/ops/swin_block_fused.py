@@ -12,7 +12,10 @@ Replaces, from `on_device_image_captioning_tpu/ops/swin_block_fused.py`:
 - `swin_mlp_half_fused` (dense branch) -> `swin_mlp_half` (B5,
   `csrc/swin_mlp_half.cu`): x + fc2(GELU(fc1(LN2(x)))) over flat rows;
 - `window_transition_fused` -> `window_transition` (B11,
-  `csrc/window_transition.cu`): the permuting copy between two shift layouts.
+  `csrc/window_transition.cu`): the permuting copy between two shift layouts;
+- `_mlp_half_kernel_a8`, the w8a8 branch of `swin_mlp_half_fused` ->
+  `swin_mlp_half_a8` (B13, `csrc/swin_mlp_half_a8.cu`): the MLP half with
+  int8 weights and per-row int8 activations.
 
 Operands: weights are (in, out) matrices in x's dtype, prepared once by the
 model (`models/swin.py`); LayerNorm parameters, biases, the relative-position
@@ -34,22 +37,26 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from . import quant_matmul as qm
 from .layernorm import layernorm_reference
 from .window_attention import HEAD_DIM
 from .window_layout import window_transition_perm
 
 # wrapper calls that launched their kernels since the last reset (plain-version
 # calls do not count); one call of B6 is one launch, of B4 a chain of three,
-# of B5 two
+# of B5 two, of B13 three
 block_launches = 0
 attn_half_launches = 0
 mlp_half_launches = 0
+mlp_half_a8_launches = 0
 transition_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 Norm = Tuple[torch.Tensor, torch.Tensor]  # (scale, bias), fp32
 Linear = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (w (in, out) in x.dtype, b fp32 or None)
+# (w_q (out, in) int8, per-output-channel scale fp32, b fp32 or None)
+QuantLinear = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 Transition = Tuple[int, int, int]  # (res, from_shift, to_shift)
 
 
@@ -318,6 +325,90 @@ def swin_mlp_half(
     )
     _build.check_status(status, "swin_mlp_half")
     mlp_half_launches += 1
+    return out
+
+
+def _int8_linear_reference(hq: torch.Tensor, hs: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
+    """acc * (hs * s) + b in fp32 for int8 rows hq with row scales hs (R, 1)."""
+    w_q, s, b = lin
+    y = qm.int_matmul(hq, w_q.t()).float() * (hs * s)
+    return y if b is None else y + b
+
+
+def swin_mlp_half_a8_reference(
+    x: torch.Tensor, norm2: Norm, fc1: QuantLinear, fc2: QuantLinear, eps: float,
+    hidden: bool = False,
+):
+    """The TPU kernel's `_mlp_half_kernel_a8`: LN2 rounded to x's dtype, per-row
+    int8, int8 fc1, fp32 GELU of the unrounded value, per-row int8, int8 fc2,
+    and x + fc2 in x's dtype. hidden=True also returns the int8 rows the two
+    products read: LN2's (R, C) and the hidden (R, 4C)."""
+    c = x.shape[-1]
+    h = layernorm_reference(x, norm2[0], norm2[1], eps).float().reshape(-1, c)
+    hs = qm.row_scales(h)
+    hq = qm.quantize(h, hs)
+    y = F.gelu(_int8_linear_reference(hq, hs, fc1))  # exact erf, fp32
+    ys = qm.row_scales(y)
+    yq = qm.quantize(y, ys)
+    out = x + _int8_linear_reference(yq, ys, fc2).to(x.dtype).reshape(x.shape)
+    return (out, hq, yq) if hidden else out
+
+
+def _check_quant_linears(name: str, c: int, fc1: QuantLinear, fc2: QuantLinear) -> int:
+    hid = fc1[0].shape[0]
+    for (w_q, s, b), shape in ((fc1, (hid, c)), (fc2, (c, hid))):
+        if w_q.dtype != torch.int8 or w_q.shape != shape:
+            raise ValueError(f"{name}: fc1 must be int8 (hidden, C) and fc2 int8 (C, hidden)")
+        if s.dtype != torch.float32 or s.shape != shape[:1]:
+            raise ValueError(f"{name}: scales must be fp32 (out,)")
+        if b is not None and (b.dtype != torch.float32 or b.shape != shape[:1]):
+            raise ValueError(f"{name}: biases must be fp32 (out,)")
+    if c % 16 or hid % 16:
+        raise ValueError(f"{name}: C and hidden must be multiples of 16")
+    return hid
+
+
+def swin_mlp_half_a8(
+    x: torch.Tensor, norm2: Norm, fc1: QuantLinear, fc2: QuantLinear, eps: float,
+    hidden: bool = False,
+):
+    """x + fc2(GELU(fc1(LN2(x)))) over the rows of x (..., C) with int8 weights
+    and per-row int8 activations (a w8a8 block's MLP half). CPU tensors get the
+    plain version; CUDA tensors get kernel B13. hidden=True also returns the
+    int8 rows the two products read, LN2's and the hidden (on the card the
+    latter formed from the fp32 hidden and its row maxima exactly as the third
+    launch forms them; for checks)."""
+    global mlp_half_a8_launches
+    if not _check_device(x, "swin_mlp_half_a8"):
+        return swin_mlp_half_a8_reference(x, norm2, fc1, fc2, eps, hidden)
+    c = x.shape[-1]
+    rows = x.numel() // c
+    _check_norm("swin_mlp_half_a8", norm2, c)
+    hid = _check_quant_linears("swin_mlp_half_a8", c, fc1, fc2)
+    x = qm.aligned(x)
+    _build.check_cuda_tensors(*_flat([x, *norm2, *fc1, *fc2]))
+    dev = x.device
+    xq = torch.empty((rows, c), dtype=torch.int8, device=dev)
+    xs = torch.empty((rows,), dtype=torch.float32, device=dev)
+    hidden_buf = torch.empty((rows, hid), dtype=torch.float32, device=dev)
+    hmax = torch.empty((rows,), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    fn = _build.cuda_function(
+        "swin_mlp_half_a8", "swin_mlp_half_a8_launch",
+        [_P] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P],
+    )
+    status = fn(
+        x.data_ptr(), norm2[0].data_ptr(), norm2[1].data_ptr(),
+        fc1[0].data_ptr(), fc1[1].data_ptr(), _ptr(fc1[2]),
+        fc2[0].data_ptr(), fc2[1].data_ptr(), _ptr(fc2[2]),
+        xq.data_ptr(), xs.data_ptr(), hidden_buf.data_ptr(), hmax.data_ptr(), out.data_ptr(),
+        rows, c, hid, float(eps), _DTYPE_CODE[x.dtype], _build.current_stream(),
+    )
+    _build.check_status(status, "swin_mlp_half_a8")
+    mlp_half_a8_launches += 1
+    if hidden:
+        scale = torch.clamp(hmax, min=1e-8)[:, None] / qm.QMAX
+        return out, xq, qm.quantize(hidden_buf, scale)
     return out
 
 

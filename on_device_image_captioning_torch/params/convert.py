@@ -6,11 +6,16 @@ repo's names. It is the inverse of the JAX package's
 `params/torch_convert.py::convert_end_to_end`: linears are transposed back to
 (out, in), the patch-embed matmul goes back to the Conv2d layout, and the
 relative-position tables stay tables (a pre-expanded `rel_bias_x` is
-ignored).
+ignored). A quantized JAX tree (`deploy/quantization.py::quantize_tree` there)
+converts too: a node {'w_q' (in, out), 'scale', ['b'], ['x_scale'], ['a8']}
+becomes the buffers of a `QuantLinear` (w_q transposed to (out, in), the mode
+in its extra state; the patch-embed node keeps its (u, v, c) matrix), which
+`deploy/quantization.py::load_quantized_state_dict` builds the modules for.
 
 `load_reference_state_dict` loads a reference `.pth` state_dict: it drops the
 DDP `module.` prefix and the non-parameter buffers the reference saves
-(`attn_mask`, `relative_position_index`), then loads strictly.
+(`attn_mask`, `relative_position_index`), then loads strictly; a quantized
+state_dict (`cli/quantize.py` writes one) gets its `QuantLinear`s first.
 """
 from __future__ import annotations
 
@@ -22,14 +27,22 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..deploy.quantization import load_quantized_state_dict
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def _lin(sd: Dict, prefix: str, p: Mapping) -> None:
-    sd[prefix + ".weight"] = _t(p["w"]).T.contiguous()
+def _lin(sd: Dict, prefix: str, p: Mapping, conv=None) -> None:
+    if "w_q" in p:  # int8-quantized node
+        sd[prefix + ".w_q"] = torch.from_numpy(np.array(p["w_q"], dtype=np.int8).T.copy())
+        sd[prefix + ".scale"] = _t(p["scale"])
+        if "x_scale" in p:
+            sd[prefix + ".x_scale"] = _t(p["x_scale"]).reshape(())
+        sd[prefix + "._extra_state"] = {"mode": "a8" if "a8" in p else "w8", "conv": conv}
+    else:
+        sd[prefix + ".weight"] = _t(p["w"]).T.contiguous()
     if "b" in p:
         sd[prefix + ".bias"] = _t(p["b"])
 
@@ -89,11 +102,14 @@ def swin_state_dict(params: Mapping, cfg: ModelConfig, prefix: str = "swin_trans
     sd: Dict[str, torch.Tensor] = {}
     pe = params["patch_embed"]
     ps, c = scfg.patch_size, scfg.in_chans
-    w = _t(pe["proj"]["w"])  # (kh*kw*C, O) in (u, v, c) order
-    sd[prefix + "patch_embed.proj.weight"] = (
-        w.T.reshape(-1, ps, ps, c).permute(0, 3, 1, 2).contiguous()
-    )
-    sd[prefix + "patch_embed.proj.bias"] = _t(pe["proj"]["b"])
+    if "w_q" in pe["proj"]:
+        _lin(sd, prefix + "patch_embed.proj", pe["proj"], conv=(ps, c))
+    else:
+        w = _t(pe["proj"]["w"])  # (kh*kw*C, O) in (u, v, c) order
+        sd[prefix + "patch_embed.proj.weight"] = (
+            w.T.reshape(-1, ps, ps, c).permute(0, 3, 1, 2).contiguous()
+        )
+        sd[prefix + "patch_embed.proj.bias"] = _t(pe["proj"]["b"])
     if pe.get("norm") is not None:
         _ln(sd, prefix + "patch_embed.norm", pe["norm"])
     if scfg.ape:
@@ -111,7 +127,7 @@ def swin_state_dict(params: Mapping, cfg: ModelConfig, prefix: str = "swin_trans
         if "downsample" in stage:
             ds = f"{prefix}layers.{i}.downsample."
             _ln(sd, ds + "norm", stage["downsample"]["norm"])
-            sd[ds + "reduction.weight"] = _t(stage["downsample"]["reduction"]["w"]).T.contiguous()
+            _lin(sd, ds + "reduction", stage["downsample"]["reduction"])
     _ln(sd, prefix + "norm", params["norm"])
     return sd
 
@@ -127,7 +143,8 @@ def state_dict_from_jax(params_np: Mapping, cfg: ModelConfig) -> Dict[str, torch
 
 def load_reference_state_dict(model: nn.Module, sd: Mapping) -> None:
     """Load a reference checkpoint's state_dict (or a full training checkpoint
-    with a 'model_state_dict' key) strictly into `model`."""
+    with a 'model_state_dict' key) strictly into `model`, quantized linears
+    included."""
     if "model_state_dict" in sd:
         sd = sd["model_state_dict"]
     clean = {}
@@ -136,4 +153,4 @@ def load_reference_state_dict(model: nn.Module, sd: Mapping) -> None:
         if k.endswith("attn_mask") or k.endswith("relative_position_index"):
             continue
         clean[k] = v
-    model.load_state_dict(clean, strict=True)
+    load_quantized_state_dict(model, clean)

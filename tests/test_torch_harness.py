@@ -202,9 +202,10 @@ def test_init_weights_seeded_distributions():
 
 def test_port_imports_neither_jax_nor_triton():
     """Importing every module of the port (the package is walked, the
-    `train` subpackage included), running both backbone paths and taking an XE
-    training step on each leaves jax, triton and every module of the JAX
-    package out of sys.modules, and on the CPU no kernel launch counter moves."""
+    `train` and `deploy` subpackages included), running both backbone paths,
+    taking an XE training step on each and captioning with the w8a8-quantized
+    model leaves jax, triton and every module of the JAX package out of
+    sys.modules, and on the CPU no kernel launch counter moves."""
     code = textwrap.dedent(
         """
         import dataclasses, importlib, pkgutil, sys
@@ -213,16 +214,19 @@ def test_port_imports_neither_jax_nor_triton():
         names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
         mods = {n: importlib.import_module(n) for n in names}
         assert len(names) >= 30, names
-        for leaf in ("api", "cli.demo", "cli.breakdown", "data.text", "decode.sampling",
+        for leaf in ("api", "cli.demo", "cli.breakdown", "cli.quantize", "data.text",
+                     "decode.sampling", "deploy.quantization", "ops.quant_matmul",
                      "ops.stage_boundary",
                      "ops.swin_block_fused", "ops.window_layout", "utils.image",
                      "train.losses", "train.radam", "train.schedules", "train.train_step"):
             assert port.__name__ + "." + leaf in mods, leaf
         from on_device_image_captioning_torch import api, config
+        from on_device_image_captioning_torch.deploy import quantization
         from on_device_image_captioning_torch.models import end_to_end
         from on_device_image_captioning_torch.train import radam, train_step
         from on_device_image_captioning_torch.ops import (
-            dyn_exp_step, layernorm, stage_boundary, swin_block_fused, topk, window_attention)
+            dyn_exp_step, layernorm, quant_matmul, stage_boundary, swin_block_fused, topk,
+            window_attention)
         for impl in config.ATTENTION_IMPLS:
             cfg = config.ModelConfig(
                 swin=config.SwinConfig(img_size=32, patch_size=4, embed_dim=16,
@@ -241,6 +245,8 @@ def test_port_imports_neither_jax_nor_triton():
             batch = {"enc_input": torch.from_numpy(imgs),
                      "captions": torch.tensor([[2, 5, 6, 3, 0]])}
             assert torch.isfinite(step(batch, torch.Generator().manual_seed(0))["loss"])
+            quantization.quantize_model(model, "w8a8")
+            api.Captioner(model, cfg, {"beam_size": 2, "beam_max_seq_len": 6}, device="cpu")(imgs)
         counts = [m.launches for m in (dyn_exp_step, layernorm, topk, window_attention)]
         counts += [stage_boundary.patch_embed_launches, stage_boundary.downsample_launches,
                    swin_block_fused.attn_half_launches, swin_block_fused.mlp_half_launches,
@@ -248,8 +254,9 @@ def test_port_imports_neither_jax_nor_triton():
                    dyn_exp_step.cross_launches, swin_block_fused.block_train_launches,
                    swin_block_fused.attn_half_train_launches,
                    swin_block_fused.mlp_half_train_launches,
-                   swin_block_fused.attn_bwd_launches, swin_block_fused.mlp_bwd_launches]
-        assert counts == [0] * 16, counts
+                   swin_block_fused.attn_bwd_launches, swin_block_fused.mlp_bwd_launches,
+                   quant_matmul.launches, swin_block_fused.mlp_half_a8_launches]
+        assert counts == [0] * 18, counts
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "triton", "on_device_image_captioning_tpu")]
         assert not bad, bad

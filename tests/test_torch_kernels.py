@@ -8,13 +8,16 @@ This file imports no JAX, so it runs on a card machine with
 
 The cases and their tolerances live in `ops/_cases.py`, which `chip_smoke.py`
 checks too: fp32 2e-5 abs + 1e-4 rel (summation order only); bf16 2e-2 abs +
-2e-2 rel (one bf16 ulp is 2^-8 relative); top-k values and indices exactly.
+2e-2 rel (one bf16 ulp is 2^-8 relative); top-k values and indices exactly;
+the int8 product's int8 x exactly and its output within 1e-6 of its max; the
+int8 MLP half by int8 steps and rows (see `swin_mlp_half_a8_cases`).
 """
 import pytest
 import torch
 
 from on_device_image_captioning_torch.ops import _cases
 from on_device_image_captioning_torch.ops import dyn_exp_step as k2
+from on_device_image_captioning_torch.ops import quant_matmul as qm
 from on_device_image_captioning_torch.ops import stage_boundary as sb
 from on_device_image_captioning_torch.ops import swin_block_fused as sbf
 from on_device_image_captioning_torch.ops import topk as k3
@@ -206,3 +209,29 @@ def test_training_functions_backward_on_the_card(cuda):
     t = sbf.window_transition_train(xg, 96, 12, 0, 6)
     (g,) = torch.autograd.grad(t, xg, x)
     torch.testing.assert_close(g, sbf.window_transition_reference(x, 96, 12, 6, 0), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_raise_outside_their_shapes(cuda):
+    """B12 takes fp32 / bf16 x, int8 (N, K) weights with K a multiple of 16
+    and fp32 scales; B13 int8 weights (4C, C) and (C, 4C) with fp32 scales.
+    On the card the wrappers launch their kernel or raise."""
+    x = torch.randn((24, 40), device=cuda)
+    w_q = torch.ones((64, 40), dtype=torch.int8, device=cuda)
+    scale = torch.ones(64, device=cuda)
+    before = (qm.launches, sbf.mlp_half_a8_launches)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qm.quantized_matmul(x, w_q, scale)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        qm.quantized_matmul(x.double()[:, :32], w_q[:, :32].contiguous(), scale)
+    with pytest.raises(ValueError, match="w_scale"):
+        qm.quantized_matmul(x[:, :32].contiguous(), w_q[:, :32].contiguous(), scale.bfloat16())
+    case = next(c for c in _cases.swin_mlp_half_a8_cases(cuda) if "stage0" in c.label)
+    xa, norm2, fc1, fc2, eps = case.args
+    with pytest.raises(ValueError, match="int8"):
+        sbf.swin_mlp_half_a8(xa, norm2, (fc1[0].float(), *fc1[1:]), fc2, eps)
+    with pytest.raises(ValueError, match="scales"):
+        sbf.swin_mlp_half_a8(xa, norm2, fc1, (fc2[0], fc2[1].bfloat16(), fc2[2]), eps)
+    assert before == (qm.launches, sbf.mlp_half_a8_launches)
+    out = qm.quantized_matmul(x[:, :32].contiguous(), w_q[:, :32].contiguous(), scale)
+    assert out.dtype == torch.float32 and out.shape == (24, 64) and qm.launches == before[0] + 1
