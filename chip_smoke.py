@@ -36,10 +36,11 @@ Phases, in order (any failure raises and exits non-zero before the result):
    step, which gives way to K2 on a quantized Wq), b8 / beam 3 / L20, bf16.
    The model's bytes before and after; the launches of each kernel in the
    beam search and in one encode, held exactly to the counts derived from
-   the model (B12 once per int8 linear outside the window-resident stages
-   per encode, once per int8 linear of the decoder per step and for the
-   cross K/V once; B13 and B4 once per w8a8 block; B5, B6, B7, B8, B16 not at
-   all under w8a8).
+   the model (B12's product once per int8 linear outside the window-resident
+   stages per encode, once per int8 linear of the decoder per step and for
+   the cross K/V once, its scale and int8 x one launch per decode call and
+   two per encoder-side call; B13 and B4 once per w8a8 block; B5, B6, B7, B8,
+   B16 not at all under w8a8).
    Training (run "train"): Swin-L/384 + the d512 captioner on the "fused"
    path at full width and depth, bf16 compute over fp32 master weights, 4
    images, stochastic depth 0.1, caption-head dropouts 0.1, captions of 20
@@ -74,7 +75,8 @@ Phases, in order (any failure raises and exits non-zero before the result):
    tolerance.
 6. Times: each kernel against its plain version, its bound (the least time
    the card could take, from the case's bytes and operations) and, where one
-   PyTorch call computes the same function, that call (CUDA events); encode
+   PyTorch call computes the same function, that call (CUDA events); B12 as
+   the whole call and as its product alone on the int8 x; encode
    ms of the three backbone forms; decode ms per step of both step paths;
    end-to-end img/s at b8/beam 3/L20 and p50 latency at b1/beam 5/L74, bf16,
    on the default path; encode ms of the w8a8 model against the "fused"
@@ -201,6 +203,10 @@ KERNELS = {
         route="cuda", source=_PORT + "csrc/quant_matmul.cu",
         replaces=_TPU + "quant_matmul.py:48", counter=("quant_matmul", "launches"),
         paths=("w8a8",), headline="stage3 fc1 x(288, 1536) N6144 float32"),
+    "quantize_act": dict(
+        route="cuda", source=_PORT + "csrc/quant_matmul.cu",
+        replaces=_TPU + "quant_matmul.py:48", counter=("quant_matmul", "quantize_launches"),
+        paths=("w8a8",), headline="x(288, 1536) float32 dynamic"),
     "swin_mlp_half_a8": dict(
         route="cuda", source=_PORT + "csrc/swin_mlp_half_a8.cu",
         replaces=_TPU + "swin_block_fused.py:1076",
@@ -233,6 +239,10 @@ DECODE_LAUNCHES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 class Smoke:
@@ -274,6 +284,36 @@ class Smoke:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
+
+    def graph_time(self, fn, iters=20):
+        """Device ms per call of fn, without the host's cost: `iters` calls
+        captured in one CUDA graph, replayed three times between CUDA events.
+        None where fn cannot be captured."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(iters):
+                    fn()
+        except RuntimeError as err:  # a yardstick only: report, do not fail
+            torch.cuda.synchronize()
+            log(f"  not captured in a CUDA graph: {str(err).splitlines()[0]}")
+            return None
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (3 * iters)
 
     def counters(self, reset=False):
         """Every kernel's launch counter; reset=True sets them all to 0."""
@@ -410,23 +450,36 @@ class Smoke:
         quantize_model(model, mode)
         return cfg, model.to(device), (before, quantized_size_bytes(model))
 
-    def quant_launches(self, model, steps):
+    def quant_launches(self, model, steps, batch=B_SERVE, beam=BEAM_SERVE):
         """The launches one encode and one decode of `steps` steps must make,
-        derived from the quantized model: (encode counts, decode counts)."""
+        derived from the quantized model: (encode counts, decode counts). B12's
+        product is one launch per int8 linear; its scale and int8 x one or two
+        (`quantize_launch_count` of the call's rows x K)."""
         from on_device_image_captioning_torch.deploy.quantization import is_a8
+        from on_device_image_captioning_torch.ops import quant_matmul as qm
+
+        def quantize(mods, rows):  # launches of the scale / int8 x kernels
+            return sum(qm.quantize_launch_count(rows * m.w_q.shape[1], m.x_scale is not None)
+                       for m in mods if is_a8(m))
 
         swin = model.swin_transf
         multi = [l for l in swin.layers if l.blocks[0].res > l.blocks[0].window]
         single = [b for l in swin.layers if l not in multi for b in l.blocks]
         blocks = [b for l in multi for b in l.blocks]
-        b12 = is_a8(swin.patch_embed.proj) + sum(
-            is_a8(l.downsample.reduction) for l in swin.layers if l.downsample is not None)
-        b12 += sum(is_a8(m) for b in single for m in (b.attn.qkv, b.attn.proj, b.mlp.fc1, b.mlp.fc2))
+        tokens = batch * swin.layers[-1].blocks[0].res ** 2  # rows of stage 3 and the caption head
         named = dict(model.named_modules())
-        b12 += sum(is_a8(m) for n, m in named.items()
-                   if n.split(".")[0] in ("input_linear", "encoders", "enc_reduce_group"))
+        head = [m for n, m in named.items()
+                if n.split(".")[0] in ("input_linear", "encoders", "enc_reduce_group")]
+        single_lin = [m for b in single for m in (b.attn.qkv, b.attn.proj, b.mlp.fc1, b.mlp.fc2)]
+        downs = [l for l in swin.layers if l.downsample is not None]
+        b12 = is_a8(swin.patch_embed.proj) + sum(is_a8(l.downsample.reduction) for l in downs)
+        b12 += sum(is_a8(m) for m in single_lin + head)
+        quant = quantize([swin.patch_embed.proj], batch * swin.layers[0].blocks[0].res ** 2)
+        quant += sum(quantize([l.downsample.reduction], batch * (l.blocks[0].res // 2) ** 2)
+                     for l in downs)
+        quant += quantize(single_lin + head, tokens)
         encode = {
-            "quant_matmul": b12,
+            "quant_matmul": b12, "quantize_act": quant,
             "swin_mlp_half_a8": sum(b.mlp_a8 for b in blocks),
             "swin_attn_half": sum(b.run_mode == "halves" for b in blocks),
             "swin_mlp_half": sum(b.run_mode == "halves" and not b.mlp_a8 for b in blocks),
@@ -438,7 +491,9 @@ class Smoke:
                if n.split(".")[0] in ("decoders", "dec_reduce_group", "vocab_linear")]
         cross = [m for layer in model.decoders for m in (layer.mha.Wk, layer.mha.Wv)]
         per_step = sum(is_a8(m) for m in dec) - sum(is_a8(m) for m in cross)
+        step_lin = [m for m in dec if all(m is not c for c in cross)]
         decode = {"quant_matmul": sum(is_a8(m) for m in cross) + steps * per_step,
+                  "quantize_act": quantize(cross, tokens) + steps * quantize(step_lin, batch * beam),
                   "dyn_exp_step": N_DEC * steps, "dyn_exp_cross_step": 0}
         return encode, decode
 
@@ -1081,13 +1136,20 @@ class Smoke:
     def kernel_timing(self, names=None):
         from on_device_image_captioning_torch.ops import _cases
 
-        log(f"phase 6 times, CUDA events, ms per call ({self.card})")
+        log(f"phase 6 times, ms per call: CUDA events around back-to-back calls (host included); "
+            f"device: the same calls replayed from a CUDA graph ({self.card})")
         for name in names or _cases.CASES:
             for case in _cases.CASES[name](self.dev):
                 ms = self.cuda_time(case.time_kernel or case.run_kernel)
+                device_ms = self.graph_time(case.time_kernel or case.run_kernel)
                 plain_ms = self.cuda_time(case.time_plain or case.run_plain)
+                alone = {}
+                if case.time_alone is not None:
+                    alone = dict(alone_ms=self.cuda_time(case.time_alone),
+                                 alone_device_ms=self.graph_time(case.time_alone))
                 library = self.library_call(case)
                 library_ms = None if library is None else self.cuda_time(library)
+                library_device_ms = None if library is None else self.graph_time(library)
                 peak = (INT8_OPS if case.int8 else
                         BF16_FLOPS if case.matmul and "bfloat16" in case.label else FP32_FLOPS)
                 by_bytes, by_ops = 1e3 * case.nbytes / HBM_BYTES_S, 1e3 * case.flops / peak
@@ -1095,9 +1157,15 @@ class Smoke:
                 if case.label == KERNELS[case.kernel]["headline"]:
                     self.times[case.kernel] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=library_ms)
-                lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-                log(f"  {case.kernel} {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        library_ms=library_ms, device_ms=device_ms,
+                        library_device_ms=library_device_ms, **alone)
+                lib = "none" if library_ms is None else (
+                    f"{library_ms:.4f} ms (device {fmt(library_device_ms)})")
+                last = "" if not alone else (
+                    f" (its last launch alone {alone['alone_ms']:.4f} ms, "
+                    f"device {fmt(alone['alone_device_ms'])})")
+                log(f"  {case.kernel} {case.label}: kernel {ms:.4f} ms (device {fmt(device_ms)}){last}, "
+                    f"plain {plain_ms:.4f} ms, "
                     f"bound {bound_ms:.5f} ms by {bound_by} ({case.nbytes} B, {case.flops} flop), "
                     f"library {lib} | {self.card}")
 

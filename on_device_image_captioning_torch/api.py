@@ -5,10 +5,10 @@
 caller asks for the CPU) and runs there. The model is either end-to-end
 (`EndExpansionNetV2` with a `ModelConfig`: images in) or the caption head
 alone (`ExpansionNetV2` with a `CaptionerConfig`: visual features in, padded
-batches described by `enc_x_num_pads`). Modes: beam search (with
-`sample_or_max="sample"` too) and multinomial sampling. `step_impl` picks the
-decode-step path (`decode/cache.py`): "pallas" or "pallas_fused".
-`EnsembleCaptioner` decodes several models' averaged probabilities.
+batches described by `enc_x_num_pads`). Modes: the teacher-forced forward,
+beam search (with `sample_or_max="sample"` too) and multinomial sampling.
+`step_impl` picks the decode-step path (`decode/cache.py`): "pallas" or
+"pallas_fused". `EnsembleCaptioner` decodes several models' averaged probabilities.
 """
 from __future__ import annotations
 
@@ -99,14 +99,32 @@ class Captioner:
             return self.model.forward_enc(x)
         return self.model.forward_enc(x.float(), self._to_device(enc_num_pads))
 
-    def __call__(self, enc_x, enc_x_num_pads=None, mode: str = "beam_search",
-                 generator: Optional[torch.Generator] = None,
+    @torch.inference_mode()
+    def forward_dec(self, cross_input, dec_input, dec_num_pads=None,
+                    apply_log_softmax: bool = False) -> torch.Tensor:
+        """The decoder over a full token prefix: encoder output (B, S_enc,
+        d_model), dec_input (B, T) ids and dec_num_pads (B,) trailing pad
+        tokens -> logits (B, T, vocab), log-softmaxed in fp32 when
+        apply_log_softmax. No encoder pads reach the decoder (the end-to-end
+        model has none), as in the JAX package's `forward_dec`."""
+        return self.model.forward_dec(
+            self._to_device(cross_input), self._to_device(dec_input),
+            self._to_device(dec_num_pads), None, apply_log_softmax, self.dtype)
+
+    def __call__(self, enc_x, dec_x=None, enc_x_num_pads=None, dec_x_num_pads=None,
+                 mode: str = "beam_search", generator: Optional[torch.Generator] = None,
                  noise: Optional[Iterable[torch.Tensor]] = None):
+        """The JAX package's call: mode "forward" (teacher-forced log-probs of
+        the prefix dec_x), "beam_search" or "sampling"; generator / noise take
+        the place of its rng."""
+        if mode == "forward":
+            cross = self.forward_enc(enc_x, enc_x_num_pads)
+            return self.forward_dec(cross, dec_x, dec_x_num_pads, apply_log_softmax=True)
         if mode == "beam_search":
             return self.beam_search(enc_x, enc_x_num_pads, generator, noise)
         if mode == "sampling":
             return self.sample(enc_x, enc_x_num_pads, generator, noise)
-        raise ValueError(f"unknown mode {mode!r} (beam_search or sampling)")
+        raise ValueError(f"unknown mode {mode!r} (forward, beam_search or sampling)")
 
     def decode_config(self) -> DecodeConfig:
         return _decode_config(self.beam_search_args)

@@ -1,13 +1,12 @@
-// The int8 product the quantized serving kernels share (B12, B13):
+// The int8 product of B13's two launches (B12 shares only i8_quantize):
 //
 //   out = epilogue(acc * (s_a[r] * w_scale[n]) + bias[n])
 //   acc = sum_k q(A)[r, k] * Wq[n, k]          (int32, exact)
 //
 // A (M, K) is int8 already, or fp32 / bf16 quantized while its tile is loaded:
-// q = clip(rint(A / s_a[r]), -127, 127), the quotient taken in fp32 (__fdiv_rn)
-// and, where the TPU code divides in bf16, rounded to bf16 before the rint. s_a
-// is one scale (stride 0, the per-tensor scale of a w8a8 linear) or one per row
-// (the per-row scales of the int8 MLP half); it may be given as row absmaxes,
+// q = clip(rint(A / s_a[r]), -127, 127), the quotient taken in fp32 (__fdiv_rn).
+// s_a is one scale (stride 0) or one per row (the per-row scales of the int8
+// MLP half); it may be given as row absmaxes,
 // from which the kernel forms max(amax, 1e-8) / 127 as the TPU code does. Wq is
 // (N, K) int8, k-contiguous like A, so both tiles move in 16-byte chunks.
 //
@@ -21,7 +20,6 @@
 //
 // The epilogue is the TPU code's, in its order and without contraction:
 // __fmul_rn(float(acc), __fmul_rn(s_a, w_scale)) then __fadd_rn(bias); then
-//   kEpiScale     fp32 out (B12);
 //   kEpiGeluAmax  exact-erf GELU in fp32, fp32 out, and the row's absmax of
 //                 the GELU output into row_amax by atomicMax on the float's
 //                 bits (all >= 0, so their order is the ints'), for the next
@@ -37,22 +35,19 @@
 
 #include "common.cuh"
 
-enum Int8Epilogue { kEpiScale = 0, kEpiGeluAmax = 1, kEpiResidual = 2 };
+enum Int8Epilogue { kEpiGeluAmax = 1, kEpiResidual = 2 };
 
 struct Int8LinearArgs {
   const void* a;          // (M, K): int8, or fp32 / bf16 quantized on load
   const float* a_scale;   // s_a of row r at a_scale[r * a_scale_stride]
   int a_scale_stride;     // 0: one scale for every row
   int a_scale_is_amax;    // a_scale holds absmaxes: s_a = max(amax, 1e-8) / 127
-  int round_bf16;         // the quotient A / s_a is rounded to bf16 before rint
   const int8_t* w;        // (N, K) int8
   const float* w_scale;   // (N)
   const float* bias;      // (N) or null
   void* out;              // (M, N): fp32, or the storage type for kEpiResidual
   const void* resid;      // (M, N) storage type (kEpiResidual)
   float* row_amax;        // (M) fp32 set to 0 before the launch (kEpiGeluAmax)
-  int8_t* a_q_out;        // (M, K): the int8 A, written by the first column of
-                          // CTAs (null: not written)
   int M, N, K;
   int epi;
 };
@@ -69,6 +64,8 @@ __device__ __forceinline__ float i8_row_scale(const Int8LinearArgs& p, long r) {
   return p.a_scale_is_amax ? __fdiv_rn(fmaxf(s, 1e-8f), 127.0f) : s;
 }
 
+// round_bf16: the quotient is rounded to bf16 before the rint (B12, where JAX
+// divides in bf16)
 __device__ __forceinline__ int8_t i8_quantize(float v, float s, int round_bf16) {
   float q = __fdiv_rn(v, s);
   if (round_bf16) q = __bfloat162float(__float2bfloat16_rn(q));
@@ -145,10 +142,8 @@ __global__ void __launch_bounds__(kI8Threads) int8_linear_kernel(Int8LinearArgs 
           int8_t* qb = reinterpret_cast<int8_t*>(&q);
           const float s = s_row[m];
 #pragma unroll
-          for (int j = 0; j < 16; ++j) qb[j] = i8_quantize(to_f<TA>(h[j]), s, p.round_bf16);
+          for (int j = 0; j < 16; ++j) qb[j] = i8_quantize(to_f<TA>(h[j]), s, 0);
         }
-        if (p.a_q_out != nullptr && blockIdx.y == 0)
-          *reinterpret_cast<uint4*>(p.a_q_out + (m0 + m) * p.K + k0 + plane * 16) = q;
       }
       *reinterpret_cast<uint4*>(&As[plane][m][0]) = q;
       *reinterpret_cast<uint4*>(&Bs[plane][e / kI8Planes][0]) = rb[i];
@@ -221,7 +216,7 @@ __global__ void __launch_bounds__(kI8Threads) int8_linear_kernel(Int8LinearArgs 
 }
 
 // Launch on `stream`. K must be a multiple of 16 and A, W 16-byte aligned
-// (the wrappers check); fp32 outputs only for kEpiScale / kEpiGeluAmax.
+// (the wrappers check); fp32 outputs only for kEpiGeluAmax.
 template <typename TA, typename TO>
 static cudaError_t launch_int8_linear(const Int8LinearArgs& p, cudaStream_t stream) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.K % 16 != 0 || p.a_scale == nullptr ||

@@ -108,9 +108,14 @@ def load_cuda_library(name: str) -> ctypes.CDLL:
 
 def cuda_function(library: str, name: str, argtypes):
     """The C entry point `name` of `csrc/<library>.cu`, returning a CUDA
-    status code."""
+    status code (typed once: a wrapper calls this at every launch)."""
+    return _typed_function(library, name, tuple(argtypes))
+
+
+@functools.lru_cache(maxsize=None)
+def _typed_function(library: str, name: str, argtypes: tuple):
     fn = getattr(load_cuda_library(library), name)
-    fn.argtypes = argtypes
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 

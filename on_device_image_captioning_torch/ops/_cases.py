@@ -61,6 +61,9 @@ class Case:
     # checks read (None: time run_kernel and run_plain themselves)
     time_kernel: Optional[Callable[[], object]] = None
     time_plain: Optional[Callable[[], object]] = None
+    # the kernel's own last launch alone, on inputs its wrapper prepared
+    # beforehand (B12: the product on the already-quantized x), or None
+    time_alone: Optional[Callable[[], object]] = None
 
     def check(self) -> List[Check]:
         """Run the kernel and the plain version once each; the pairs to hold
@@ -581,44 +584,82 @@ def _within_max(t):
 
 def quant_matmul_cases(dev) -> Iterator[Case]:
     """B12 at the main path's shapes: Swin-L stage 3's fc1 (B = 2, 288 rows,
-    1536 -> 6144), a decoder linear at 24 rows (512 -> 2048), the vocab linear
-    (512 -> 10000, a ragged last column tile) and the patch embed (B = 2,
-    18432 rows, 48 -> 192); the dynamic scale in fp32 and bf16, and one
-    calibrated fp32 scale on bf16 x. The int8 x must equal the plain
-    version's bit for bit; the output is within 1e-6 of its max (the int32
-    sums are exact on both sides; fp32 roundings of the epilogue remain)."""
+    1536 -> 6144), the cross K/V at b8 (1152 rows, 512 -> 512), a decoder
+    linear at b8 / beam 3 (24 rows, 512 -> 2048) and b1 / beam 5 (5 rows),
+    the vocab linear at both (512 -> 10000, a ragged last column tile) and
+    the patch embed (B = 2, 18432 rows, 48 -> 192); the dynamic scale in fp32
+    and bf16, and one calibrated fp32 scale on bf16 x. Both product routes
+    (small M up to 64 rows, large above) and both forms of the dynamic scale
+    (one CTA, two passes) run. The int8 x must equal the plain version's bit
+    for bit; the output is within 1e-6 of its max (the int32 sums are exact on
+    both sides; fp32 roundings of the epilogue remain)."""
     shapes = [("stage3 fc1", 288, 1536, 6144), ("decode ff", 24, 512, 2048),
-              ("vocab", 24, 512, VOCAB), ("patch embed", 18432, 48, 192)]
+              ("vocab", 24, 512, VOCAB), ("patch embed", 18432, 48, 192),
+              ("b1 decode ff", 5, 512, 2048), ("b1 vocab", 5, 512, VOCAB),
+              ("cross K/V", 1152, 512, 512)]
     runs = [(name, m, k, n, dt, False) for name, m, k, n in shapes
             for dt in (torch.float32, torch.bfloat16)]
     runs.append(("decode ff", 24, 512, 2048, torch.bfloat16, True))
     for name, m, k, n, dt, static in runs:
-        g = torch.Generator().manual_seed(1700 + k + n)
+        yield _quant_matmul_case(dev, name, m, k, n, dt, static)
+
+
+def _quant_matmul_case(dev, name, m, k, n, dt, static, seed=None) -> Case:
+    g = torch.Generator().manual_seed(1700 + k + n if seed is None else seed)
+    x = _randn((m, k), g, dev, scale=1.5, dtype=dt)
+    w_q, scale = _int8_weight(n, k, g, dev)
+    bias = _randn((n,), g, dev, scale=0.2)
+    x_scale = torch.tensor(2.5 / 127.0, device=dev) if static else None
+    a = (x, w_q, scale, bias, x_scale)
+
+    def run(fn, a=a):
+        xq = torch.empty(a[0].shape, dtype=torch.int8, device=a[0].device)
+        return fn(*a, xq_out=xq), xq
+
+    def checks(got, want):
+        (out, xq), (want_out, want_xq) = got, want
+        return [("xq int8", xq, want_xq, EXACT),
+                ("out", out, want_out, _within_max(1e-6)(want_out))]
+
+    xq, s_x = qm.quantize_activation_reference(x, x_scale)
+    return Case(
+        "quant_matmul",
+        f"{name} x({m}, {k}) N{n} {_dtype_name(dt)}{' static' if static else ''}",
+        lambda run=run: run(qm.quantized_matmul),
+        lambda run=run: run(qm.quantized_matmul_reference),
+        checks, args=a,
+        nbytes=_nbytes(x, w_q, scale, bias, x_scale) + 4 * m * n,
+        flops=2 * m * n * k, int8=True,
+        time_kernel=lambda a=a: qm.quantized_matmul(*a),
+        time_plain=lambda a=a: qm.quantized_matmul_reference(*a),
+        time_alone=lambda: qm.int8_product(xq, s_x, w_q, scale, bias),
+    )
+
+
+def quantize_act_cases(dev) -> Iterator[Case]:
+    """B12's first part, the scale and the int8 x, at stage 3's fc1 (288 x
+    1536: the two-pass dynamic form), the decode ff's input at b8 / beam 3
+    (24 x 512, and its fc2's 24 x 2048: one CTA) and with a calibrated fp32
+    scale on bf16 x. The int8 x and the fp32 scale must be equal."""
+    runs = [(288, 1536, dt, False) for dt in (torch.float32, torch.bfloat16)]
+    runs += [(24, k, dt, False) for k in (512, 2048) for dt in (torch.float32, torch.bfloat16)]
+    runs.append((24, 512, torch.bfloat16, True))
+    for m, k, dt, static in runs:
+        g = torch.Generator().manual_seed(1900 + m + k)
         x = _randn((m, k), g, dev, scale=1.5, dtype=dt)
-        w_q, scale = _int8_weight(n, k, g, dev)
-        bias = _randn((n,), g, dev, scale=0.2)
         x_scale = torch.tensor(2.5 / 127.0, device=dev) if static else None
-        a = (x, w_q, scale, bias, x_scale)
 
-        def run(fn, a=a):
-            xq = torch.empty(a[0].shape, dtype=torch.int8, device=a[0].device)
-            return fn(*a, xq_out=xq), xq
-
-        def checks(got, want):
-            (out, xq), (want_out, want_xq) = got, want
-            return [("xq int8", xq, want_xq, EXACT),
-                    ("out", out, want_out, _within_max(1e-6)(want_out))]
+        def run_kernel(x=x, x_scale=x_scale):
+            xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+            return xq, qm.quantize_activation(x, x_scale, xq)
 
         yield Case(
-            "quant_matmul",
-            f"{name} x({m}, {k}) N{n} {_dtype_name(dt)}{' static' if static else ''}",
-            lambda run=run: run(qm.quantized_matmul),
-            lambda run=run: run(qm.quantized_matmul_reference),
-            checks, args=a,
-            nbytes=_nbytes(x, w_q, scale, bias, x_scale) + 4 * m * n,
-            flops=2 * m * n * k, int8=True,
-            time_kernel=lambda a=a: qm.quantized_matmul(*a),
-            time_plain=lambda a=a: qm.quantized_matmul_reference(*a),
+            "quantize_act",
+            f"x({m}, {k}) {_dtype_name(dt)} {'calibrated' if static else 'dynamic'}",
+            run_kernel, lambda x=x, x_scale=x_scale: qm.quantize_activation_reference(x, x_scale),
+            lambda got, want: [("xq int8", got[0], want[0], EXACT),
+                               ("scale", got[1], want[1], EXACT)],
+            args=(x, x_scale), nbytes=_nbytes(x, x_scale) + x.numel() + 4,
         )
 
 
@@ -689,6 +730,7 @@ CASES = {
     "swin_mlp_bwd": swin_mlp_bwd_cases,
     "swin_attn_bwd": swin_attn_bwd_cases,
     "quant_matmul": quant_matmul_cases,
+    "quantize_act": quantize_act_cases,
     "swin_mlp_half_a8": swin_mlp_half_a8_cases,
 }
 

@@ -1,4 +1,4 @@
-"""B12: the int8 product of a w8a8 linear (kernel `csrc/quant_matmul.cu`) and
+"""B12: the int8 product of a w8a8 linear (kernels `csrc/quant_matmul.cu`) and
 its plain version, plus the int8 helpers the quantized path shares.
 
 Replaces `on_device_image_captioning_tpu/ops/quant_matmul.py::
@@ -12,26 +12,38 @@ ROADMAP §C):
     y   = float(q @ Wq^T) * (s_x * s_w) + b       (int32 accumulation, fp32 out)
 
 Weights are stored as torch stores a linear's, (out, in), here int8 with one
-fp32 scale per output channel. The dynamic scale is a PyTorch reduction on the
-device (it lies outside the Pallas kernel in JAX too) and reaches the kernel
-as a device scalar: no launch waits for the host. The plain versions sum the
-int8 products exactly, in float64 (every partial sum is an integer below
-2^53; an fp32 sum of them is not exact above K ~ 1040), on any device.
+fp32 scale per output channel. On the card a call is two kernels of the
+port's own: `quantize_activation` forms s_x and the int8 x once (one launch,
+or two for the dynamic scale of a large x), then `int8_product` multiplies
+on the int8 tensor cores. `quantize_plan` and `product_plan` pick the form and
+the tiles from the shapes alone. The plain versions sum the int8 products
+exactly, in float64 (every partial sum is an integer below 2^53; an fp32 sum
+of them is not exact above K ~ 1040), on any device.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (plain-version calls do not count)
+launches = 0  # product kernel launches since the last reset, one per call (plain calls do not count)
+quantize_launches = 0  # launches of the scale / int8 x kernels since the last reset
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 QMAX = 127.0
+
+SMALL_M = 64  # rows up to which the product takes the small-M route
+ONE_CTA_VALUES = 1 << 16  # values of x up to which the dynamic scale is formed in one CTA
+PARTIALS = 528  # CTAs of the dynamic scale's first pass over a large x (four an SM)
+K_SLAB = 64  # k values of one stage of the product's ring
+# calibrated scale: one quantizing pass; dynamic: one CTA, or two passes
+CALIBRATED, DYNAMIC_ONE_CTA, DYNAMIC_TWO_PASS = 0, 1, 2
 
 
 def int_matmul(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
@@ -40,8 +52,10 @@ def int_matmul(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
 
 
 def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
-    """The per-tensor scale max(max|x|, 1e-8) / 127, a 0-d tensor in x's dtype."""
-    return torch.clamp(x.abs().amax(), min=1e-8) / QMAX
+    """The per-tensor scale max(max|x|, 1e-8) / 127, a 0-d tensor in x's
+    dtype, by IEEE division (as JAX divides; a CUDA division by a Python
+    number would multiply by a rounded reciprocal instead)."""
+    return torch.clamp(x.abs().amax(), min=1e-8) / x.new_full((), QMAX)
 
 
 def row_scales(h: torch.Tensor) -> torch.Tensor:
@@ -57,6 +71,25 @@ def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.round(x.to(ct) / scale.to(ct)).clamp(-QMAX, QMAX).to(torch.int8)
 
 
+def quantize_activation_reference(
+    x: torch.Tensor, x_scale: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 x of x's shape, s_x as a (1,) fp32 tensor): the plain version of
+    `quantize_activation`."""
+    xs = dynamic_scale(x) if x_scale is None else x_scale
+    return quantize(x, xs), xs.reshape(1).float()
+
+
+def int8_product_reference(
+    xq: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """float(xq (M, K) @ w_q^T) * (s_x * w_scale) + bias, (M, N) fp32: the
+    plain version of `int8_product`."""
+    y = int_matmul(xq, w_q.t()).float() * (s_x.float() * w_scale)
+    return y if bias is None else y + bias
+
+
 def quantized_matmul_reference(
     x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     bias: Optional[torch.Tensor] = None, x_scale: Optional[torch.Tensor] = None,
@@ -66,16 +99,66 @@ def quantized_matmul_reference(
     fp32 or None; x_scale a 0-d calibrated scale or None for the dynamic one.
     Returns (..., N) fp32. xq_out, an int8 tensor of x's shape, receives the
     quantized x."""
-    xs = dynamic_scale(x) if x_scale is None else x_scale
-    xq = quantize(x, xs)
+    xq, s_x = quantize_activation_reference(x, x_scale)
     if xq_out is not None:
         xq_out.copy_(xq)
     k = x.shape[-1]
-    acc = int_matmul(xq.reshape(-1, k), w_q.t())
-    y = acc.float() * (xs.float() * w_scale)
-    if bias is not None:
-        y = y + bias
+    y = int8_product_reference(xq.reshape(-1, k), s_x, w_q, w_scale, bias)
     return y.reshape(*x.shape[:-1], w_q.shape[0])
+
+
+def quantize_plan(numel: int, static: bool) -> int:
+    """How the scale and the int8 x are formed: CALIBRATED (one quantizing
+    launch), DYNAMIC_ONE_CTA (one launch: a small x, every decode call) or
+    DYNAMIC_TWO_PASS (per-CTA maxima whose last CTA forms the scale, then the
+    quantizing launch)."""
+    if static:
+        return CALIBRATED
+    return DYNAMIC_ONE_CTA if numel <= ONE_CTA_VALUES else DYNAMIC_TWO_PASS
+
+
+def quantize_launch_count(numel: int, static: bool) -> int:
+    """Kernel launches of one `quantize_activation` call."""
+    return 2 if quantize_plan(numel, static) == DYNAMIC_TWO_PASS else 1
+
+
+def product_route(m: int) -> str:
+    """The product's route by its rows alone: "small" up to SMALL_M rows
+    (narrow column tiles, K split to fill the card), "large" above."""
+    return "small" if m <= SMALL_M else "large"
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductPlan:
+    route: str
+    mt: int  # fragments of 16 rows per warp
+    tile_m: int
+    tile_n: int
+    tiles: Tuple[int, int]  # (row tiles, column tiles)
+    splits: int  # slices of K, each reduced by its own CTA
+    k_per_split: int  # a multiple of K_SLAB
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def product_plan(m: int, n: int, k: int) -> ProductPlan:
+    """Tiles and K split of the product at (M, N, K). Small M: 16, 32 or 64
+    rows by 32 columns, K split until about two CTAs an SM (264 on the H100)
+    are in flight, at most 16 ways; large M: 64 x 128 tiles, K whole."""
+    if product_route(m) == "small":
+        mt = 1 if m <= 16 else 2 if m <= 32 else 4
+        tile_m, tile_n, target, most = 16 * mt, 32, 264, 16
+    else:
+        mt, tile_m, tile_n, target, most = 4, 64, 128, 1, 1
+    tiles = (_cdiv(m, tile_m), _cdiv(n, tile_n))
+    slabs = _cdiv(k, K_SLAB)
+    splits = max(1, min(most, slabs, _cdiv(target, tiles[0] * tiles[1])))
+    per = _cdiv(slabs, splits)
+    return ProductPlan(product_route(m), mt, tile_m, tile_n, tiles, _cdiv(slabs, per),
+                       per * K_SLAB)
 
 
 def _check(x, w_q, w_scale, bias, x_scale, xq_out) -> None:
@@ -93,6 +176,8 @@ def _check(x, w_q, w_scale, bias, x_scale, xq_out) -> None:
         raise ValueError("quantized_matmul: x_scale must be one fp32 or bf16 value")
     if xq_out is not None and (xq_out.dtype != torch.int8 or xq_out.shape != x.shape):
         raise ValueError("quantized_matmul: xq_out must be int8 of x's shape")
+    if x.numel() == 0:
+        raise ValueError("quantized_matmul: x has no rows")
 
 
 def aligned(x: torch.Tensor) -> torch.Tensor:
@@ -101,15 +186,85 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+_QUANT_ARGS = (_P, ctypes.c_int, ctypes.c_long, _P) + (ctypes.c_int,) * 3 + (_P,) * 4 + (
+    ctypes.c_int, _P)
+_PRODUCT_ARGS = (_P,) * 8 + (ctypes.c_int,) * 7 + (_P,)
+
+# device -> (int32 arrival counters: [0] the dynamic scale's, [64:] one per
+# output tile of a split product; the dynamic scale's per-CTA maxima; int32
+# sums of a split product): the kernels leave counters and sums at zero
+_workspace: dict = {}
+
+
+def _workspace_for(device: torch.device, tiles: int = 0, values: int = 0):
+    have = _workspace.get(device)
+    if have is None or have[0].shape[0] < 64 + tiles or have[2].shape[0] < values:
+        old = (0, 0) if have is None else (have[0].shape[0] - 64, have[2].shape[0])
+        have = (torch.zeros((64 + max(tiles, old[0], 4096),), dtype=torch.int32, device=device),
+                torch.empty((PARTIALS,), dtype=torch.float32, device=device),
+                torch.zeros((max(values, old[1], 1 << 16),), dtype=torch.int32, device=device))
+        _workspace[device] = have
+    return have
+
+
+def quantize_activation(
+    x2: torch.Tensor, x_scale: Optional[torch.Tensor], xq: torch.Tensor
+) -> torch.Tensor:
+    """Kernel B12's first part on CUDA x2 (M, K): writes the int8 x into xq
+    (M, K) and returns s_x as a (1,) fp32 device tensor."""
+    global quantize_launches
+    form = quantize_plan(x2.numel(), x_scale is not None)
+    round_bf16 = x2.dtype == torch.bfloat16 and (x_scale is None or x_scale.dtype == torch.bfloat16)
+    counters, partial, _ = _workspace_for(x2.device)
+    s_out = torch.empty((1,), dtype=torch.float32, device=x2.device)
+    _build.check_cuda_tensors(*[t for t in (x2, x_scale, xq) if t is not None])
+    if xq.data_ptr() % 16:
+        raise ValueError("quantized_matmul: xq_out must be 16-byte aligned")
+    fn = _build.cuda_function("quant_matmul", "quant_act_launch", _QUANT_ARGS)
+    status = fn(
+        x2.data_ptr(), _DTYPE_CODE[x2.dtype], x2.numel(),
+        None if x_scale is None else x_scale.data_ptr(),
+        int(x_scale is not None and x_scale.dtype == torch.bfloat16), int(round_bf16), form,
+        xq.data_ptr(), s_out.data_ptr(), partial.data_ptr(), counters.data_ptr(), PARTIALS,
+        _build.current_stream())
+    _build.check_status(status, "quant_matmul (quantize)")
+    quantize_launches += quantize_launch_count(x2.numel(), x_scale is not None)
+    return s_out
+
+
+def int8_product(
+    xq: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel B12's product on CUDA int8 xq (M, K) with s_x a (1,) fp32
+    device tensor: (M, N) fp32, as `int8_product_reference`."""
+    global launches
+    (m, k), n = xq.shape, w_q.shape[0]
+    plan = product_plan(m, n, k)
+    counters, _, sums = _workspace_for(xq.device, plan.tiles[0] * plan.tiles[1], m * n)
+    _build.check_cuda_tensors(*[t for t in (xq, s_x, w_q, w_scale, bias) if t is not None])
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    fn = _build.cuda_function("quant_matmul", "i8_product_launch", _PRODUCT_ARGS)
+    status = fn(
+        xq.data_ptr(), s_x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        sums.data_ptr(), counters[64:].data_ptr(), m, n, k,
+        int(plan.route == "large"), plan.mt, plan.splits, plan.k_per_split,
+        _build.current_stream())
+    _build.check_status(status, "quant_matmul")
+    launches += 1
+    return out
+
+
 def quantized_matmul(
     x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     bias: Optional[torch.Tensor] = None, x_scale: Optional[torch.Tensor] = None,
     xq_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The int8 product (see the module docstring). CPU tensors get the plain
-    version; CUDA tensors get kernel B12, which takes K a multiple of 16 and
-    raises on anything else it does not take."""
-    global launches
+    version; CUDA tensors get kernel B12 (the int8 x once, then the product),
+    which takes K a multiple of 16 and raises on anything else it does not
+    take."""
     if x.device.type == "cpu":
         return quantized_matmul_reference(x, w_q, w_scale, bias, x_scale, xq_out)
     if x.device.type != "cuda":
@@ -117,21 +272,9 @@ def quantized_matmul(
     _check(x, w_q, w_scale, bias, x_scale, xq_out)
     k, n = x.shape[-1], w_q.shape[0]
     x2 = aligned(x.reshape(-1, k))
-    m = x2.shape[0]
-    xs = dynamic_scale(x2) if x_scale is None else x_scale
-    round_bf16 = torch.promote_types(x.dtype, xs.dtype) == torch.bfloat16
-    xs32 = xs.reshape(1).float()
-    _build.check_cuda_tensors(*[t for t in (x2, xs32, w_q, w_scale, bias, xq_out)
-                                if t is not None])
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _build.cuda_function(
-        "quant_matmul", "quant_matmul_launch",
-        [_P, _P, ctypes.c_int] + [_P] * 5 + [ctypes.c_int] * 4 + [_P])
-    status = fn(
-        x2.data_ptr(), xs32.data_ptr(), int(round_bf16), w_q.data_ptr(), w_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        None if xq_out is None else xq_out.data_ptr(), m, n, k, _DTYPE_CODE[x.dtype],
-        _build.current_stream())
-    _build.check_status(status, "quant_matmul")
-    launches += 1
-    return out.reshape(*x.shape[:-1], n)
+    if xq_out is not None and not xq_out.is_contiguous():
+        raise ValueError("quantized_matmul: xq_out must be contiguous")
+    xq = (torch.empty(x2.shape, dtype=torch.int8, device=x.device) if xq_out is None
+          else xq_out.view(x2.shape))
+    s_x = quantize_activation(x2, x_scale, xq)
+    return int8_product(xq, s_x, w_q, w_scale, bias).reshape(*x.shape[:-1], n)

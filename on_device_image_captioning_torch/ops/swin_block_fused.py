@@ -412,6 +412,15 @@ def swin_mlp_half_a8(
     return out
 
 
+TRANSITION_WARPS = 8  # warps of a CTA of kernel B11
+
+
+def transition_group_rows(row_bytes: int) -> int:
+    """Rows a warp of kernel B11 moves at a time: about 256 16-byte chunks
+    (at most 8 a lane), between 1 and 32 whole rows."""
+    return max(1, min(32, 256 // (row_bytes // 16)))
+
+
 def window_transition(
     x: torch.Tensor, res: int, window: int, from_shift: int, to_shift: int
 ) -> torch.Tensor:
@@ -429,11 +438,11 @@ def window_transition(
     out = torch.empty_like(x)
     fn = _build.cuda_function(
         "window_transition", "window_transition_launch",
-        [_P, _P, ctypes.c_long] + [ctypes.c_int] * 4 + [_P],
+        [_P, _P, ctypes.c_long] + [ctypes.c_int] * 5 + [_P],
     )
     status = fn(
         x.data_ptr(), out.data_ptr(), bw * n, row_bytes, res, window,
-        (to_shift - from_shift) % res, _build.current_stream(),
+        (to_shift - from_shift) % res, transition_group_rows(row_bytes), _build.current_stream(),
     )
     _build.check_status(status, "window_transition")
     transition_launches += 1

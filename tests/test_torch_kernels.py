@@ -232,6 +232,56 @@ def test_int8_kernels_raise_outside_their_shapes(cuda):
         sbf.swin_mlp_half_a8(xa, norm2, (fc1[0].float(), *fc1[1:]), fc2, eps)
     with pytest.raises(ValueError, match="scales"):
         sbf.swin_mlp_half_a8(xa, norm2, fc1, (fc2[0], fc2[1].bfloat16(), fc2[2]), eps)
+    with pytest.raises(ValueError, match="xq_out"):
+        qm.quantized_matmul(x[:, :32].contiguous(), w_q[:, :32].contiguous(), scale,
+                            xq_out=torch.empty((24, 32), device=cuda))
+    with pytest.raises(ValueError, match="no rows"):
+        qm.quantized_matmul(x[:0, :32], w_q[:, :32].contiguous(), scale)
+    with pytest.raises(ValueError, match="x_scale"):
+        qm.quantized_matmul(x[:, :32].contiguous(), w_q[:, :32].contiguous(), scale,
+                            x_scale=torch.ones(2, device=cuda))
     assert before == (qm.launches, sbf.mlp_half_a8_launches)
+    quantized = qm.quantize_launches
     out = qm.quantized_matmul(x[:, :32].contiguous(), w_q[:, :32].contiguous(), scale)
     assert out.dtype == torch.float32 and out.shape == (24, 64) and qm.launches == before[0] + 1
+    assert qm.quantize_launches == quantized + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [63, 64, 65, 66])
+@pytest.mark.parametrize("k, n", [(48, 192), (512, _cases.VOCAB), (2080, 512)])
+@pytest.mark.parametrize("dtype, static", [(torch.float32, False), (torch.bfloat16, False),
+                                           (torch.bfloat16, True)])
+def test_quant_matmul_both_routes(cuda, m, k, n, dtype, static):
+    """B12 on both sides of its route boundary (small M up to 64 rows, large
+    above): the patch embed's K = 48 (one slab, zero-filled), the vocab's
+    ragged N = 10000 and a K = 2080 split into slices; the int8 x bit for bit,
+    the output within 1e-6 of its max; one product launch and the scale /
+    int8 x launches `quantize_launch_count` names."""
+    case = _cases._quant_matmul_case(cuda, "boundary", m, k, n, dtype, static, seed=m + k)
+    before = (qm.launches, qm.quantize_launches)
+    for part, got, want, tol in case.check():
+        abs_err, rel_err, ok = _cases.compare(got, want, tol)
+        assert ok, f"{case.label} {part}: max_abs {abs_err:.3e} over atol {tol[0]:g}"
+    assert qm.launches == before[0] + 1
+    assert qm.quantize_launches == before[1] + qm.quantize_launch_count(m * k, static)
+    assert qm.product_plan(m, n, k).route == ("small" if m <= 64 else "large")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("images", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_transition_exact_at_ragged_row_counts(cuda, images, dtype):
+    """B11 at the three multi-window stages of Swin-L/384, both directions,
+    on batches whose row count is not a multiple of the rows a CTA moves at
+    a time: equal to the plain version, every value."""
+    ragged = 0
+    for stage, (c, _, res) in enumerate(_cases.STAGES[:3]):
+        x = torch.randn((images * (res // 12) ** 2, 144, c), device=cuda).to(dtype)
+        rows = x.shape[0] * 144
+        per_cta = sbf.TRANSITION_WARPS * sbf.transition_group_rows(c * x.element_size())
+        ragged += rows % per_cta != 0
+        for f, t in ((6, 0), (0, 6)):
+            got = sbf.window_transition(x, res, 12, f, t)
+            assert torch.equal(got, sbf.window_transition_reference(x, res, 12, f, t)), (stage, f, t)
+    assert ragged > 0

@@ -230,6 +230,72 @@ def test_pallas_kernel_differs_from_model_function_at_bf16():
     assert _rel_max(got, model_fn) <= 1e-6
 
 
+@pytest.mark.parametrize("m, route", [(1, "small"), (5, "small"), (24, "small"),
+                                      (64, "small"), (65, "large"), (288, "large")])
+def test_b12_route_by_rows(m, route):
+    """B12's product takes the small-M route up to 64 rows (every decode
+    call: 5 or 24 rows) and the large-M route above, by M alone; the small
+    route's tile holds M rows without padding to 128."""
+    assert pqm.product_route(m) == route
+    plan = pqm.product_plan(m, 2048, 512)
+    assert plan.route == route
+    assert plan.tile_m >= m if route == "small" else plan.tile_m == 64
+    assert plan.tile_m == 16 * plan.mt
+
+
+# (M, N, K): decode at b1 / beam 5 and b8 / beam 3, the vocab, the cross K/V at
+# b8, stage 3's fc1 at b2, the patch embed at b2, the CPU tests' K = 2080
+@pytest.mark.parametrize("m, n, k", [(5, 2048, 512), (5, 512, 2048), (5, 10000, 512),
+                                     (24, 512, 512), (24, 2048, 512), (24, 512, 2048),
+                                     (1152, 512, 512), (288, 6144, 1536), (18432, 192, 48),
+                                     (65, 64, 2080)])
+def test_b12_product_plan_covers_the_product(m, n, k):
+    """The tiles cover (M, N); the K slices are whole 64-value slabs that
+    cover K with none empty; the small route splits K until about two CTAs an
+    SM of an H100 (264) are in flight, where K allows it; the large route
+    keeps K whole."""
+    plan = pqm.product_plan(m, n, k)
+    assert plan.tiles == (-(-m // plan.tile_m), -(-n // plan.tile_n))
+    assert plan.k_per_split % pqm.K_SLAB == 0
+    assert plan.splits * plan.k_per_split >= k > (plan.splits - 1) * plan.k_per_split
+    ctas = plan.tiles[0] * plan.tiles[1] * plan.splits
+    if plan.route == "small":
+        assert plan.splits <= 16
+        assert ctas >= 128 or plan.splits == -(-k // pqm.K_SLAB)
+    else:
+        assert plan.splits == 1
+
+
+@pytest.mark.parametrize("numel, static, form, count", [
+    (24 * 512, False, pqm.DYNAMIC_ONE_CTA, 1), (24 * 2048, False, pqm.DYNAMIC_ONE_CTA, 1),
+    (288 * 1536, False, pqm.DYNAMIC_TWO_PASS, 2), (24 * 512, True, pqm.CALIBRATED, 1)])
+def test_b12_quantize_form(numel, static, form, count):
+    """The int8 x is formed once a call: by the calibrated scale in one
+    launch, by a dynamic scale in one CTA for a decode-sized x, in two
+    passes for a large one."""
+    assert pqm.quantize_plan(numel, static) == form
+    assert pqm.quantize_launch_count(numel, static) == count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("static", [False, True])
+def test_b12_parts_compose_to_the_plain_version(dtype, static):
+    """The two parts' plain versions (int8 x and scale, then the product)
+    give `quantized_matmul_reference` bit for bit, and the scale is the JAX
+    model function's, IEEE division and bf16 rounding included."""
+    node, x, xt = _matmul_inputs(2080, True, dtype, seed=3)
+    x_scale = torch.tensor(np.float32(1.1 * np.abs(x).max() / 127.0)) if static else None
+    w_q, scale, b = _port_operands(node)
+    xq, s_x = pqm.quantize_activation_reference(xt, x_scale)
+    assert s_x.dtype == torch.float32 and s_x.shape == (1,)
+    got = pqm.int8_product_reference(xq, s_x, w_q, scale, b)
+    assert torch.equal(got, pqm.quantized_matmul_reference(xt, w_q, scale, b, x_scale))
+    if not static:
+        jx = jnp.asarray(x).astype(JDT[dtype])
+        want = jnp.maximum(jnp.max(jnp.abs(jx)), 1e-8) / 127.0
+        assert s_x.item() == float(want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_w8_linear_matches_jax(dtype):
     """Weight-only: x rounded to bf16, the bf16 dequantized weight, fp32 sums,

@@ -83,10 +83,16 @@ def test_captioner_bf16_runs_and_is_well_formed():
 
 
 def test_captioner_rejects_unported_modes_and_mismatched_models():
+    """Mode "forward" runs (the JAX call's; `test_torch_api.py` holds its
+    values to JAX); an unknown mode and a model of the other form raise."""
     _, model = e2e_pair(TINY_E2E, 21)
     captioner = Captioner(model, TINY_E2E, device="cpu")
-    with pytest.raises(ValueError, match="unknown mode"):  # "forward" is not ported
-        captioner(np.zeros((1, 32, 32, 3), np.uint8), mode="forward")
+    imgs = np.zeros((1, 32, 32, 3), np.uint8)
+    lps = captioner(imgs, np.array([[2, 7, 9]], np.int32), mode="forward")
+    assert lps.shape == (1, 3, TINY_E2E.captioner.vocab_size)
+    np.testing.assert_allclose(torch.logsumexp(lps, dim=-1).numpy(), 0.0, atol=1e-5)
+    with pytest.raises(ValueError, match="unknown mode"):
+        captioner(imgs, mode="teacher_forcing")
     with pytest.raises(ValueError, match="ModelConfig"):
         Captioner(model, TINY_E2E.captioner, device="cpu")
 

@@ -320,7 +320,7 @@ def test_padded_features_caption_like_truncated_ones_and_like_jax(step_impl):
     args = {"beam_size": 3, "how_many_outputs": 3, "beam_max_seq_len": 14}
     captioner = Captioner(model, TINY_CAP, args, device="cpu", step_impl=step_impl)
     base_caps, base_lps = captioner(feats)
-    got_caps, got_lps = captioner(padded, pads)
+    got_caps, got_lps = captioner(padded, enc_x_num_pads=pads)
     assert got_caps == base_caps
     dcfg = JDecodeConfig(beam_size=3, how_many_outputs=3, max_seq_len=14, sos_idx=2, eos_idx=3)
     cross = jcap.forward_enc(params, jc, jnp.asarray(padded), enc_num_pads=jnp.asarray(pads))
@@ -335,7 +335,7 @@ def test_padded_features_caption_like_truncated_ones_and_like_jax(step_impl):
     cross2 = jcap.forward_enc(params, jc, jnp.asarray(padded), enc_num_pads=jnp.asarray(pads2))
     want2 = jbs.captions_from_result(
         jbs.beam_search(params, jc, cross2, dcfg, enc_num_pads=jnp.asarray(pads2)))[0]
-    assert captioner(padded, pads2)[0] == want2
+    assert captioner(padded, enc_x_num_pads=pads2)[0] == want2
 
 
 def _check_sampling_bookkeeping(res, n_img, n_out, L, sos, eos):
@@ -445,7 +445,7 @@ def test_ensemble_tokens_equal_jax_ensemble(step_impl):
     for g_img, w_img in zip(got[1], want[1]):
         for g, w in zip(g_img, w_img):
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
-    single = Captioner(pairs[0][1], TINY_CAP, args, device="cpu")(feats, pads)
+    single = Captioner(pairs[0][1], TINY_CAP, args, device="cpu")(feats, enc_x_num_pads=pads)
     assert single[0] != got[0]  # the second model did change the captions
     with pytest.raises(ValueError, match="only beam search"):
         ens(feats, pads, mode="sampling")
@@ -471,14 +471,15 @@ def test_features_in_captioner_matches_jax_api():
         port.forward_enc(feats, pads).numpy(), np.asarray(ref.forward_enc(feats, pads)),
         rtol=1e-4, atol=1e-4)
     want_caps, _ = ref(feats, enc_x_num_pads=pads, mode="beam_search")
-    got_caps, _ = port(feats, pads, mode="beam_search")
+    got_caps, _ = port(feats, enc_x_num_pads=pads, mode="beam_search")
     assert got_caps == want_caps
-    caps, lps = port(feats, pads, mode="sampling", generator=torch.Generator().manual_seed(0))
+    caps, lps = port(feats, enc_x_num_pads=pads, mode="sampling",
+                     generator=torch.Generator().manual_seed(0))
     want_s, want_lps = ref(feats, enc_x_num_pads=pads, mode="sampling",
                            rng=jax.random.PRNGKey(0))
     assert len(caps) == len(want_s) == 3 and len(caps[0]) == len(want_s[0]) == 2
     assert tuple(lps.shape) == tuple(want_lps.shape) == (3, 2, 7)
     with pytest.raises(ValueError, match="unknown mode"):
-        port(feats, pads, mode="forward")
+        port(feats, enc_x_num_pads=pads, mode="???")
     with pytest.raises(ValueError, match="step_impl"):
         Captioner(model, TINY_CAP, args, device="cpu", step_impl="xla")
