@@ -15,7 +15,16 @@ images in) and decode (`Captioner.decode`). For each part it prints:
   `torch.profiler` pass over the same part;
 - busy share: device ms / wall ms. The profiler slows the host side, so its
   own wall time is not used;
-- device launches, and the kernels that took the most device time.
+- device launches, and the kernels that took the most device time;
+- the host's side of the same profiled pass: the CUDA runtime calls (kernel
+  launches, and the copies and synchronizations the host waits in), with
+  their host ms and counts;
+- host ms by Python function: one more run under `cProfile`, the functions
+  with the most time of their own (a call that waits for the card, such as
+  `.item()` or a copy to the host, holds the wait), and the port's kernel
+  wrappers (`ops/`) with their own and cumulative ms (a wrapper's own time
+  holds its `ctypes` launch). cProfile slows the host, so these compare with
+  each other and across trees in one call, not with the wall.
 
 `--train` measures the training cell in place of the two above: one XE step
 (`train/train_step.py`) at b4 on captions of 20 random ids, bf16 compute over
@@ -35,8 +44,11 @@ the decode step that runs the cross-attention in the step kernel's launch.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import dataclasses
 import json
+import pathlib
+import pstats
 import statistics
 import subprocess
 import time
@@ -59,6 +71,7 @@ TRAIN_CELL = (4, 20)  # images, caption length
 RUNS = 3
 SEED = 0
 TOP_KERNELS = 8
+TOP_HOST = 10
 
 
 def card_name() -> str:
@@ -87,19 +100,59 @@ def device_profile(fn: Callable[[], object]) -> Dict:
     with torch.profiler.profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
+    rows, runtime = [], []
     for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            # the CUDA runtime's calls on the host (launches, copies, syncs)
+            if e.key.startswith("cuda"):
+                runtime.append((e.key, e.self_cpu_time_total / 1000.0, e.count))
+            continue
         # kernels, copies and fills only: a `record_function` span (the one an
         # optimizer puts around its step) has a device-side twin that covers them
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+        if e.is_user_annotation:
             continue
         rows.append((e.key, e.self_device_time_total / 1000.0, e.count))
     rows.sort(key=lambda r: -r[1])
+    runtime.sort(key=lambda r: -r[1])
     return {
         "device_ms": sum(r[1] for r in rows),
         "launches": sum(r[2] for r in rows),
         "top": [{"name": n[:100], "ms": ms, "calls": c} for n, ms, c in rows[:TOP_KERNELS]],
+        "runtime": [{"name": n, "ms": ms, "calls": c} for n, ms, c in runtime[:TOP_HOST]],
     }
+
+
+def _function_label(key) -> str:
+    file, line, name = key
+    if file == "~":  # a builtin: torch's C functions, `.item()`, `ctypes` setup
+        return name
+    path = pathlib.Path(file)
+    return f"{path.parent.name}/{path.name}:{line}({name})"
+
+
+def host_profile(fn: Callable[[], object]) -> Dict:
+    """Host ms by Python function over one call under cProfile: the
+    functions with the most time of their own, and the profiled wall."""
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = 1000 * (time.perf_counter() - t0)
+    # (file, line, name) -> (primitive calls, calls, own s, cumulative s, callers)
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((_function_label(k), v[2] * 1000, v[1]) for k, v in stats.items()),
+                  key=lambda r: -r[1])
+    ops_dir = pathlib.Path(__file__).resolve().parents[1] / "ops"
+    wrappers = sorted(((_function_label(k), v[2] * 1000, v[3] * 1000, v[1])
+                       for k, v in stats.items() if pathlib.Path(k[0]).parent == ops_dir),
+                      key=lambda r: -r[2])
+    return {"host_profiled_ms": wall,
+            "host_top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:TOP_HOST]],
+            "host_wrappers": [{"name": n, "own_ms": own, "ms": cum, "calls": c}
+                              for n, own, cum, c in wrappers[:TOP_HOST]]}
 
 
 def measure_cell(captioner: Captioner, images: np.ndarray) -> Dict:
@@ -114,7 +167,7 @@ def measure_cell(captioner: Captioner, images: np.ndarray) -> Dict:
         prof = device_profile(fn)
         wall = statistics.median(runs_ms)
         out[part] = {"wall_ms": wall, "wall_runs_ms": runs_ms, **prof,
-                     "busy_share": prof["device_ms"] / wall}
+                     "busy_share": prof["device_ms"] / wall, **host_profile(fn)}
     return out
 
 
@@ -161,6 +214,18 @@ def print_parts(label: str, parts: Dict, card: str) -> None:
               f"{r['launches']} device launches | {card}", flush=True)
         for k in r["top"]:
             print(f"    {k['ms']:9.3f} ms {k['calls']:6d} x  {k['name']}", flush=True)
+        print("  host, CUDA runtime calls (profiled pass):", flush=True)
+        for k in r["runtime"]:
+            print(f"    {k['ms']:9.3f} ms {k['calls']:6d} x  {k['name']}", flush=True)
+        if "host_top" in r:
+            print(f"  host, own time by function (cProfile, {r['host_profiled_ms']:.3f} ms "
+                  "profiled):", flush=True)
+            for k in r["host_top"]:
+                print(f"    {k['ms']:9.3f} ms {k['calls']:6d} x  {k['name']}", flush=True)
+            print("  host, the port's kernel wrappers (cProfile: cumulative, own):", flush=True)
+            for k in r["host_wrappers"]:
+                print(f"    {k['ms']:9.3f} ms {k['own_ms']:9.3f} ms {k['calls']:6d} x  "
+                      f"{k['name']}", flush=True)
 
 
 def main(argv=None) -> dict:

@@ -4,8 +4,9 @@ PyTorch version on CUDA tensors, with the tolerance of every check.
 The shapes are the ones the main path gives each kernel: Swin-L/384 windows
 at B=2 (for the window-resident path's kernels too: every stage width, masked
 and unmasked, with and without the shift transition), the d512 decoder at
-B·beam = 24 rows (with its cross-attention over 144 encoder tokens for the
-fused step), V = 10000 log-prob rows, and every LayerNorm width.
+B·beam = 24 rows (serve), 5 (latency), 1, 12 and 40 (the edges and the
+middle branch of the decode step's launch plan), with its cross-attention over 144 encoder tokens for the
+fused step, V = 10000 log-prob rows, and every LayerNorm width.
 `chip_smoke.py` checks and times these cases, and
 `tests/test_torch_kernels.py` checks them under pytest; both read them from
 here so the two cannot drift apart.
@@ -122,41 +123,67 @@ def window_attention_cases(dev) -> Iterator[Case]:
                 )
 
 
+# decode-step shapes: (rows, images, L, positions, seed). 24 rows are b8 x
+# beam 3 (serve), 5 rows b1 x beam 5 (latency), 40 rows b8 x beam 5 and 1
+# row the edges of the step's launch plan, 12 rows (b4 x beam 3) its middle
+# branch (one scorer cluster and one chunk of every position); every reorder
+# with two or more rows continues one source row twice (beam duplication).
+STEP_SHAPES = [
+    (24, 8, 20, (0, 7, 19), None), (24, 8, 74, (0, 7, 73), None),
+    (5, 1, 74, (0, 7, 36, 73), None), (1, 1, 74, (0, 73), 2101), (40, 8, 20, (0, 7, 19), 2140),
+    (12, 4, 20, (7,), 2112), (12, 4, 74, (0, 73), 2174),
+]
+
+
+def _step_operands(b, L, E, d, dt, g, dev, first):
+    """Source caches, a reorder that continues row `first` at output row 0
+    and one source row twice, and the step's row operands."""
+    src = [_randn((b, L, d), g, dev, dtype=dt) for _ in range(4)]
+    src += [_randn((b, L, E, d), g, dev, dtype=dt) for _ in range(2)]
+    reorder = torch.randint(0, b, (b,), generator=g, dtype=torch.int32)
+    reorder[0] = first % b  # non-identity for sure where b > 1
+    if b > 1:
+        reorder[-1] = reorder[0]  # a duplicated row for sure
+    reorder = reorder.to(dev)
+    q_i = _randn((b, E, d), g, dev, dtype=dt)
+    bias_i = _randn((b, E, d), g, dev, dtype=dt)
+    rows = [_randn((b, d), g, dev, dtype=dt) for _ in range(4)]
+    sel = torch.sigmoid(_randn((b, d), g, dev))
+    embed = _randn((E, d), g, dev, dtype=dt)
+    return src, reorder, q_i, bias_i, rows, sel, embed
+
+
+def _step_checks(first_name):
+    def checks(got, want, tol):
+        (out, new), (want_out, want_new) = got, want
+        pairs = [(first_name, out, want_out, tol)]
+        names = ("keys", "ca", "cb", "cond", "vals_a", "vals_b")
+        return pairs + [(n, g_, w_, tol) for n, g_, w_ in zip(names, new, want_new)]
+    return checks
+
+
 def dyn_exp_step_cases(dev) -> Iterator[Case]:
-    """B=24 rows (b8 x beam 3), E=16, d=512, L in {20, 74}, a non-identity
-    reorder, pos in {0, 7, L-1}, fp32 and bf16 caches. Checks the output and
-    all six destination caches."""
-    b, E, d = 24, 16, 512
+    """K2 at the STEP_SHAPES (E=16, d=512), fp32 and bf16 caches. Checks the
+    output and all six destination caches."""
+    E, d = 16, 512
+    checks = _step_checks("out")
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[dt]
-        for L in (20, 74):
-            g = torch.Generator().manual_seed(200 + L)
-            src = [_randn((b, L, d), g, dev, dtype=dt) for _ in range(4)]
-            src += [_randn((b, L, E, d), g, dev, dtype=dt) for _ in range(2)]
-            reorder = torch.randint(0, b, (b,), generator=g, dtype=torch.int32)
-            reorder[0] = 5  # non-identity for sure
-            reorder = reorder.to(dev)
-            q_i = _randn((b, E, d), g, dev, dtype=dt)
-            bias_i = _randn((b, E, d), g, dev, dtype=dt)
-            rows = [_randn((b, d), g, dev, dtype=dt) for _ in range(4)]
-            sel = torch.sigmoid(_randn((b, d), g, dev))
-            embed = _randn((E, d), g, dev, dtype=dt)
+        for b, _, L, positions, seed in STEP_SHAPES:
+            g = torch.Generator().manual_seed(200 + L if seed is None else seed)
+            src, reorder, q_i, bias_i, rows, sel, embed = _step_operands(
+                b, L, E, d, dt, g, dev, first=5)
             dst = [torch.empty_like(t) for t in src]
-            for pos in (0, 7, L - 1):
+            for pos in positions:
                 a = (pos, reorder, q_i, bias_i, *rows, sel, embed, src)
 
                 def run_kernel(a=a, dst=dst):
                     return k2.dyn_exp_step(*a, dst), dst
 
-                def checks(got, want, tol=tol):
-                    (out, new), (want_out, want_new) = got, want
-                    pairs = [("out", out, want_out, tol)]
-                    names = ("keys", "ca", "cb", "cond", "vals_a", "vals_b")
-                    return pairs + [(n, g_, w_, tol) for n, g_, w_ in zip(names, new, want_new)]
-
                 yield Case(
                     "dyn_exp_step", f"B{b} L{L} pos{pos} {_dtype_name(dt)}",
-                    run_kernel, lambda a=a: k2.dyn_exp_step_reference(*a), checks, args=a,
+                    run_kernel, lambda a=a: k2.dyn_exp_step_reference(*a),
+                    lambda got, want, tol=tol: checks(got, want, tol), args=a,
                     # the step returns every position of the six caches
                     nbytes=2 * _nbytes(*src) + _nbytes(reorder, q_i, bias_i, *rows, sel, embed)
                     + b * d * 4,
@@ -165,32 +192,24 @@ def dyn_exp_step_cases(dev) -> Iterator[Case]:
 
 
 def dyn_exp_cross_step_cases(dev) -> Iterator[Case]:
-    """B16 at B=24 rows (8 images x 3 beams), S=144 encoder tokens, d=512, 8
-    heads, E=16, L in {20, 74}, a non-identity reorder, a pad mask with 0 and
-    16 pads, pos in {0, 7, L-1}, fp32 and bf16; and the 5 rows of one image
-    (beam 5) at L=74. Checks the output row and all six destination caches."""
+    """B16 at the STEP_SHAPES (images x beams rows), S=144 encoder tokens,
+    d=512, 8 heads, E=16, a pad mask with 0 and 16 pads, fp32 and bf16.
+    Checks the output row and all six destination caches."""
     E, d, heads, S = 16, 512, 8, 144
+    checks = _step_checks("y_out")
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[dt]
-        for b, group, L, positions in ((24, 3, 20, (0, 7, 19)), (24, 3, 74, (0, 7, 73)),
-                                       (5, 5, 74, (7,))):
-            g = torch.Generator().manual_seed(1000 + 10 * L + b)
-            src = [_randn((b, L, d), g, dev, dtype=dt) for _ in range(4)]
-            src += [_randn((b, L, E, d), g, dev, dtype=dt) for _ in range(2)]
-            reorder = torch.randint(0, b, (b,), generator=g, dtype=torch.int32)
-            reorder[0] = 4  # non-identity for sure
-            reorder = reorder.to(dev)
-            q_i = _randn((b, E, d), g, dev, dtype=dt)
-            bias_i = _randn((b, E, d), g, dev, dtype=dt)
-            rows = [_randn((b, d), g, dev, dtype=dt) for _ in range(4)]
-            sel = torch.sigmoid(_randn((b, d), g, dev))
-            embed = _randn((E, d), g, dev, dtype=dt)
+        for b, images, L, positions, seed in STEP_SHAPES:
+            group = b // images
+            g = torch.Generator().manual_seed(1000 + 10 * L + b if seed is None else seed + 1)
+            src, reorder, q_i, bias_i, rows, sel, embed = _step_operands(
+                b, L, E, d, dt, g, dev, first=4)
             y = _randn((b, d), g, dev)
             ln2 = _norm(d, g, dev)
             (wq, bq), (wo, bo) = _linear(d, d, g, dev, dt), _linear(d, d, g, dev, dt)
-            kc = _randn((b // group, S, d), g, dev, dtype=dt)
-            vc = _randn((b // group, S, d), g, dev, dtype=dt)
-            pads = torch.tensor([0, 16] * 4)[: b // group]
+            kc = _randn((images, S, d), g, dev, dtype=dt)
+            vc = _randn((images, S, d), g, dev, dtype=dt)
+            pads = torch.tensor([0, 16] * 4)[:images]
             mask = (torch.arange(S)[None, :] < (S - pads)[:, None]).float().to(dev)
             dst = [torch.empty_like(t) for t in src]
             kw = dict(heads=heads, ln_eps=1e-5, attn_fill=-1e4, group=group, eps=1e-9,
@@ -202,16 +221,10 @@ def dyn_exp_cross_step_cases(dev) -> Iterator[Case]:
                 def run_kernel(a=a, dst=dst, kw=kw):
                     return k2.dyn_exp_cross_step(*a, dst, **kw), dst
 
-                def checks(got, want, tol=tol):
-                    (out, new), (want_out, want_new) = got, want
-                    pairs = [("y_out", out, want_out, tol)]
-                    names = ("keys", "ca", "cb", "cond", "vals_a", "vals_b")
-                    return pairs + [(n, g_, w_, tol) for n, g_, w_ in zip(names, new, want_new)]
-
                 yield Case(
                     "dyn_exp_cross_step", f"B{b} L{L} pos{pos} {_dtype_name(dt)}",
                     run_kernel, lambda a=a, kw=kw: k2.dyn_exp_cross_step_reference(*a, **kw),
-                    checks, args=a,
+                    lambda got, want, tol=tol: checks(got, want, tol), args=a,
                     # K2's bytes plus y, LN2, Wq, Wo, the images' K and V and the mask
                     nbytes=2 * _nbytes(*src) + _nbytes(reorder, q_i, bias_i, *rows, sel, embed)
                     + _nbytes(y, *ln2, wq, bq, wo, bo, kc, vc, mask) + b * d * 4,

@@ -19,11 +19,19 @@ write a cache row another row of the same launch still reads, so source and
 destination must be different buffers.
 
 Bound and design: see the header of `csrc/dyn_exp_step.cu` (bytes: the
-(L, E, d) vals caches; d/64 CTAs per row over column slices).
+(L, E, d) vals caches; clusters of CTAs per row: scorers that form the
+forward scores once, chunks of positions that stream and contract the caches,
+and the row's last cluster to finish adding their sums and running B16's
+tail).
+`step_plan` is the launch plan as a pure function of the shapes and the
+card's SM count; the wrappers hand it to the C launcher, which checks only its
+shared bytes against the card's limit.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -35,7 +43,144 @@ launches = 0  # kernel launches since the last reset (plain-version calls do not
 cross_launches = 0  # the same for B16 (`dyn_exp_cross_step`)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-COLS_PER_CTA = 64
+
+# the kernel's compile-time shape (kCluster, kThreads, kPerSm, kMaxD in the source)
+CLUSTER = 8  # CTAs of a cluster
+THREADS = 256  # threads of a CTA
+CTAS_PER_SM = 2  # CTAs an SM holds (the kernel's launch bounds)
+MAX_D = 512  # widest d: a lane holds its 16 values of a row in registers
+MAX_SHARED = 232448  # shared bytes a CTA may use on the H100
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    cluster: int  # CTAs of a cluster
+    chunks: int  # clusters of a row: the scorers, then one per chunk of positions
+    per: int  # positions of a chunk (the last may hold fewer)
+    grid: Tuple[int, int]  # (cluster x chunks, rows)
+    shared_bytes: int  # dynamic shared memory of a CTA
+    scorers: int  # clusters of a row that form the forward scores and the new vals rows
+    regions: Tuple[int, int]  # floats of the two shared regions phases take in turn
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def chunk_positions(self, chunk: int, L: int) -> range:
+        """The positions cluster `chunk` of a row copies and contracts (none
+        for a scorer of several: it forms forward scores and new rows)."""
+        if self.chunks == 1:
+            return range(L)
+        if chunk < self.scorers:
+            return range(0)
+        first = (chunk - self.scorers) * self.per
+        return range(first, min(L, first + self.per))
+
+    def scorer_rows(self, chunk: int, E: int) -> range:
+        """The rows of q_i whose forward scores and new vals rows cluster
+        `chunk` of a row forms."""
+        if chunk >= self.scorers:
+            return range(0)
+        per = _cdiv(E, self.scorers)
+        return range(min(E, chunk * per), min(E, (chunk + 1) * per))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round4(n: int) -> int:
+    return _cdiv(n, 4) * 4
+
+
+@functools.lru_cache(maxsize=1024)
+def step_plan(rows: int, L: int, E: int, d: int, itemsize: int, heads: int = 0,
+              S: int = 0, *, sms: int) -> StepPlan:
+    """The launch of K2 (heads 0) or B16 (heads > 0, S encoder tokens) at
+    these shapes on a card of `sms` SMs: clusters of CLUSTER CTAs, as many a
+    row as one wave of CTAS_PER_SM x sms CTAs holds (the first one or two
+    form the forward scores and the new vals rows, the others take the L
+    positions in chunks; one cluster alone takes all), and the shared memory
+    of a CTA. Raises ValueError where the kernel does not take the shapes: d
+    must be 8 x CLUSTER to MAX_D and split into CLUSTER column slices of whole
+    16-byte chunks, a row of d must be a divisor of the CTA's threads in
+    16-byte chunks, E at most four a warp of a cluster, and B16 needs heads a
+    multiple of CLUSTER (each CTA of a cluster takes heads / CLUSTER whole
+    heads) of whole 16-byte chunks."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"dyn_exp_step: unsupported cache item size {itemsize}")
+    vec = 16 // itemsize
+    if min(rows, L, E, d) <= 0 or E > 4 * THREADS // 32 * CLUSTER:
+        raise ValueError(f"dyn_exp_step: unsupported shapes rows={rows} L={L} E={E} d={d}")
+    if d % (CLUSTER * vec) or not 8 * CLUSTER <= d <= MAX_D or THREADS % (d // vec):
+        raise ValueError(
+            f"dyn_exp_step: d={d} is not {8 * CLUSTER} to {MAX_D} in {CLUSTER} column slices "
+            f"of whole 16-byte chunks with a divisor of {THREADS} chunks a row")
+    cs, nrg = d // CLUSTER, THREADS // (d // vec)
+    # shared memory, in floats, as the kernel carves it: two regions that
+    # phases take in turn, then arrays that live through the launch.
+    #   region 1: a scorer's rows of q_i (E x d, cache type) while it forms
+    #     the forward scores; the stream's sums by row group (2 x row groups x
+    #     d); the CTA's out columns and B16's tail (y1, x2, o, q, the V and
+    #     out_linear products, the products' parts, the scores).
+    #   region 2: the CTA's columns of ca, cb (2 x L x cs) and of bias_i
+    #     (E x cs) in the cache type while the new vals rows are formed.
+    #   then k_i . cond[l] (L), k_i . embed[e] (E), the forward scores and
+    #   weights (3 x E x L), the new vals rows of the CTA's columns (2 x E x
+    #   cs), the CTA's sums (2 x d), block-reduction scratch, the last-cluster
+    #   flag and LN2's statistics (2 x warps + 8), the backward weights of
+    #   the row at pos (2 x E).
+    tail, stage = 2 * cs, (2 * L * cs + E * cs) * itemsize // 4
+    if heads:
+        if heads % CLUSTER or d % heads or (d // heads) % vec or S <= 0:
+            raise ValueError(
+                f"dyn_exp_cross_step: {heads} heads of d={d} do not split over the "
+                f"{CLUSTER} CTAs of a cluster in whole heads of 16-byte chunks (S={S})")
+        parts = THREADS // (cs // vec)
+        tail = 4 * cs + 3 * d + parts * cs + (heads // CLUSTER) * S
+    regions = (_round4(max(E * d * itemsize // 4, 2 * nrg * d, tail)), _round4(stage))
+    floats = (sum(regions) + L + E + 3 * E * L + 2 * E * cs + 2 * d + 2 * (THREADS // 32)
+              + 8 + 2 * E)
+    # one cluster a row does it all, or, where one wave holds more, the row's
+    # first clusters (two where three or more fit, each on half of the rows
+    # of q_i) form the forward scores and new rows and the others take the
+    # positions in chunks
+    want = max(1, CTAS_PER_SM * sms // (rows * CLUSTER))
+    scorers = 2 if want >= 3 else 1
+    per = L if want == 1 else _cdiv(L, want - scorers)
+    chunks = 1 if want == 1 else scorers + _cdiv(L, per)
+    plan = StepPlan(CLUSTER, chunks, per, (CLUSTER * chunks, rows), 4 * floats, scorers,
+                    regions)
+    if plan.shared_bytes > MAX_SHARED:
+        raise ValueError(f"dyn_exp_step: {plan.shared_bytes} shared bytes at L={L}, E={E}, d={d}")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """SMs of the card `device` names (the wave a step plan fills)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan_args(plan: StepPlan) -> Tuple[int, ...]:
+    """The plan as the C launchers take it."""
+    return (plan.chunks, plan.per, plan.scorers, *plan.regions, plan.shared_bytes)
+
+
+def bytes_overlap(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> bool:
+    """Whether a tensor of `a` shares a byte with a tensor of `b` (each
+    contiguous; empty ones share none): one pass over the byte ranges sorted
+    by their start, holding the furthest end reached so far on each side."""
+    spans = sorted([(t.data_ptr(), t.nbytes, 0) for t in a]
+                   + [(t.data_ptr(), t.nbytes, 1) for t in b])
+    ends = [0, 0]
+    for start, size, side in spans:
+        if size == 0:
+            continue
+        if start < ends[1 - side]:
+            return True
+        ends[side] = max(ends[side], start + size)
+    return False
 
 
 def dyn_exp_step_reference(
@@ -144,27 +289,44 @@ def dyn_exp_cross_step_reference(
     return y_out, new
 
 
-_STEP_ARGTYPES = [ctypes.c_void_p] * 22 + [
+_STEP_ARGTYPES = [ctypes.c_void_p] * 24 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-]
+    ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _CROSS_ARGTYPES = (
     [ctypes.c_void_p] * 34 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
-    + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 )
+
+
+_workspace: dict = {}  # device -> (partial sums fp32, int32 counters the kernels leave at 0)
+
+
+def _workspace_for(device: torch.device, rows: int, chunks: int, d: int):
+    """The chunks' partial sums ((rows, chunks, 2, d) fp32) and the rows'
+    arrival counters (int32 zeros, which the kernels leave at zero)."""
+    floats = rows * chunks * 2 * d
+    have = _workspace.get(device)
+    if have is None or have[0].numel() < floats or have[1].numel() < rows:
+        have = (torch.empty((max(floats, 1 << 16),), dtype=torch.float32, device=device),
+                torch.zeros((max(rows, 64),), dtype=torch.int32, device=device))
+        _workspace[device] = have
+    return have
 
 
 def _check_step_operands(name, pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel,
                          embed, src, dst) -> Tuple[int, int, int, int]:
-    """What K2 and B16 ask of the step's operands. Returns (B, L, E, d)."""
+    """What K2 and B16 ask of the step's operands. Returns (B, L, E, d). The
+    kernels read the source caches through `__restrict__` pointers while they
+    write the destination caches, so no destination may share a byte with any
+    source; they move 16-byte chunks, so every operand starts 16-byte aligned."""
     vals_src = src[4]
     bs, L, E, d = vals_src.shape
     b = k_i.shape[0]
     cd = vals_src.dtype
     if cd not in _DTYPE_CODE:
         raise ValueError(f"{name}: unsupported cache dtype {cd}")
-    if d % COLS_PER_CTA or not 0 <= pos < L:
-        raise ValueError(f"{name}: unsupported d={d} / pos={pos} / L={L}")
+    if not 0 <= pos < L:
+        raise ValueError(f"{name}: unsupported pos={pos} / L={L}")
     shapes = [(b, E, d), (b, E, d), (b, d), (b, d), (b, d), (b, d)]
     for t, shape in zip((q_i, bias_i, k_i, ca_i, cb_i, cond_i), shapes):
         if t.shape != shape or t.dtype != cd:
@@ -180,9 +342,10 @@ def _check_step_operands(name, pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_
     for s_, d_, ws, wd in zip(src, dst, want_src, want_dst):
         if s_.shape != ws or d_.shape != wd or s_.dtype != cd or d_.dtype != cd:
             raise ValueError(f"{name}: cache shapes or dtypes disagree")
-    src_ptrs = {t.data_ptr() for t in src}
-    if any(t.data_ptr() in src_ptrs for t in dst):
-        raise ValueError(f"{name}: dst caches alias the src caches")
+    if bytes_overlap(src, dst):
+        raise ValueError(f"{name}: dst caches alias the src caches (their bytes overlap)")
+    if any(t.data_ptr() % 16 for t in (*src, *dst, q_i, bias_i, k_i, ca_i, cb_i, cond_i, embed)):
+        raise ValueError(f"{name}: caches and step operands must start 16-byte aligned")
     return b, L, E, d
 
 
@@ -218,33 +381,24 @@ def dyn_exp_step(
         "dyn_exp_step", pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
         src, dst)
     cd = src[4].dtype
+    plan = step_plan(b, L, E, d, src[4].element_size(), sms=sm_count(k_i.device))
     _build.check_cuda_tensors(
         reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, *src, *dst
     )
     out = torch.empty((b, d), dtype=torch.float32, device=k_i.device)
+    part, counter = _workspace_for(k_i.device, b, plan.chunks, d)
     fn = _build.cuda_function("dyn_exp_step", "dyn_exp_step_launch", _STEP_ARGTYPES)
     status = fn(
         reorder.data_ptr(), q_i.data_ptr(), bias_i.data_ptr(), k_i.data_ptr(),
         ca_i.data_ptr(), cb_i.data_ptr(), cond_i.data_ptr(), sel.data_ptr(),
         embed.data_ptr(), *(t.data_ptr() for t in src),
-        *(t.data_ptr() for t in dst), out.data_ptr(),
-        b, L, E, d, int(pos), float(d) ** 0.5, float(eps), _DTYPE_CODE[cd],
+        *(t.data_ptr() for t in dst), out.data_ptr(), part.data_ptr(), counter.data_ptr(),
+        b, L, E, d, int(pos), float(d) ** 0.5, float(eps), *_plan_args(plan), _DTYPE_CODE[cd],
         _build.current_stream(),
     )
     _build.check_status(status, "dyn_exp_step")
     launches += 1
     return out
-
-
-_counters: dict = {}  # device -> (rows,) int32 zeros; B16's kernel leaves them zero
-
-
-def _row_counters(device: torch.device, rows: int) -> torch.Tensor:
-    have = _counters.get(device)
-    if have is None or have.shape[0] < rows:
-        have = torch.zeros((max(rows, 64),), dtype=torch.int32, device=device)
-        _counters[device] = have
-    return have
 
 
 def dyn_exp_cross_step(
@@ -307,12 +461,10 @@ def dyn_exp_cross_step(
     rd = compute_dtype if compute_dtype is not None else torch.float32
     if rd != cd:
         raise ValueError(f"{name}: B16 takes compute dtype == cache dtype, got {rd} / {cd}")
-    chunk = 16 // k_cross.element_size()  # output columns a thread takes
-    if d % heads or (d // heads) % chunk or (d // chunk) > 256 or 256 % (d // chunk):
-        raise ValueError(f"{name}: unsupported d={d} / heads={heads}")
     if group < 1 or b % group:
         raise ValueError(f"{name}: {b} rows do not split into groups of {group}")
     s_enc = k_cross.shape[1]
+    plan = step_plan(b, L, E, d, src[4].element_size(), heads, s_enc, sms=sm_count(k_i.device))
     if k_cross.shape != (b // group, s_enc, d) or v_cross.shape != k_cross.shape or (
             k_cross.dtype != cd or v_cross.dtype != cd):
         raise ValueError(f"{name}: k_cross, v_cross must be (B / group, S, d) in the cache dtype")
@@ -332,21 +484,23 @@ def dyn_exp_cross_step(
     if enc_mask is not None:
         operands.append(enc_mask)
     _build.check_cuda_tensors(*operands)
-    out = torch.empty((b, d), dtype=torch.float32, device=k_i.device)
-    y_out = torch.empty_like(out)
-    counter = _row_counters(k_i.device, b)
+    if any(t.data_ptr() % 16 for t in (wq, wo, k_cross, v_cross, sel, y, *ln2, bq, bo)):
+        raise ValueError(f"{name}: wq, wo, k_cross, v_cross, sel, y, ln2, bq, bo must start "
+                         "16-byte aligned")
+    y_out = torch.empty((b, d), dtype=torch.float32, device=k_i.device)
+    part, counter = _workspace_for(k_i.device, b, plan.chunks, d)
     fn = _build.cuda_function("dyn_exp_step", "dyn_exp_cross_step_launch", _CROSS_ARGTYPES)
     status = fn(
         reorder.data_ptr(), q_i.data_ptr(), bias_i.data_ptr(), k_i.data_ptr(),
         ca_i.data_ptr(), cb_i.data_ptr(), cond_i.data_ptr(), sel.data_ptr(),
         embed.data_ptr(), *(t.data_ptr() for t in src),
-        *(t.data_ptr() for t in dst), out.data_ptr(), y.data_ptr(),
+        *(t.data_ptr() for t in dst), y.data_ptr(),
         ln2[0].data_ptr(), ln2[1].data_ptr(), wq.data_ptr(), bq.data_ptr(),
         wo.data_ptr(), bo.data_ptr(), k_cross.data_ptr(), v_cross.data_ptr(),
         None if enc_mask is None else enc_mask.data_ptr(), y_out.data_ptr(),
-        counter.data_ptr(), b, L, E, d, int(pos), s_enc, heads, group,
-        float(d) ** 0.5, float(eps), float(ln_eps), float(attn_fill), _DTYPE_CODE[cd],
-        _build.current_stream(),
+        part.data_ptr(), counter.data_ptr(), b, L, E, d, int(pos), s_enc, heads, group,
+        float(d) ** 0.5, float(eps), float(ln_eps), float(attn_fill), *_plan_args(plan),
+        _DTYPE_CODE[cd], _build.current_stream(),
     )
     _build.check_status(status, name)
     cross_launches += 1

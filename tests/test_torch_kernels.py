@@ -10,7 +10,8 @@ The cases and their tolerances live in `ops/_cases.py`, which `chip_smoke.py`
 checks too: fp32 2e-5 abs + 1e-4 rel (summation order only); bf16 2e-2 abs +
 2e-2 rel (one bf16 ulp is 2^-8 relative); top-k values and indices exactly;
 the int8 product's int8 x exactly and its output within 1e-6 of its max; the
-int8 MLP half by int8 steps and rows (see `swin_mlp_half_a8_cases`).
+int8 MLP half by int8 steps and rows (see `swin_mlp_half_a8_cases`); the
+decode-step kernels K2 and B16 also bit for bit from one launch to the next.
 """
 import pytest
 import torch
@@ -285,3 +286,61 @@ def test_window_transition_exact_at_ragged_row_counts(cuda, images, dtype):
             got = sbf.window_transition(x, res, 12, f, t)
             assert torch.equal(got, sbf.window_transition_reference(x, res, 12, f, t)), (stage, f, t)
     assert ragged > 0
+
+
+def _step_case(cuda, kernel, label):
+    return next(c for c in _cases.CASES[kernel](cuda) if c.label == label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dyn_exp_step", "dyn_exp_cross_step"])
+@pytest.mark.parametrize("label", ["B5 L74 pos73 bfloat16", "B5 L74 pos36 float32",
+                                   "B24 L20 pos7 bfloat16", "B40 L20 pos19 float32",
+                                   "B12 L74 pos73 bfloat16"])
+def test_decode_step_launches_repeat_bit_for_bit(cuda, kernel, label):
+    """K2 and B16 sum their partial products in a fixed order (no
+    floating-point atomics): two launches on the same inputs give the same
+    bits in the output and in all six destination caches."""
+    case = _step_case(cuda, kernel, label)
+    out1, caches1 = case.run_kernel()
+    out1, caches1 = out1.clone(), [t.clone() for t in caches1]
+    out2, caches2 = case.run_kernel()
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+    for a, b in zip(caches1, caches2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_decode_step_raises_outside_its_shapes(cuda):
+    """K2 and B16 take d in 8 column slices of whole 16-byte chunks, B16
+    heads a multiple of the cluster's 8 CTAs, and destination caches that
+    share no byte with the sources; on the card nothing else launches."""
+    case = _step_case(cuda, "dyn_exp_cross_step", "B5 L74 pos7 bfloat16")
+    (pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, y, ln2, wq, bq, wo, bo,
+     kc, vc, mask, src) = case.args
+    kw = dict(heads=8, ln_eps=1e-5, attn_fill=-1e4, group=5, eps=1e-9,
+              compute_dtype=torch.bfloat16)
+    before = (k2.launches, k2.cross_launches)
+    # d = 520: not 8 slices of 16-byte chunks
+    wide = lambda t: torch.nn.functional.pad(t, (0, 8)).contiguous()  # noqa: E731
+    srcw = [wide(t) for t in src]
+    with pytest.raises(ValueError, match="column slices"):
+        k2.dyn_exp_step(pos, reorder, wide(q_i), wide(bias_i), wide(k_i), wide(ca_i),
+                        wide(cb_i), wide(cond_i), wide(sel), wide(embed), srcw,
+                        [torch.empty_like(t) for t in srcw])
+    dst = [torch.empty_like(t) for t in src]
+    with pytest.raises(ValueError, match="heads"):
+        k2.dyn_exp_cross_step(pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
+                              y, ln2, wq, bq, wo, bo, kc, vc, mask, src, dst,
+                              **dict(kw, heads=4))
+    # a destination that is a view into the source's bytes, starting elsewhere
+    big = torch.empty(2 * src[4].numel(), dtype=src[4].dtype, device=cuda)
+    src_v = list(src)
+    src_v[4] = big[: src[4].numel()].view(src[4].shape)
+    dst_v = list(dst)
+    dst_v[4] = big[src[4].numel() // 2:][: src[4].numel()].view(src[4].shape)
+    with pytest.raises(ValueError, match="alias"):
+        k2.dyn_exp_step(pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
+                        src_v, dst_v)
+    assert (k2.launches, k2.cross_launches) == before
