@@ -73,10 +73,17 @@ Phases, in order (any failure raises and exits non-zero before the result):
    the CPU; then once more with the CPU's ReLU signs imposed on the card's
    caption head, which holds every gradient to a quarter of the backbone's
    tolerance.
+   The bf16 backbone at full depth: the features (2, 144, 1536) of the
+   "fused" runs (default modes, and every stage on the halves) against the
+   "pallas" run's, same weights and images; relative RMS and max printed, the
+   relative RMS held to BF16_FEATURES_REL_RMS (`cli/encode_turns.py` compares
+   the same reading between two checkouts).
 6. Times: each kernel against its plain version, its bound (the least time
    the card could take, from the case's bytes and operations) and, where one
    PyTorch call computes the same function, that call (CUDA events); B12 as
-   the whole call and as its product alone on the int8 x; encode
+   the whole call and as its product alone on the int8 x; the shared bf16
+   product of B4, B5 and B8 alone at the four stage-2 products of a b8
+   encode, beside `F.linear` on the same tensors (a yardstick); encode
    ms of the three backbone forms; decode ms per step of both step paths;
    end-to-end img/s at b8/beam 3/L20 and p50 latency at b1/beam 5/L74, bf16,
    on the default path; encode ms of the w8a8 model against the "fused"
@@ -117,6 +124,11 @@ B_TRAIN, L_TRAIN, TRAIN_STEPS, TRAIN_LR = 4, 20, 4, 2e-3
 # published peaks of one H100 SXM (dense): device memory bytes/s; bf16 matrix
 # products on the tensor cores; fp32 outside them
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS, INT8_OPS = 3.35e12, 989e12, 67e12, 1979e12
+# phase 5: the bf16 backbone features of the "fused" forms may depart from the
+# "pallas" form's by this relative RMS at most: 1.5 times what the shared
+# product's earlier (wmma) design read on an H100 (1.4051e-2; the wgmma design
+# reads the same, PERF.md)
+BF16_FEATURES_REL_RMS = 2.1e-2
 _TPU = "on_device_image_captioning_tpu/ops/"
 _PORT = "on_device_image_captioning_torch/"
 # kernel -> route, source, the TPU kernel it replaces, (ops module, launch
@@ -742,6 +754,7 @@ class Smoke:
                 torch.cuda.empty_cache()
         self.compare_tokens("card step_impl 'pallas_fused' vs card 'pallas' (fused backbone)",
                             gpu_caps["fused"], gpu_caps["fused_halves"], beam_margin)
+        self.bf16_features(imgs)
 
         # sampling: the same Gumbel noise to the card (B16 step) and to the CPU
         gpu_cfg, gpu_model, gpu = fused
@@ -1132,7 +1145,68 @@ class Smoke:
             f"{bwd:.2f} ms, optimizer {opt:.2f} ms (medians of 3 steps {marks}); peak device "
             f"memory {peak:.0f} MiB of this step | {self.card}")
 
+    def bf16_features(self, imgs):
+        """The bf16 backbone at full depth: the features (2, 144, 1536) of the
+        "fused" runs (D: default stage modes; H: every stage on the halves)
+        against the "pallas" run's, same weights and images. The "pallas"
+        backbone runs none of the shared product's kernels and phase 5's fp32
+        checks run the product's fp32 route, so this is where its bf16 route
+        meets the whole depth."""
+        torch = self.torch
+        from on_device_image_captioning_torch.utils.image import normalize_on_device
+
+        x = normalize_on_device(torch.from_numpy(imgs).to(self.dev))
+        feats = {}
+        with torch.inference_mode():
+            for run in RUNS:
+                cap = self.serve[run]
+                feats[run] = cap.model.swin_transf(x, cap.cfg.compute_dtype).float()
+        want = feats["pallas"]
+        for run, form in (("fused", "D"), ("fused_halves", "H")):
+            diff = feats[run] - want
+            rel = float(diff.square().mean().sqrt() / want.square().mean().sqrt())
+            log(f"phase 5 bf16 backbone features {tuple(want.shape)}, form {form} (run {run!r}) "
+                f"vs 'pallas': relative RMS {rel:.4e}, max abs {float(diff.abs().max()):.4e} "
+                f"(bound {BF16_FEATURES_REL_RMS:g})")
+            if not rel <= BF16_FEATURES_REL_RMS:
+                raise AssertionError(f"run {run!r}: bf16 backbone features depart from 'pallas'")
+
     # -- phase 6 ---------------------------------------------------------------
+    def product_timing(self):
+        """The shared bf16 product alone at the four stage-2 products of a b8
+        encode (M = 4608 rows), as B4 and B5 launch it, beside `F.linear` on
+        the same tensors (a yardstick only: the port never calls it)."""
+        torch = self.torch
+        F = torch.nn.functional
+        from on_device_image_captioning_torch.ops import fused_linear as fl
+        from on_device_image_captioning_torch.ops import linear_plan as lp
+
+        g = torch.Generator().manual_seed(SEED + 9)
+        rn = lambda shape, scale=1.0, dt=torch.float32: (  # noqa: E731
+            torch.randn(shape, generator=g) * scale).to(self.dev, dt)
+        bf, m, c = torch.bfloat16, 4608, 768
+        x, h = rn((m, c), dt=bf), rn((m, 4 * c), dt=bf)
+        log(f"phase 6 the shared product alone at b8 stage 2 (M {m}), device ms by CUDA-graph "
+            f"replay, beside F.linear on the same tensors ({self.card})")
+        for name, a, n, norm, gelu, resid in (
+                ("qkv, LayerNorm prologue", x, 3 * c, True, False, False),
+                ("proj, residual", x, c, False, False, True),
+                ("fc1, LayerNorm prologue and GELU", x, 4 * c, True, True, False),
+                ("fc2, residual", h, c, False, False, True)):
+            k = a.shape[1]
+            w, b = rn((k, n), k ** -0.5, bf), rn((n,))
+            ln = (rn((k,), 0.2) + 1, rn((k,), 0.2)) if norm else None
+            r = x if resid else None
+            ms = self.graph_time(lambda: fl.fused_linear(a, w, b, ln, gelu=gelu, resid=r))
+            w_t = w.t().contiguous()
+            lib = self.graph_time(lambda: F.linear(a, w_t))
+            sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+            plan = lp.linear_plan(m, n, k, 1, 2, sms)
+            tflops = 2 * m * n * k / 1e9
+            log(f"  {name} ({m}, {k}) -> {n}: {fmt(ms)} ({tflops / ms:.0f} TFLOP/s; tile "
+                f"{plan.tile}, {plan.ctas} CTAs), F.linear {fmt(lib)} ({tflops / lib:.0f} TFLOP/s) "
+                f"| {self.card}")
+
     def kernel_timing(self, names=None):
         from on_device_image_captioning_torch.ops import _cases
 
@@ -1276,6 +1350,7 @@ def main(names) -> int:
     smoke.quant_check()
     smoke.train_check()
     smoke.kernel_timing()
+    smoke.product_timing()
     smoke.path_timing()
     smoke.train_timing()
     kernels = []

@@ -1,0 +1,96 @@
+"""The backbone's shared bf16 product alone in every tile form, on one card.
+
+    python -m on_device_image_captioning_torch.cli.product_forms [--out FILE]
+
+At the main path's products (qkv, proj, fc1, fc2 of stage 2 at b8 and b1 and
+of stage 0 at b8, each with its own epilogue: the LayerNorm prologue on qkv
+and fc1, GELU on fc1, the residual on proj and fc2), the product
+(`ops/fused_linear.py`) in each form of `ops/linear_plan.py::FORMS`, the form
+the plan picks, and `F.linear` on the same tensors as a yardstick: device ms
+by CUDA-graph replay (20 calls, replayed three times). These are the readings
+the plan's model is held to. The last line is one JSON object.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import fused_linear as fl
+from ..ops import linear_plan as lp
+from .breakdown import card_name
+
+# (label, rows, C): Swin-L/384 stage 2 at b8 and b1, stage 0 at b8
+SHAPES = (("b8 stage2", 4608, 768), ("b1 stage2", 576, 768), ("b8 stage0", 73728, 192))
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", type=str, default=None)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("product_forms: needs a CUDA card")
+    card, dev = card_name(), torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(0)
+    rn = lambda shape, scale=1.0, dt=torch.float32: (  # noqa: E731
+        torch.randn(shape, generator=g) * scale).to(dev, dt)
+    rows_out = []
+    for label, m, c in SHAPES:
+        x, h = rn((m, c), dt=torch.bfloat16), rn((m, 4 * c), dt=torch.bfloat16)
+        for name, a, n, norm, gelu, resid in (("qkv", x, 3 * c, True, False, False),
+                                              ("proj", x, c, False, False, True),
+                                              ("fc1", x, 4 * c, True, True, False),
+                                              ("fc2", h, c, False, False, True)):
+            k = a.shape[1]
+            w, b = rn((k, n), k ** -0.5, torch.bfloat16), rn((n,))
+            ln = (rn((k,), 0.2) + 1.0, rn((k,), 0.2)) if norm else None
+            r = x if resid else None
+            ms = {f: graph_ms(lambda f=f: fl.fused_linear(a, w, b, ln, gelu=gelu, resid=r, form=f))
+                  for f in range(len(lp.FORMS)) if k % lp.FORMS[f].bk == 0}
+            w_t = w.t().contiguous()
+            lib = graph_ms(lambda: F.linear(a, w_t))
+            plan = lp.linear_plan(m, n, k, 1, 2, sms).form
+            tf = 2 * m * n * k / 1e9
+            print(f"{label} {name} ({m}, {k}) -> {n}: "
+                  + ", ".join(f"form {f}{'*' if f == plan else ''} {t:.4f} ms "
+                              f"({tf / t:.0f} TFLOP/s)" for f, t in ms.items())
+                  + f"; F.linear {lib:.4f} ms ({tf / lib:.0f} TFLOP/s) | {card}", flush=True)
+            rows_out.append({"shape": label, "product": name, "m": m, "n": n, "k": k,
+                             "form_ms": ms, "plan": plan, "f_linear_ms": lib})
+    result = {"card": card, "forms": [list(map(int, (f.bm, f.bn, f.bk, f.stages, f.ctas)))
+                                      for f in lp.FORMS], "products": rows_out}
+    line = json.dumps(result)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -21,25 +21,37 @@
 // Every rounding sits where the TPU kernels round (`_ln`, `_linear`,
 // `_gelu_exact(...).astype`), so bf16 results agree with them to a bf16 ulp.
 //
-// Two kernels compute it, with the same gather, prologue and epilogue:
+// Two kernels compute it, with the same gather and epilogue:
 //
 // fused_linear_kernel (fp32, and the patch embed in either type): 256 threads
 //   as 16 x 16; a thread owns rows ty + 16 i and columns tx + 16 j of a
 //   (16 TM) x (16 TN) block tile and walks K in slabs of 16 through shared
 //   memory (A stored k-major so a warp reads it as broadcasts, W row-major so
-//   a warp reads consecutive banks); fp32 FMAs, so fp32 inputs stay full fp32.
-// fused_linear_mma_kernel (bf16): the same 128 x 96 block tile on the tensor
-//   cores. Eight warps as 4 x 2, each holding a 32 x 48 piece as 2 x 3
-//   nvcuda::wmma accumulators (m16n16k16, bf16 in, fp32 out); A and W slabs
-//   of 32 go through shared memory as bf16, loaded 16 bytes a thread into
-//   registers while the slab before is multiplied, the LayerNorm prologue
-//   applied between the load and the store; each warp passes its
-//   accumulators through a 16 x 16 fp32 patch of shared memory to apply the
-//   epilogue, 8 consecutive columns a lane, stored as 16 bytes.
+//   a warp reads consecutive banks), the LayerNorm applied as A is stored;
+//   fp32 FMAs, so fp32 inputs stay full fp32.
+// linear_wgmma_kernel (bf16, the large products): Hopper's warpgroup MMA
+//   (wgmma m64nNk16, bf16 in, fp32 accumulators in registers, W read through
+//   the transpose bit as the (K, N) row-major matrix it is). A and W K slabs
+//   of 64 (32 for gathered rows of an odd multiple of 32) go through a ring
+//   of 3 or 4 stages in shared memory by 16-byte cp.async, S - 1 slabs ahead
+//   of the products, every thread moving its share (the gather is per row);
+//   mbarriers say when a stage is full (the copies report to it themselves)
+//   and when every warpgroup is done with it. A LayerNorm prologue runs
+//   before, once per row (ln_rows_kernel: the statistics as row_stats forms
+//   them, the normalized rows rounded to bf16 into scratch the product reads
+//   in order), not once per column tile in the ring: the same roundings,
+//   done once where the ring did them 6 to 24 times (PERF.md has both
+//   designs' times). The epilogue applies bias and GELU to the
+//   accumulators in registers, stages the rounded tile in the ring and
+//   stores whole rows in 16-byte chunks with the residual. The tile (64 or
+//   128 rows by 64 or 128 columns, two or three CTAs an SM) comes from a
+//   launch plan made in Python from the shapes and the card's SM count
+//   (ops/linear_plan.py). K is never split: every output value is one CTA's
+//   sum in a fixed order, so two launches agree bit for bit.
 // See each .cu for what bounds it.
 #pragma once
 
-#include <mma.h>
+#include <mma.h>  // nvcuda::wmma, the backward's product
 
 #include <cstdint>
 #include <type_traits>
@@ -70,6 +82,9 @@ struct LinearArgs {
   // null = 1
   const float* row_scale;
   int scale_rows;
+  // (M, K) scratch: the LayerNorm prologue's rows of a bf16 product, written
+  // by ln_rows_kernel and read by the product in their place
+  void* ln_rows;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -83,10 +98,10 @@ __device__ __forceinline__ float gelu_exact(float v) {
 }
 
 // src_row[seg][m]: the A row that output row m0 + m reads, -1 past the end.
-template <int BM>
+template <int BM, int THREADS = kThreads>
 __device__ __forceinline__ void gather_rows(const LinearArgs& p, long m0,
                                             long (*src_row)[BM]) {
-  for (int idx = threadIdx.x; idx < p.segs * BM; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < p.segs * BM; idx += THREADS) {
     const int seg = idx / BM, m = idx % BM;
     const long r = m0 + m;
     src_row[seg][m] = r < p.M ? map_row(p.a_map, r, seg, p.geo) : -1;
@@ -95,8 +110,10 @@ __device__ __forceinline__ void gather_rows(const LinearArgs& p, long m0,
 
 // Mean and 1/sqrt(var + eps) of each gathered A row (fp32, two passes). Eight
 // lanes share a row and read it in 16-byte chunks, so a warp works on four
-// rows at a time.
-template <typename T, int BM>
+// rows at a time; a lane has up to kStatChunks chunks in flight and adds them
+// in the order of a lane that read them one by one (chunk sub, sub + 8, ...).
+constexpr int kStatChunks = 8;
+template <typename T, int BM, int THREADS = kThreads>
 __device__ __forceinline__ void row_stats(const LinearArgs& p,
                                           const long (*src_row)[BM],
                                           float* mean_s, float* rstd_s) {
@@ -105,36 +122,38 @@ __device__ __forceinline__ void row_stats(const LinearArgs& p,
   const int sub = lane & 7, grp = lane >> 3;
   const int ks = p.K / p.segs, chunks = ks / V;
   const T* a = static_cast<const T*>(p.a);
-  for (int m = warp * 4 + grp; m < BM; m += kThreads / 8) {
+  // the lane's chunks ch, ch + 8, ... of segment seg of row m, in batches
+  auto each = [&](int m, auto&& add) {
+    for (int seg = 0; seg < p.segs; ++seg) {
+      const uint4* row = reinterpret_cast<const uint4*>(a + src_row[seg][m] * ks);
+      for (int ch = sub; ch < chunks; ch += 8 * kStatChunks) {
+        uint4 raw[kStatChunks];
+#pragma unroll
+        for (int u = 0; u < kStatChunks; ++u)
+          if (ch + 8 * u < chunks) raw[u] = row[ch + 8 * u];
+#pragma unroll
+        for (int u = 0; u < kStatChunks; ++u)
+          if (ch + 8 * u < chunks) {
+            const T* h = reinterpret_cast<const T*>(&raw[u]);
+#pragma unroll
+            for (int j = 0; j < V; ++j) add(to_f<T>(h[j]));
+          }
+      }
+    }
+  };
+  for (int m = warp * 4 + grp; m < BM; m += THREADS / 8) {
     const bool ok = src_row[0][m] >= 0;
     float s = 0.f;
-    if (ok)
-      for (int seg = 0; seg < p.segs; ++seg) {
-        const uint4* row = reinterpret_cast<const uint4*>(a + src_row[seg][m] * ks);
-        for (int ch = sub; ch < chunks; ch += 8) {
-          const uint4 raw = row[ch];
-          const T* h = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-          for (int j = 0; j < V; ++j) s += to_f<T>(h[j]);
-        }
-      }
+    if (ok) each(m, [&](float v) { s += v; });
 #pragma unroll
     for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     const float mean = s / p.K;
     float q = 0.f;
     if (ok)
-      for (int seg = 0; seg < p.segs; ++seg) {
-        const uint4* row = reinterpret_cast<const uint4*>(a + src_row[seg][m] * ks);
-        for (int ch = sub; ch < chunks; ch += 8) {
-          const uint4 raw = row[ch];
-          const T* h = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-          for (int j = 0; j < V; ++j) {
-            const float d = to_f<T>(h[j]) - mean;
-            q = fmaf(d, d, q);
-          }
-        }
-      }
+      each(m, [&](float v) {
+        const float d = v - mean;
+        q = fmaf(d, d, q);
+      });
 #pragma unroll
     for (int o = 4; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
     if (sub == 0) {
@@ -149,12 +168,21 @@ __device__ __forceinline__ void row_stats(const LinearArgs& p,
 // `m` the row's scale on the rounded product (1 without one: res + 1 * v is
 // res + v exactly).
 template <typename T>
+__device__ __forceinline__ float epilogue_product(const LinearArgs& p, float v) {
+  v = round_t<T>(v);  // v already holds the bias
+  if (p.gelu) v = round_t<T>(gelu_exact(v));
+  return v;
+}
+template <typename T>
+__device__ __forceinline__ float epilogue_resid(float v, float res, float m) {
+  return round_t<T>(res + m * v);
+}
+template <typename T>
 __device__ __forceinline__ float epilogue(const LinearArgs& p, float v, int c,
                                           bool has_resid, float res, float m) {
   if (p.bias != nullptr) v += p.bias[c];
-  v = round_t<T>(v);
-  if (p.gelu) v = round_t<T>(gelu_exact(v));
-  if (has_resid) v = round_t<T>(res + m * v);
+  v = epilogue_product<T>(p, v);
+  if (has_resid) v = epilogue_resid<T>(v, res, m);
   return v;
 }
 
@@ -279,161 +307,6 @@ __global__ void __launch_bounds__(kThreads) fused_linear_kernel(LinearArgs p) {
   }
 }
 
-// The bf16 product on the tensor cores (see the head of this file).
-constexpr int kMmaBM = 128, kMmaBN = 96, kMmaBK = 32;
-constexpr int kLdA = kMmaBK + 8, kLdB = kMmaBN + 8;  // bf16 elements, 16-byte rows
-
-__global__ void __launch_bounds__(kThreads) fused_linear_mma_kernel(LinearArgs p) {
-  using namespace nvcuda;
-  typedef __nv_bfloat16 T;
-  constexpr int BM = kMmaBM, BN = kMmaBN, BK = kMmaBK;
-  __shared__ __align__(32) T As[BM][kLdA];
-  __shared__ __align__(32) T Bs[BK][kLdB];
-  __shared__ __align__(32) float Cw[kThreads / 32][16 * 16];
-  __shared__ long src_row[4][BM];
-  __shared__ float mean_s[BM], rstd_s[BM];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;  // the warp's 32 x 48 piece
-  const long m0 = (long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int ks = p.K / p.segs;
-  const T* a = static_cast<const T*>(p.a);
-  const T* w = static_cast<const T*>(p.w);
-  const bool ln = p.ln_g != nullptr;
-
-  gather_rows<BM>(p, m0, src_row);
-  __syncthreads();
-  if (ln) {
-    row_stats<T, BM>(p, src_row, mean_s, rstd_s);
-    __syncthreads();
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][3];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  // Slabs move in 16-byte chunks of 8 values, a thread taking every 256th
-  // chunk (so all of its A chunks share their 8 columns of the slab). A slab
-  // is fetched into registers while the one before it is multiplied, and
-  // goes to shared memory (through the LayerNorm) after it.
-  constexpr int kChunksA = BK / 8, kChunksB = BN / 8;
-  constexpr int kPerA = BM * kChunksA / kThreads;
-  constexpr int kPerB = (BK * kChunksB + kThreads - 1) / kThreads;
-  static_assert(kThreads % kChunksA == 0, "a thread's A chunks share their columns");
-  const int kc = (tid % kChunksA) * 8;
-  uint4 ra[kPerA], rb[kPerB];
-  float4 g[2], b[2];  // LayerNorm scale and bias of the thread's 8 columns
-  auto fetch = [&](int k0) {
-    const int seg = k0 / ks;  // a slab never straddles two gathered rows
-    const int kseg = k0 - seg * ks;
-#pragma unroll
-    for (int i = 0; i < kPerA; ++i) {
-      const long src = src_row[seg][(tid + i * kThreads) / kChunksA];
-      ra[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (src >= 0) ra[i] = *reinterpret_cast<const uint4*>(a + src * ks + kseg + kc);
-    }
-#pragma unroll
-    for (int i = 0; i < kPerB; ++i) {
-      const int e = tid + i * kThreads;
-      const int nc = (e % kChunksB) * 8, kk = e / kChunksB;
-      rb[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (kk < BK && n0 + nc < p.N)
-        rb[i] = *reinterpret_cast<const uint4*>(w + (long)(k0 + kk) * p.N + n0 + nc);
-    }
-    if (ln) {
-      const float4* gp = reinterpret_cast<const float4*>(p.ln_g + k0 + kc);
-      const float4* bp = reinterpret_cast<const float4*>(p.ln_b + k0 + kc);
-      g[0] = gp[0], g[1] = gp[1], b[0] = bp[0], b[1] = bp[1];
-    }
-  };
-  auto stash = [&]() {
-    const float* gf = reinterpret_cast<const float*>(g);
-    const float* bf = reinterpret_cast<const float*>(b);
-#pragma unroll
-    for (int i = 0; i < kPerA; ++i) {
-      const int m = (tid + i * kThreads) / kChunksA;
-      if (ln && src_row[0][m] >= 0) {
-        T* h = reinterpret_cast<T*>(&ra[i]);
-        const float mean = mean_s[m], rstd = rstd_s[m];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          h[j] = __float2bfloat16((__bfloat162float(h[j]) - mean) * rstd * gf[j] + bf[j]);
-      }
-      *reinterpret_cast<uint4*>(&As[m][kc]) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kPerB; ++i) {
-      const int e = tid + i * kThreads;
-      const int nc = (e % kChunksB) * 8, kk = e / kChunksB;
-      if (kk < BK) *reinterpret_cast<uint4*>(&Bs[kk][nc]) = rb[i];
-    }
-  };
-
-  fetch(0);
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-    stash();
-    __syncthreads();
-    if (k0 + BK < p.K) fetch(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[3];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[32 * wm + 16 * i][kk], kLdA);
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk][48 * wn + 16 * j], kLdB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: a lane takes 8 consecutive columns of one row of each 16 x 16
-  // accumulator, passed through the warp's patch of shared memory
-  const T* resid = static_cast<const T*>(p.resid);
-  T* out = static_cast<T*>(p.out);
-  float* patch = Cw[warp];
-  const int pr = lane >> 1, pc = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long r = m0 + 32 * wm + 16 * i + pr;
-    const bool row_ok = r < p.M;
-    const long rr = (row_ok && resid != nullptr) ? map_row(p.resid_map, r, 0, p.geo) : 0;
-    const float m = row_ok ? row_scale_of(p, r) : 1.0f;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      wmma::store_matrix_sync(patch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int c = n0 + 48 * wn + 16 * j + pc;
-      if (row_ok && c < p.N) {
-        uint4 res_raw = make_uint4(0u, 0u, 0u, 0u);
-        if (resid != nullptr)
-          res_raw = *reinterpret_cast<const uint4*>(resid + rr * p.N + c);
-        const T* res = reinterpret_cast<const T*>(&res_raw);
-        float4 acc4[2];
-        acc4[0] = *reinterpret_cast<const float4*>(patch + pr * 16 + pc);
-        acc4[1] = *reinterpret_cast<const float4*>(patch + pr * 16 + pc + 4);
-        const float* accf = reinterpret_cast<const float*>(acc4);
-        uint4 out_raw;
-        T* o = reinterpret_cast<T*>(&out_raw);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o[e] = __float2bfloat16(epilogue<T>(p, accf[e], c + e, resid != nullptr,
-                                              __bfloat162float(res[e]), m));
-        *reinterpret_cast<uint4*>(out + r * p.N + c) = out_raw;
-      }
-      __syncwarp();
-    }
-  }
-}
-
 // Launch on `stream`; the K slabs must not straddle gathered rows.
 template <typename T, int TM, int TN, bool LN_OUT>
 static cudaError_t launch_linear(const LinearArgs& p, cudaStream_t stream) {
@@ -447,24 +320,423 @@ static cudaError_t launch_linear(const LinearArgs& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The 128 x 96 tile for the large products (every width of Swin-L is a
-// multiple of 96): fp32 on the CUDA cores, bf16 on the tensor cores.
+// ---------------------------------------------------------------------------
+// The bf16 product on Hopper's warpgroup MMA (see the head of this file).
+
+// Tile forms of linear_wgmma_kernel: BM rows (a consumer warpgroup of 128
+// threads for every 64), BN columns, K slabs of BK, a ring of STAGES slabs,
+// and the CTAs one SM holds at that shared memory (the launch bounds): two or
+// three, so that one CTA's epilogue overlaps another's products (forms of one
+// CTA an SM, 128 x 256 and 128 x 192, measured slower at every main-path
+// shape: PERF.md). The launch plan (ops/linear_plan.py, which reads this
+// table in its tests) picks one per product; BK 32 is the form for gathered
+// rows of an odd multiple of 32 values, which no product of the main path has.
+struct ProductForm {
+  int bm, bn, bk, stages, ctas;
+};
+constexpr ProductForm kProductForms[] = {
+    {128, 128, 64, 3, 2},  // 0
+    {64, 128, 64, 4, 2},   // 1
+    {64, 64, 64, 4, 3},    // 2
+    {64, 64, 32, 4, 3},    // 3
+};
+
+// Dynamic shared memory of a form: the ring, 1024 bytes to align it (the
+// swizzle repeats every 1024), a full and an empty barrier per stage, the
+// gathered source rows (4 segments) and the bias of the tile's columns.
+constexpr int product_smem(const ProductForm& f) {
+  return f.stages * (f.bm * f.bk + f.bk * f.bn) * 2 + 1024 + 2 * f.stages * 8 + 4 * f.bm * 8 +
+         f.bn * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !ok (src must still be valid)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// an arrival on the barrier once every cp.async this thread has issued so far
+// has landed (counted in the barrier's expected arrivals)
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// the shared memory this thread has seen written (the cp.async copies an
+// mbarrier reported) made visible to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle mode (1 = 128 bytes, 2 = 64 bytes).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (swizzle << 62);
+}
+
+// d (64 x n fp32, the warpgroup's accumulators) += A (64 x 16, K-major) .
+// B (16 x n, MN-major: the transpose bit) for n = 64 and 128.
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 64) wgmma_n64(d, da, db);
+  if constexpr (BN == 128) wgmma_n128(d, da, db);
+}
+
+// The 16-byte chunk that chunk c of row m of an A slab occupies: rows of 128
+// bytes (BK 64) in the 128-byte swizzle, of 64 bytes (BK 32) in the 64-byte one,
+// as the descriptors name them (an 8-row pattern of 1024 or 512 bytes).
+template <int BK>
+__device__ __forceinline__ int swizzle_a(int m, int c) {
+  return BK == 64 ? c ^ (m & 7) : c ^ ((m >> 1) & 3);
+}
+
+// One CTA computes a BM x BN output tile; warpgroup g holds rows 64 g ..
+// 64 g + 63 as fp32 accumulators in its registers. Every thread moves its
+// share of each K slab (A rows gathered through src_row, W rows of the tile's
+// columns) into the ring by 16-byte cp.async, S - 1 slabs ahead of use:
+//   slab j sits in stage j % S; full[s] completes when every thread's copies
+//   of it have landed (cp.async reports to the barrier itself: no thread
+//   waits for its own copies); empty[s] completes when every warpgroup's
+//   products on it are done, and only then is the stage refilled with slab
+//   j + S.
+// A stage holds A as BM rows of BK values (K-major) and W as BK rows of BN
+// (MN-major, 64-column blocks of 128-byte rows), both swizzled as the
+// descriptors say. The epilogue applies bias and GELU to the accumulators
+// where they lie, stages the rounded tile in the ring, then adds the
+// residual and stores whole rows in 16-byte chunks. A LayerNorm prologue has
+// been applied by ln_rows_kernel before the launch.
+template <int BM, int BN, int BK, int S, int CTAS>
+__global__ void __launch_bounds__(2 * BM, CTAS) linear_wgmma_kernel(LinearArgs p) {
+  typedef __nv_bfloat16 T;
+  constexpr int THREADS = 2 * BM;
+  constexpr int ROW = 2 * BK;  // bytes of an A row in a slab
+  constexpr int A_BYTES = BM * ROW, STAGE = A_BYTES + BK * BN * 2;
+  constexpr int CPR = BK / 8;  // 16-byte chunks of an A row
+  constexpr int A_PER = BM * CPR / THREADS, W_PER = BK * (BN / 8) / THREADS;
+  static_assert(THREADS % CPR == 0 && (BK * (BN / 8)) % THREADS == 0 && BN % 64 == 0,
+                "every thread moves whole chunks, always the same A chunk of a row");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * STAGE);
+  uint64_t* empty = full + S;
+  long(*src_row)[BM] = reinterpret_cast<long(*)[BM]>(empty + S);
+  float* bias_s = reinterpret_cast<float*>(src_row + 4);
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long m0 = static_cast<long>(blockIdx.y) * BM;
+  const int n0 = blockIdx.x * BN;
+  const int ks = p.K / p.segs, slabs = p.K / BK;
+  const T* a = static_cast<const T*>(p.a);
+  const T* w = static_cast<const T*>(p.w);
+  const uint32_t ring_s = smem_u32(ring);
+  const int kc = tid % CPR;  // the thread's chunk of every A row it moves
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], THREADS);
+      mbar_init(&empty[s], THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  gather_rows<BM, THREADS>(p, m0, src_row);
+  for (int i = tid; i < BN; i += THREADS)
+    bias_s[i] = (p.bias != nullptr && n0 + i < p.N) ? p.bias[n0 + i] : 0.f;
+  __syncthreads();
+
+  auto load = [&](int j) {  // slab j into stage j % S, reported to full[j % S]
+    const int k0 = j * BK, seg = k0 / ks;  // a slab never straddles two gathered rows
+    const int kseg = k0 - seg * ks;
+    const uint32_t sa = ring_s + (j % S) * STAGE, sw = sa + A_BYTES;
+#pragma unroll
+    for (int i = 0; i < A_PER; ++i) {
+      const int m = (tid + i * THREADS) / CPR;
+      const long src = src_row[seg][m];
+      cp_async16(sa + m * ROW + (swizzle_a<BK>(m, kc) << 4),
+                 src >= 0 ? a + src * ks + kseg + kc * 8 : a, src >= 0);
+    }
+#pragma unroll
+    for (int i = 0; i < W_PER; ++i) {
+      const int e = tid + i * THREADS, kr = e / (BN / 8), ch = e % (BN / 8);
+      const int n = n0 + ch * 8;
+      cp_async16(sw + (ch >> 3) * (BK * 128) + kr * 128 + (((ch & 7) ^ (kr & 7)) << 4),
+                 n < p.N ? w + static_cast<long>(k0 + kr) * p.N + n : w, n < p.N);
+    }
+    mbar_arrive_on_copies(&full[j % S]);
+  };
+
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j)
+    if (j < slabs) load(j);
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const uint32_t a_rows = wg * 64 * ROW;  // the warpgroup's 64 rows of a slab
+  for (int j = 0; j < slabs; ++j) {
+    const int s = j % S;
+    mbar_wait(&full[s], (j / S) & 1);
+    fence_proxy_async();
+    const uint32_t sa = ring_s + s * STAGE;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_tile<BN>(acc, smem_desc(sa + a_rows + kk * 32, 16, 8 * ROW, BK == 64 ? 1 : 2),
+                     smem_desc(sa + A_BYTES + kk * 16 * 128, BK * 128, 1024, 1));
+    wgmma_commit();
+    wgmma_wait<1>();  // the products on slab j - 1 are done
+    fence_acc(acc);
+    if (j > 0) mbar_arrive(&empty[(j - 1) % S]);
+    if (j + S - 1 < slabs) {  // refill the stage of slab j - 1 with slab j + S - 1
+      if (j > 0) mbar_wait(&empty[(j - 1) % S], ((j - 1) / S) & 1);
+      load(j + S - 1);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  __syncthreads();  // every warpgroup is done with the ring: it takes the tile now
+
+  // accumulator d[4 j + 2 h + b] of lane l in warp v of the warpgroup is row
+  // 16 v + l / 4 + 8 h, column 8 j + 2 (l % 4) + b of the warpgroup's piece;
+  // staged rows are BN values and 16 bytes long (no bank conflicts)
+  constexpr int ST = BN * 2 + 16;
+  static_assert(BM * ST <= S * STAGE, "the finished tile fits the ring");
+  const int lane = tid & 31;
+  const int r0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const bool bias = p.bias != nullptr;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = j * 8 + (lane & 3) * 2;
+    const float b0 = bias_s[c], b1 = bias_s[c + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      __nv_bfloat162 v;
+      v.x = __float2bfloat16(epilogue_product<T>(p, bias ? v0 + b0 : v0));
+      v.y = __float2bfloat16(epilogue_product<T>(p, bias ? v1 + b1 : v1));
+      *reinterpret_cast<__nv_bfloat162*>(ring + (r0 + 8 * h) * ST + c * 2) = v;
+    }
+  }
+  __syncthreads();
+  // a thread's chunks in batches of four: every load of a batch (the
+  // residual's included) before any of its stores
+  constexpr int CH = BN / 8, PER = BM * CH / THREADS, B = PER < 4 ? PER : 4;
+  static_assert(PER % B == 0, "whole batches");
+  const T* resid = static_cast<const T*>(p.resid);
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int i0 = 0; i0 < PER; i0 += B) {
+    uint4 raw[B], res_raw[B];
+    float scale[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const int e = tid + (i0 + i) * THREADS, row = e / CH, ch = e % CH;
+      const long r = m0 + row;
+      raw[i] = *reinterpret_cast<const uint4*>(ring + row * ST + ch * 16);
+      if (resid != nullptr && r < p.M && n0 + ch * 8 < p.N) {
+        res_raw[i] = *reinterpret_cast<const uint4*>(
+            resid + map_row(p.resid_map, r, 0, p.geo) * p.N + n0 + ch * 8);
+        scale[i] = row_scale_of(p, r);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const int e = tid + (i0 + i) * THREADS, row = e / CH, ch = e % CH;
+      const long r = m0 + row;
+      const int c = n0 + ch * 8;
+      if (r >= p.M || c >= p.N) continue;
+      if (resid != nullptr) {
+        const T* res = reinterpret_cast<const T*>(&res_raw[i]);
+        T* v = reinterpret_cast<T*>(&raw[i]);
+#pragma unroll
+        for (int e2 = 0; e2 < 8; ++e2)
+          v[e2] = __float2bfloat16(epilogue_resid<T>(__bfloat162float(v[e2]),
+                                                     __bfloat162float(res[e2]), scale[i]));
+      }
+      *reinterpret_cast<uint4*>(out + r * p.N + c) = raw[i];
+    }
+  }
+}
+
+// The LayerNorm prologue of a bf16 product, once per row for all of its
+// column tiles: the statistics of the gathered A row (row_stats: fp32, two
+// passes, eight lanes a row), then (a - mean) rstd g + b rounded to bf16
+// into row m of p.ln_rows (M, K), which the product reads in A's place.
+__global__ void __launch_bounds__(kThreads) ln_rows_kernel(LinearArgs p) {
+  typedef __nv_bfloat16 T;
+  constexpr int R = 32;  // rows a CTA: eight warps of four
+  __shared__ long src_row[4][R];
+  __shared__ float mean_s[R], rstd_s[R];
+  const long m0 = static_cast<long>(blockIdx.x) * R;
+  gather_rows<R>(p, m0, src_row);
+  __syncthreads();
+  row_stats<T, R>(p, src_row, mean_s, rstd_s);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, sub = lane & 7;
+  const int m = (threadIdx.x >> 5) * 4 + (lane >> 3);
+  if (src_row[0][m] < 0) return;
+  const int ks = p.K / p.segs;
+  const float mean = mean_s[m], rstd = rstd_s[m];
+  T* dst = static_cast<T*>(p.ln_rows) + (m0 + m) * p.K;
+  for (int seg = 0; seg < p.segs; ++seg) {
+    const uint4* row = reinterpret_cast<const uint4*>(static_cast<const T*>(p.a) +
+                                                      src_row[seg][m] * ks);
+    for (int ch = sub; ch < ks / 8; ch += 8) {
+      const int k = seg * ks + ch * 8;
+      const float4* gp = reinterpret_cast<const float4*>(p.ln_g + k);
+      const float4* bp = reinterpret_cast<const float4*>(p.ln_b + k);
+      const float4 g4[2] = {gp[0], gp[1]}, b4[2] = {bp[0], bp[1]};
+      const float* gf = reinterpret_cast<const float*>(g4);
+      const float* bf = reinterpret_cast<const float*>(b4);
+      uint4 raw = row[ch];
+      T* h = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        h[e] = __float2bfloat16((__bfloat162float(h[e]) - mean) * rstd * gf[e] + bf[e]);
+      *reinterpret_cast<uint4*>(dst + k) = raw;
+    }
+  }
+}
+
+// One launch of form F: the attribute once per form (a process-wide static).
+template <int F>
+static cudaError_t launch_wgmma(const LinearArgs& p, cudaStream_t s) {
+  constexpr ProductForm f = kProductForms[F];
+  constexpr int smem = product_smem(f);
+  static_assert(smem <= 232448 && f.ctas * (smem + 1024) <= 233472,
+                "a CTA's and an SM's shared memory");
+  const auto kernel = linear_wgmma_kernel<f.bm, f.bn, f.bk, f.stages, f.ctas>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  if ((p.K / p.segs) % f.bk != 0) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>((p.N + f.bn - 1) / f.bn),
+            static_cast<unsigned>((p.M + f.bm - 1) / f.bm));
+  kernel<<<grid, 2 * f.bm, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// The large products of the backbone. fp32 on the CUDA cores in the 128 x 96
+// tile; bf16 on linear_wgmma_kernel in the tile form the caller's plan names
+// (ops/linear_plan.py: an index of kProductForms), after ln_rows_kernel
+// where there is a LayerNorm prologue (p.ln_rows: (M, K) of scratch).
 template <typename T>
-static cudaError_t launch_linear_wide(const LinearArgs& p, cudaStream_t s) {
+static cudaError_t launch_linear_wide(const LinearArgs& p, int form, cudaStream_t s) {
+  (void)form;
   return launch_linear<T, 8, 6, false>(p, s);
 }
 template <>
-cudaError_t launch_linear_wide<__nv_bfloat16>(const LinearArgs& p, cudaStream_t s) {
+cudaError_t launch_linear_wide<__nv_bfloat16>(const LinearArgs& p, int form, cudaStream_t s) {
   // 16-byte accesses: rows of A, W, the residual and the output start on
   // multiples of 8 values, and no K slab straddles two gathered rows
   if (p.M <= 0 || p.segs < 1 || p.segs > 4 || p.K % p.segs != 0 ||
-      (p.K / p.segs) % kMmaBK != 0 || p.N % 8 != 0)
+      (p.K / p.segs) % 32 != 0 || p.N % 8 != 0 || (p.ln_g != nullptr && p.ln_rows == nullptr))
     return cudaErrorInvalidValue;
-  dim3 grid((unsigned)((p.M + kMmaBM - 1) / kMmaBM),
-            (unsigned)((p.N + kMmaBN - 1) / kMmaBN));
-  fused_linear_mma_kernel<<<grid, kThreads, 0, s>>>(p);
-  return cudaGetLastError();
+  LinearArgs q = p;
+  if (p.ln_g != nullptr) {  // the product reads the normalized rows, in order
+    ln_rows_kernel<<<static_cast<unsigned>((p.M + 31) / 32), kThreads, 0, s>>>(p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    q.a = p.ln_rows;
+    q.a_map = kMapIdentity;
+    q.segs = 1;
+    q.ln_g = q.ln_b = nullptr;
+  }
+  switch (form) {
+    case 0: return launch_wgmma<0>(q, s);
+    case 1: return launch_wgmma<1>(q, s);
+    case 2: return launch_wgmma<2>(q, s);
+    case 3: return launch_wgmma<3>(q, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
+
 // 32 x 192 with the row-LayerNorm epilogue for the patch embed, whose output
 // row is 192 wide (bound by bytes: CUDA cores in both types).
 template <typename T>
@@ -498,6 +770,8 @@ static cudaError_t launch_linear_rows(const LinearArgs& p, cudaStream_t s) {
 // gemm_mma_kernel (bf16) moves them in 16-byte chunks and takes the three
 // operand layouts the backwards give it. PERF.md has the times.
 enum GemmEpilogue { kEpiPlain = 0, kEpiGeluFwd = 1, kEpiGeluBwd = 2 };
+constexpr int kMmaBM = 128, kMmaBN = 96, kMmaBK = 32;
+constexpr int kLdA = kMmaBK + 8, kLdB = kMmaBN + 8;  // bf16 elements, 16-byte rows
 
 struct GemmArgs {
   const void* a;
@@ -592,8 +866,8 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
   }
 }
 
-// bf16 on the tensor cores: the warp layout of fused_linear_mma_kernel, the
-// tiles moved in 16-byte chunks of 8 values, for operands whose contiguous
+// bf16 on the tensor cores (nvcuda::wmma): a 128 x 96 tile, eight warps as
+// 4 x 2 each holding a 32 x 48 piece, the tiles moved in 16-byte chunks of 8 values, for operands whose contiguous
 // index is known and whose sizes, strides and pointers are multiples of 8
 // values (launch_gemm checks, and refuses any other). A_T: A is given
 // transposed, contiguous along m (the weight gradients' A^T), and sits in

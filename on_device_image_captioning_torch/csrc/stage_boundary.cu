@@ -19,7 +19,8 @@
 // window layout. No one-hot selection matrix (merge_selection) exists here.
 // Bound: operations or bytes, close to the balance point (16 C^2 flops per
 // output row against 12 C bytes in bf16, 1.3 C flop/byte: 256 to 1024). bf16
-// runs on the tensor cores, fp32 on the CUDA cores (fused_linear.cuh).
+// runs on warpgroup MMA in the tile form of the wrapper's launch plan, fp32 on
+// the CUDA cores (fused_linear.cuh).
 #include "fused_linear.cuh"
 
 template <typename T>
@@ -40,13 +41,15 @@ template <typename T>
 static cudaError_t downsample_typed(const void* x, const float* ln_g,
                                     const float* ln_b, const void* w, void* out,
                                     int batch, int res, int window, int c,
-                                    float eps, cudaStream_t s) {
+                                    float eps, int form, void* ln_rows,
+                                    cudaStream_t s) {
   LinearArgs p = {};
   p.a = x; p.w = w; p.ln_g = ln_g; p.ln_b = ln_b; p.out = out;
   p.M = batch * (res / 2) * (res / 2); p.N = 2 * c; p.K = 4 * c;
   p.a_map = kMapMerge; p.segs = 4; p.geo = Geometry{res, window, 0};
   p.eps = eps;
-  return launch_linear_wide<T>(p, s);
+  p.ln_rows = ln_rows;
+  return launch_linear_wide<T>(p, form, s);
 }
 
 // x (batch, res, res, k) raster; w (k, c); out (batch * (res/window)^2,
@@ -72,19 +75,23 @@ extern "C" int patch_embed_launch(const void* x, const void* w,
 
 // x (batch * (res/window)^2, window^2, c) window layout of a res grid; w
 // (4c, 2c); out (batch * (res/2/window)^2, window^2, 2c). res / 2 must be a
-// multiple of window.
+// multiple of window. form is the bf16 product's tile form (the launch
+// plan's) and ln_rows (rows of out, 4c) scratch in the storage type for the
+// merged rows after the LayerNorm; fp32 reads neither.
 extern "C" int downsample_launch(const void* x, const void* ln_g,
                                  const void* ln_b, const void* w, void* out,
                                  int batch, int res, int window, int c,
-                                 float eps, int dtype, void* stream) {
+                                 float eps, int form, void* ln_rows, int dtype,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (window <= 0 || res % (2 * window) != 0) return cudaErrorInvalidValue;
   const float* g = static_cast<const float*>(ln_g);
   const float* b = static_cast<const float*>(ln_b);
   if (dtype == kFloat32)
-    return downsample_typed<float>(x, g, b, w, out, batch, res, window, c, eps, s);
+    return downsample_typed<float>(x, g, b, w, out, batch, res, window, c, eps, form,
+                                   ln_rows, s);
   if (dtype == kBFloat16)
     return downsample_typed<__nv_bfloat16>(x, g, b, w, out, batch, res, window,
-                                           c, eps, s);
+                                           c, eps, form, ln_rows, s);
   return cudaErrorInvalidValue;
 }

@@ -431,6 +431,7 @@ struct AttnBwdArgs {
   void *xn1, *qkv, *attn, *dproj, *dao, *dqkv_t, *dx;
   float *dqkv, *dxn1, *dwqkv, *dbqkv, *dwproj, *dbproj, *dg1, *dbe1, *dbias;
   int bw, n, c, heads, num_windows, windows_per_image, dtype;
+  int qkv_form;  // the recomputed qkv product's tile form (bf16)
   float scale, eps;
 };
 
@@ -444,7 +445,7 @@ cudaError_t attn_bwd_typed(const AttnBwdArgs& p, cudaStream_t s) {
   lin.a = p.xn1; lin.w = p.wqkv; lin.bias = p.bqkv; lin.out = p.qkv;
   lin.M = rows; lin.N = 3 * c; lin.K = c;
   lin.a_map = kMapIdentity; lin.segs = 1; lin.eps = p.eps;
-  if ((err = launch_linear_wide<T>(lin, s)) != cudaSuccess) return err;
+  if ((err = launch_linear_wide<T>(lin, p.qkv_form, s)) != cudaSuccess) return err;
 
   if ((err = launch_scale_rows<T>(p.dx2, p.m1, p.dproj, rows, c, p.windows_per_image * p.n,
                                   s)) != cudaSuccess)
@@ -481,14 +482,15 @@ cudaError_t attn_bwd_typed(const AttnBwdArgs& p, cudaStream_t s) {
 // type: xn1, attn, dproj, dao (bw, n, c), qkv and dqkv_t (bw, n, 3c; dqkv_t
 // unused in fp32); fp32: dqkv (bw, n, 3c), dxn1 (bw, n, c). Outputs dwqkv
 // (c, 3c), dbqkv (3c), dwproj (c, c), dbproj (c), dg1, dbe1 (c), dbias
-// (heads, n, n) are fp32 and must arrive zeroed. Heads of 32.
+// (heads, n, n) are fp32 and must arrive zeroed. Heads of 32. qkv_form is the
+// tile form of the recomputed qkv product (the launch plan's, ignored in fp32).
 extern "C" int swin_attn_bwd_launch(
     const void* x, const void* dx2, const void* g1, const void* b1, const void* wqkv,
     const void* bqkv, const void* wproj, const void* bias, const void* mask, const void* m1,
     void* xn1, void* qkv, void* attn, void* dproj, void* dao, void* dqkv, void* dqkv_t,
     void* dxn1, void* dx, void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dg1,
     void* dbe1, void* dbias, int bw, int n, int c, int heads, int num_windows,
-    int windows_per_image, float scale, float eps, int dtype, void* stream) {
+    int windows_per_image, float scale, float eps, int qkv_form, int dtype, void* stream) {
   if (bw <= 0 || n <= 0 || c != heads * kDK || num_windows <= 0 || windows_per_image <= 0 ||
       bw % windows_per_image != 0)
     return cudaErrorInvalidValue;
@@ -505,7 +507,7 @@ extern "C" int swin_attn_bwd_launch(
   p.dg1 = static_cast<float*>(dg1); p.dbe1 = static_cast<float*>(dbe1);
   p.dbias = static_cast<float*>(dbias);
   p.bw = bw; p.n = n; p.c = c; p.heads = heads; p.num_windows = num_windows;
-  p.windows_per_image = windows_per_image; p.dtype = dtype;
+  p.windows_per_image = windows_per_image; p.dtype = dtype; p.qkv_form = qkv_form;
   p.scale = scale; p.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return attn_bwd_typed<float>(p, s);

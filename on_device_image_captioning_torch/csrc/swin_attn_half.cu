@@ -13,8 +13,9 @@
 // Bound on the H100: operations. Per row 8 C^2 flops of products plus
 // 4 N C of attention against 4 C bytes of x in and out (bf16): about 2 C
 // flop/byte, 384 to 1536, above the card's balance point. bf16 runs on the
-// tensor cores (nvcuda::wmma in both the products and the attention core),
-// fp32 on the CUDA cores as full fp32.
+// tensor cores (the products on warpgroup MMA in the tile forms of the
+// wrapper's launch plan, fused_linear.cuh; the attention core on
+// nvcuda::wmma), fp32 on the CUDA cores as full fp32.
 //
 // Design: a chain of three launches at every width (C = 192, 384, 768):
 //   1. qkv  = LN1(x') @ Wqkv + b     x' gathered by map_row(kMapTransition)
@@ -44,12 +45,14 @@ static cudaError_t attn_half_typed(const void* x, const float* ln_g,
                                 int num_windows, float scale, float eps,
                                 int map, Geometry geo, int dtype,
                                 const float* m1, int rows_per_image,
+                                int qkv_form, int proj_form, void* ln_rows,
                                 cudaStream_t s) {
   LinearArgs p = {};
   p.a = x; p.w = wqkv; p.bias = bqkv; p.ln_g = ln_g; p.ln_b = ln_b;
   p.out = qkv; p.M = bw * n; p.N = 3 * c; p.K = c;
   p.a_map = map; p.segs = 1; p.geo = geo; p.eps = eps;
-  cudaError_t err = launch_linear_wide<T>(p, s);
+  p.ln_rows = ln_rows;
+  cudaError_t err = launch_linear_wide<T>(p, qkv_form, s);
   if (err != cudaSuccess) return err;
   err = launch_window_attention<true>(qkv, bias, mask, attn, bw, n, c, heads,
                                       num_windows, scale, dtype, s);
@@ -59,7 +62,7 @@ static cudaError_t attn_half_typed(const void* x, const float* ln_g,
   q.out = out; q.M = bw * n; q.N = c; q.K = c;
   q.a_map = kMapIdentity; q.segs = 1; q.geo = geo; q.eps = eps;
   q.row_scale = m1; q.scale_rows = rows_per_image;
-  return launch_linear_wide<T>(q, s);
+  return launch_linear_wide<T>(q, proj_form, s);
 }
 
 static int attn_half_dispatch(const void* x, const void* ln_g,
@@ -71,7 +74,9 @@ static int attn_half_dispatch(const void* x, const void* ln_g,
                               int heads, int num_windows, float scale,
                               float eps, int transition, int res,
                               int window, int delta, const void* m1,
-                              int rows_per_image, int dtype, void* stream) {
+                              int rows_per_image, int qkv_form, int proj_form,
+                              void* ln_rows,
+                              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int map = kMapIdentity;
   Geometry geo = {0, 0, 0};
@@ -92,19 +97,24 @@ static int attn_half_dispatch(const void* x, const void* ln_g,
   if (dtype == kFloat32)
     return attn_half_typed<float>(x, g, b, wqkv, fq, wproj, fp, fbias, fmask, qkv,
                                attn, out, bw, n, c, heads, num_windows, scale,
-                               eps, map, geo, dtype, fm1, rows_per_image, s);
+                               eps, map, geo, dtype, fm1, rows_per_image, qkv_form,
+                               proj_form, ln_rows, s);
   if (dtype == kBFloat16)
     return attn_half_typed<__nv_bfloat16>(x, g, b, wqkv, fq, wproj, fp, fbias,
                                        fmask, qkv, attn, out, bw, n, c, heads,
                                        num_windows, scale, eps, map, geo, dtype,
-                                       fm1, rows_per_image, s);
+                                       fm1, rows_per_image, qkv_form, proj_form, ln_rows,
+                                       s);
   return cudaErrorInvalidValue;
 }
 
 // x, out (bw, n, c); wqkv (c, 3c), wproj (c, c) in the storage type; bias
 // (heads, n, n) fp32; mask (num_windows, n, n) fp32 or null; qkv (bw, n, 3c)
 // and attn (bw, n, c) scratch. transition != 0 reads x through the window
-// transition of a res grid with delta = (to_shift - from_shift) mod res.
+// transition of a res grid with delta = (to_shift - from_shift) mod res;
+// qkv_form and proj_form are the bf16 products' tile forms (the launch
+// plan's) and ln_rows (bw n, c) scratch in the storage type for the rows of
+// LN1(x') the qkv product reads; fp32 reads neither.
 extern "C" int swin_attn_half_launch(const void* x, const void* ln_g,
                                      const void* ln_b, const void* wqkv,
                                      const void* bqkv, const void* wproj,
@@ -113,12 +123,13 @@ extern "C" int swin_attn_half_launch(const void* x, const void* ln_g,
                                      void* out, int bw, int n, int c,
                                      int heads, int num_windows, float scale,
                                      float eps, int transition, int res,
-                                     int window, int delta, int dtype,
+                                     int window, int delta, int qkv_form,
+                                     int proj_form, void* ln_rows, int dtype,
                                      void* stream) {
   return attn_half_dispatch(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
                             qkv, attn, out, bw, n, c, heads, num_windows, scale,
                             eps, transition, res, window, delta, nullptr, 1,
-                            dtype, stream);
+                            qkv_form, proj_form, ln_rows, dtype, stream);
 }
 
 // B10a, the training forward (`_attn_half_train_fwd_call`): the same with the
@@ -133,11 +144,11 @@ extern "C" int swin_attn_half_train_launch(
     const void* bqkv, const void* wproj, const void* bproj, const void* bias,
     const void* mask, const void* m1, void* qkv, void* attn, void* out, int bw,
     int n, int c, int heads, int num_windows, int windows_per_image, float scale,
-    float eps, int dtype, void* stream) {
+    float eps, int qkv_form, int proj_form, void* ln_rows, int dtype, void* stream) {
   if (m1 == nullptr || windows_per_image <= 0 || bw % windows_per_image != 0)
     return cudaErrorInvalidValue;
   return attn_half_dispatch(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
                             qkv, attn, out, bw, n, c, heads, num_windows, scale,
-                            eps, 0, 0, 0, 0, m1, windows_per_image * n, dtype,
-                            stream);
+                            eps, 0, 0, 0, 0, m1, windows_per_image * n, qkv_form,
+                            proj_form, ln_rows, dtype, stream);
 }

@@ -353,10 +353,35 @@ def swin_attn_half_cases(dev) -> Iterator[Case]:
                     nbytes=2 * _nbytes(x) + _nbytes(*norm1, *qkv, *proj, bias, m),
                     flops=bw * N_TOKENS * (8 * c * c + 4 * N_TOKENS * c), matmul=True,
                 )
+    # the main path's own shapes, bf16 with the mask and the transition 0 -> 6:
+    # stage 2 at b8 (serve) and b1 (latency), stage 0 at b8 on the halves
+    for b, stage in MAIN_PATH_HALVES:
+        c, heads, res = STAGES[stage]
+        g = torch.Generator().manual_seed(540 + 10 * b + stage)
+        bw = b * (res // WINDOW) ** 2
+        x = _randn((bw, N_TOKENS, c), g, dev, dtype=torch.bfloat16)
+        norm1 = _norm(c, g, dev)
+        qkv, proj = _linear(c, 3 * c, g, dev, torch.bfloat16), _linear(c, c, g, dev, torch.bfloat16)
+        bias = _randn((heads, N_TOKENS, N_TOKENS), g, dev, scale=0.5)
+        mask = torch.from_numpy(shift_attn_mask(res, WINDOW, SHIFT)).to(dev)
+        a = (x, norm1, qkv, proj, bias, mask, heads, k1.HEAD_DIM**-0.5, 1e-5, (res, 0, SHIFT))
+        yield Case(
+            "swin_attn_half", f"b{b} stage{stage} x{tuple(x.shape)} mask trans0to6 bfloat16",
+            lambda a=a: sbf.swin_attn_half(*a),
+            lambda a=a: sbf.swin_attn_half_reference(*a),
+            _one(TOL[torch.bfloat16]), args=a,
+            nbytes=2 * _nbytes(x) + _nbytes(*norm1, *qkv, *proj, bias, mask),
+            flops=bw * N_TOKENS * (8 * c * c + 4 * N_TOKENS * c), matmul=True,
+        )
+
+
+# (batch, stage) of the main path's half-block shapes with cases of their own
+MAIN_PATH_HALVES = [(8, 2), (1, 2), (8, 0)]
 
 
 def swin_mlp_half_cases(dev) -> Iterator[Case]:
-    """B5 on the rows of the three multi-window stages at B=2, fp32 and bf16."""
+    """B5 on the rows of the three multi-window stages at B=2, fp32 and bf16;
+    then at the main path's own shapes (MAIN_PATH_HALVES), bf16."""
     for dt in (torch.float32, torch.bfloat16):
         for stage, (c, _, res) in enumerate(STAGES[:3]):
             g = torch.Generator().manual_seed(600 + stage)
@@ -371,6 +396,22 @@ def swin_mlp_half_cases(dev) -> Iterator[Case]:
                 nbytes=2 * _nbytes(x) + _nbytes(*norm2, *fc1, *fc2),
                 flops=x.numel() * 16 * c, matmul=True,
             )
+    for b, stage in MAIN_PATH_HALVES:
+        c, _, res = STAGES[stage]
+        g = torch.Generator().manual_seed(640 + 10 * b + stage)
+        x = _randn((b * (res // WINDOW) ** 2, N_TOKENS, c), g, dev, dtype=torch.bfloat16)
+        norm2 = _norm(c, g, dev)
+        fc1 = _linear(c, 4 * c, g, dev, torch.bfloat16)
+        fc2 = _linear(4 * c, c, g, dev, torch.bfloat16)
+        a = (x, norm2, fc1, fc2, 1e-5)
+        yield Case(
+            "swin_mlp_half", f"b{b} stage{stage} x{tuple(x.shape)} bfloat16",
+            lambda a=a: sbf.swin_mlp_half(*a),
+            lambda a=a: sbf.swin_mlp_half_reference(*a),
+            _one(TOL[torch.bfloat16]), args=a,
+            nbytes=2 * _nbytes(x) + _nbytes(*norm2, *fc1, *fc2),
+            flops=x.numel() * 16 * c, matmul=True,
+        )
 
 
 def window_transition_cases(dev) -> Iterator[Case]:

@@ -1,0 +1,123 @@
+"""The backbone's shared product alone (`csrc/fused_linear.cuh` through
+`csrc/linear.cu`), beside its plain version:
+
+    out = epilogue(prologue(gather(a)) @ w)
+
+with the gathers of `window_layout.cuh::map_row` (identity, the window
+transition, the 2x2 merge as four segments along K), the optional row
+LayerNorm prologue, and the epilogue's bias, exact-erf GELU, gathered
+residual and per-image scale, each rounded where B4, B5 and B8 round. The main
+path reaches the product only through those kernels' wrappers; this entry is
+for the card tests of the product's shapes and maps and for timing it beside
+a library product (`chip_smoke.py` phase 6).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .layernorm import layernorm_reference
+from .linear_plan import form_for
+from .swin_block_fused import _DTYPE_CODE, _P, Norm, _ptr, _ln_scratch, linear_reference
+from .window_layout import source_rows
+
+launches = 0  # kernel launches since the last reset (plain-version calls do not count)
+# (kind, res, window, delta): kind "transition" (a_map 1) or "merge" (a_map 3,
+# four segments along K, delta unused) over a res x res grid
+Gather = Tuple[str, int, int, int]
+_MAPS = {None: 0, "transition": 1, "merge": 3}
+
+
+def _gather_index(gather: Optional[Gather], m: int, segs: int):
+    """Per output row and segment, the source row the kernel reads."""
+    if gather is None:
+        return [torch.arange(m)]
+    kind, res, window, delta = gather
+    per_out = (res // 2) ** 2 if kind == "merge" else res * res
+    images = torch.arange(m // per_out)[:, None] * res * res
+    return [(images + torch.from_numpy(source_rows(kind, res, window, delta, seg))).reshape(-1)
+            for seg in range(segs)]
+
+
+def fused_linear_reference(
+    a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    norm: Optional[Norm] = None, *, m: Optional[int] = None, gather: Optional[Gather] = None,
+    gelu: bool = False, resid: Optional[torch.Tensor] = None,
+    resid_gather: Optional[Gather] = None, row_scale: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    segs = 4 if gather is not None and gather[0] == "merge" else 1
+    m = a.shape[0] if m is None else m
+    idx = _gather_index(gather, m, segs)
+    x = torch.cat([a[i.to(a.device)] for i in idx], dim=-1)
+    if norm is not None:
+        x = layernorm_reference(x, norm[0], norm[1], eps)
+    y = linear_reference(x, w, bias)
+    if gelu:
+        y = F.gelu(y.float()).to(y.dtype)  # exact erf, in fp32
+    if resid is not None:
+        r = resid[_gather_index(resid_gather, m, 1)[0].to(resid.device)]
+        s = 1.0 if row_scale is None else row_scale.repeat_interleave(m // row_scale.numel())[:, None]
+        y = (r.float() + s * y.float()).to(y.dtype)
+    return y
+
+
+def fused_linear(
+    a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    norm: Optional[Norm] = None, *, m: Optional[int] = None, gather: Optional[Gather] = None,
+    gelu: bool = False, resid: Optional[torch.Tensor] = None,
+    resid_gather: Optional[Gather] = None, row_scale: Optional[torch.Tensor] = None,
+    eps: float = 1e-5, form: Optional[int] = None,
+) -> torch.Tensor:
+    """The product on (m, N) output rows from the rows of a (rows, K / segs)
+    gathered by `gather` (None: row r of a) and w (K, N) in a's dtype; bias
+    and the LayerNorm parameters fp32; resid (rows, N) read at the row
+    `resid_gather` (None or a transition, on the geometry of `gather` where
+    both are given) puts each output row; row_scale fp32 (images,)
+    multiplying each image's rounded product before the residual add. CPU
+    tensors get the plain version; CUDA tensors get the kernel, in the tile
+    form of the launch plan unless `form` names one (a yardstick's way to
+    compare forms)."""
+    global launches
+    kw = dict(m=m, gather=gather, gelu=gelu, resid=resid, resid_gather=resid_gather,
+              row_scale=row_scale, eps=eps)
+    if a.device.type == "cpu":
+        return fused_linear_reference(a, w, bias, norm, **kw)
+    if a.device.type != "cuda" or a.dtype not in _DTYPE_CODE or w.dtype != a.dtype:
+        raise ValueError(f"fused_linear: unsupported operands {a.device} {a.dtype} / {w.dtype}")
+    kind = None if gather is None else gather[0]
+    rkind = None if resid_gather is None else resid_gather[0]
+    if (kind not in _MAPS or rkind not in (None, "transition")
+            or (kind is not None and rkind is not None and gather != resid_gather)):
+        raise ValueError(f"fused_linear: unsupported gathers {gather}, {resid_gather}")
+    segs = 4 if kind == "merge" else 1
+    m = a.shape[0] if m is None else m
+    k, n = w.shape
+    if a.shape[-1] * segs != k:
+        raise ValueError("fused_linear: a rows must be K / segs wide")
+    if form is None:
+        form = form_for(a, m, n, k, segs)  # raises outside the kernel's shapes
+    if norm is not None and any(t.dtype != torch.float32 or t.shape != (k,) for t in norm):
+        raise ValueError("fused_linear: LayerNorm parameters must be fp32 (K,)")
+    scale_rows = 1 if row_scale is None else m // row_scale.numel()
+    _build.check_cuda_tensors(*[t for t in (a, w, bias, *(norm or ()), resid, row_scale)
+                                if t is not None])
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    ln_rows = _ln_scratch(a, m, k) if norm is not None else None
+    res, window, delta = next((g[1:] for g in (gather, resid_gather) if g is not None),
+                              (0, 0, 0))
+    fn = _build.cuda_function(
+        "linear", "fused_linear_launch",
+        [_P] * 9 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P])
+    status = fn(
+        a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(norm and norm[0]), _ptr(norm and norm[1]),
+        _ptr(resid), _ptr(row_scale), _ptr(ln_rows), out.data_ptr(), m, n, k, segs, _MAPS[kind],
+        _MAPS[rkind], res, window, delta, scale_rows, int(gelu),
+        float(eps), form, _DTYPE_CODE[a.dtype], _build.current_stream())
+    _build.check_status(status, "fused_linear")
+    launches += 1
+    return out

@@ -23,9 +23,10 @@ import torch
 
 from . import _build
 from .layernorm import layernorm_reference
+from .linear_plan import form_for
 from .swin_block_fused import (
     _DTYPE_CODE, _P, Linear, Norm, _check_device, _check_linears, _check_norm, _flat, _ptr,
-    linear_reference,
+    _ln_scratch, linear_reference,
 )
 from .window_layout import window_partition, window_reverse
 
@@ -113,11 +114,12 @@ def downsample_fused(
     out = torch.empty((bw // 4, n, 2 * c), dtype=xw.dtype, device=xw.device)
     fn = _build.cuda_function(
         "stage_boundary", "downsample_launch",
-        [_P] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, _P],
+        [_P] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, _P, ctypes.c_int, _P],
     )
     status = fn(
         xw.data_ptr(), norm[0].data_ptr(), norm[1].data_ptr(), reduction.data_ptr(),
         out.data_ptr(), b, w_in * window, window, c, float(eps),
+        form_for(xw, bw * n // 4, 2 * c, 4 * c, 4), _ptr(_ln_scratch(xw, bw * n // 4, 4 * c)),
         _DTYPE_CODE[xw.dtype], _build.current_stream(),
     )
     _build.check_status(status, "downsample_fused")

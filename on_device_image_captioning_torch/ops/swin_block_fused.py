@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from . import _build
 from . import quant_matmul as qm
 from .layernorm import layernorm_reference
+from .linear_plan import form_for
 from .window_attention import HEAD_DIM
 from .window_layout import window_transition_perm
 
@@ -174,6 +175,25 @@ def _flat(operands):
     return [t for t in operands if t is not None]
 
 
+def _attn_forms(x: torch.Tensor, rows: int, c: int) -> Tuple[int, int]:
+    """The tile forms of B4's (and B10a's) qkv and proj products."""
+    return form_for(x, rows, 3 * c, c), form_for(x, rows, c, c)
+
+
+def _mlp_forms(x: torch.Tensor, rows: int, c: int, hidden: int) -> Tuple[int, int]:
+    """The tile forms of B5's (and B10b's) fc1 and fc2 products."""
+    return form_for(x, rows, hidden, c), form_for(x, rows, c, hidden)
+
+
+def _ln_scratch(x: torch.Tensor, rows: int, k: int) -> Optional[torch.Tensor]:
+    """(rows, k) scratch in x's dtype for the rows a bf16 product's LayerNorm
+    prologue writes and the product reads (the fp32 product normalizes its
+    rows in place)."""
+    if x.dtype == torch.float32:
+        return None
+    return torch.empty((rows, k), dtype=x.dtype, device=x.device)
+
+
 def _check_attention(name, x, qkv, proj, bias, mask, heads, transition):
     """What B4 and B6 share: weight shapes, head width, bias and mask, and the
     transition's geometry. Returns (num_windows, res, window, delta)."""
@@ -279,15 +299,16 @@ def swin_attn_half(
     out = torch.empty_like(x)
     fn = _build.cuda_function(
         "swin_attn_half", "swin_attn_half_launch",
-        [_P] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [_P],
+        [_P] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
+        + [_P, ctypes.c_int, _P],
     )
     status = fn(
         x.data_ptr(), norm1[0].data_ptr(), norm1[1].data_ptr(),
         qkv[0].data_ptr(), _ptr(qkv[1]), proj[0].data_ptr(), _ptr(proj[1]),
         bias.data_ptr(), _ptr(mask), qkv_buf.data_ptr(), attn_buf.data_ptr(), out.data_ptr(),
         bw, n, c, heads, num_windows, float(scale), float(eps),
-        int(transition is not None), res, window, delta, _DTYPE_CODE[x.dtype],
-        _build.current_stream(),
+        int(transition is not None), res, window, delta, *_attn_forms(x, bw * n, c),
+        _ptr(_ln_scratch(x, bw * n, c)), _DTYPE_CODE[x.dtype], _build.current_stream(),
     )
     _build.check_status(status, "swin_attn_half")
     attn_half_launches += 1
@@ -315,13 +336,15 @@ def swin_mlp_half(
     out = torch.empty_like(x)
     fn = _build.cuda_function(
         "swin_mlp_half", "swin_mlp_half_launch",
-        [_P] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P],
+        [_P] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
+        + [_P, ctypes.c_int, _P],
     )
     status = fn(
         x.data_ptr(), norm2[0].data_ptr(), norm2[1].data_ptr(),
         fc1[0].data_ptr(), _ptr(fc1[1]), fc2[0].data_ptr(), _ptr(fc2[1]),
         hidden_buf.data_ptr(), out.data_ptr(), rows, c, hidden, float(eps),
-        _DTYPE_CODE[x.dtype], _build.current_stream(),
+        *_mlp_forms(x, rows, c, hidden), _ptr(_ln_scratch(x, rows, c)), _DTYPE_CODE[x.dtype],
+        _build.current_stream(),
     )
     _build.check_status(status, "swin_mlp_half")
     mlp_half_launches += 1
@@ -735,14 +758,16 @@ def swin_attn_half_train_forward(
     out = torch.empty_like(x)
     fn = _build.cuda_function(
         "swin_attn_half", "swin_attn_half_train_launch",
-        [_P] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int, _P],
+        [_P] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+        + [_P, ctypes.c_int, _P],
     )
     status = fn(
         x.data_ptr(), norm1[0].data_ptr(), norm1[1].data_ptr(),
         qkv[0].data_ptr(), _ptr(qkv[1]), proj[0].data_ptr(), _ptr(proj[1]),
         bias.data_ptr(), _ptr(mask), m1.data_ptr(), qkv_buf.data_ptr(), attn_buf.data_ptr(),
         out.data_ptr(), bw, n, c, heads, num_windows, bw // b, float(scale), float(eps),
-        _DTYPE_CODE[x.dtype], _build.current_stream(),
+        *_attn_forms(x, bw * n, c), _ptr(_ln_scratch(x, bw * n, c)), _DTYPE_CODE[x.dtype],
+        _build.current_stream(),
     )
     _build.check_status(status, "swin_attn_half_train")
     attn_half_train_launches += 1
@@ -771,12 +796,14 @@ def swin_mlp_half_train_forward(
     out = torch.empty_like(x2)
     fn = _build.cuda_function(
         "swin_mlp_half", "swin_mlp_half_train_launch",
-        [_P] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, _P],
+        [_P] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2
+        + [_P, ctypes.c_int, _P],
     )
     status = fn(
         x2.data_ptr(), norm2[0].data_ptr(), norm2[1].data_ptr(),
         fc1[0].data_ptr(), _ptr(fc1[1]), fc2[0].data_ptr(), _ptr(fc2[1]), m2.data_ptr(),
         hidden_buf.data_ptr(), out.data_ptr(), rows, c, hidden, rows // b, float(eps),
+        *_mlp_forms(x2, rows, c, hidden), _ptr(_ln_scratch(x2, rows, c)),
         _DTYPE_CODE[x2.dtype], _build.current_stream(),
     )
     _build.check_status(status, "swin_mlp_half_train")
@@ -865,7 +892,7 @@ def swin_attn_bwd(
         dev, (c, 3 * c), (3 * c,), (c, c), (c,), (c,), (c,), (heads, n, n))
     fn = _build.cuda_function(
         "swin_attn_bwd", "swin_attn_bwd_launch",
-        [_P] * 26 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int, _P],
+        [_P] * 26 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [_P],
     )
     status = fn(
         x.data_ptr(), dx2.data_ptr(), norm1[0].data_ptr(), norm1[1].data_ptr(),
@@ -874,7 +901,8 @@ def swin_attn_bwd(
         dao.data_ptr(), dqkv.data_ptr(), _ptr(dqkv_t), dxn1.data_ptr(), dx.data_ptr(),
         dwqkv.data_ptr(), dbqkv.data_ptr(), dwproj.data_ptr(), dbproj.data_ptr(),
         dg1.data_ptr(), dbe1.data_ptr(), dbias.data_ptr(), bw, n, c, heads, num_windows,
-        bw // b, float(scale), float(eps), _DTYPE_CODE[cd], _build.current_stream(),
+        bw // b, float(scale), float(eps), form_for(xn1, rows, 3 * c, c), _DTYPE_CODE[cd],
+        _build.current_stream(),
     )
     _build.check_status(status, "swin_attn_bwd")
     attn_bwd_launches += 1

@@ -11,13 +11,16 @@ checks too: fp32 2e-5 abs + 1e-4 rel (summation order only); bf16 2e-2 abs +
 2e-2 rel (one bf16 ulp is 2^-8 relative); top-k values and indices exactly;
 the int8 product's int8 x exactly and its output within 1e-6 of its max; the
 int8 MLP half by int8 steps and rows (see `swin_mlp_half_a8_cases`); the
-decode-step kernels K2 and B16 also bit for bit from one launch to the next.
+decode-step kernels K2 and B16, and the shared bf16 product of B4, B5 and B8
+(alone, at ragged rows, stage 0's width, the merge and the transition), also
+bit for bit from one launch to the next.
 """
 import pytest
 import torch
 
 from on_device_image_captioning_torch.ops import _cases
 from on_device_image_captioning_torch.ops import dyn_exp_step as k2
+from on_device_image_captioning_torch.ops import fused_linear as fl
 from on_device_image_captioning_torch.ops import quant_matmul as qm
 from on_device_image_captioning_torch.ops import stage_boundary as sb
 from on_device_image_captioning_torch.ops import swin_block_fused as sbf
@@ -344,3 +347,104 @@ def test_decode_step_raises_outside_its_shapes(cuda):
         k2.dyn_exp_step(pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
                         src_v, dst_v)
     assert (k2.launches, k2.cross_launches) == before
+
+
+# -- the shared bf16 product of B4, B5 and B8 alone (ops/fused_linear.py) ----
+
+def _product_operands(cuda, rows, k, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda shape, scale=1.0: (torch.randn(shape, generator=g) * scale).to(cuda)  # noqa: E731
+    a = rn((rows, k)).to(torch.bfloat16)
+    w = rn((k, n), k ** -0.5).to(torch.bfloat16)
+    norm = (rn((k,), 0.2) + 1.0, rn((k,), 0.2))
+    return a, w, rn((n,), 0.2), norm
+
+
+def _hold_product(*args, **kw):
+    """The kernel against its plain version on the same CUDA tensors (bf16
+    tolerance of ops/_cases.py), and its launch counted once."""
+    before = fl.launches
+    got = fl.fused_linear(*args, **kw)
+    want = fl.fused_linear_reference(*args, **kw)
+    assert fl.launches == before + 1
+    abs_err, rel_err, ok = _cases.compare(got, want, _cases.TOL[torch.bfloat16])
+    assert ok, f"max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [577, 1153, 576 + 16])
+@pytest.mark.parametrize("k, n", [(768, 2304), (3072, 768), (96, 24)])
+def test_shared_product_at_ragged_rows(cuda, rows, k, n):
+    """Row counts that leave the last row tile partial (b1's stage 2 is 576
+    rows): LayerNorm prologue and GELU where K is the width, the residual
+    where it is 4 C; K 96 takes the form with slabs of 32, N 24 a partial
+    column tile."""
+    a, w, b, norm = _product_operands(cuda, rows, k, n, rows + k)
+    if k == 3072:
+        _hold_product(a, w, b, resid=_product_operands(cuda, rows, n, n, 1)[0])
+    else:
+        _hold_product(a, w, b, norm, gelu=True)
+
+
+@pytest.mark.cuda
+def test_shared_product_stage0_width_with_layernorm(cuda):
+    """Stage 0's K = 192 (three slabs) with the LayerNorm prologue, at b1's
+    9216 rows, qkv's N 576."""
+    a, w, b, norm = _product_operands(cuda, 9216, 192, 576, 192)
+    _hold_product(a, w, b, norm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, res", [(192, 96), (384, 48), (768, 24)])
+def test_shared_product_merges_four_segments(cuda, c, res):
+    """The downsample's product: output rows gathered as four rows of C side
+    by side along K (segs = 4) through the 2x2 merge, with the LayerNorm over
+    4 C."""
+    a, w, _, norm = _product_operands(cuda, 2 * res * res, c, 2 * c, c)
+    w = _product_operands(cuda, 1, 4 * c, 2 * c, c + 1)[1]
+    norm = _product_operands(cuda, 1, 4 * c, 1, c + 2)[3]
+    _hold_product(a, w, None, norm, m=2 * res * res // 4, gather=("merge", res, 12, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gathered", [False, True])
+def test_shared_product_residual_through_transition_with_row_scale(cuda, gathered):
+    """B4's proj epilogue: the residual read where the window transition
+    0 -> 6 puts each row (stage 2 at b2), each image's rounded product scaled
+    first (the training forwards' stochastic depth); with gathered=True the
+    A rows go through the same transition (a gathered product without the
+    LayerNorm)."""
+    res, rows = 24, 2 * 24 * 24
+    a, w, b, _ = _product_operands(cuda, rows, 768, 768, 24)
+    x = _product_operands(cuda, rows, 768, 8, 25)[0]
+    scale = torch.tensor([0.0, 1.25], device=cuda)
+    trans = ("transition", res, 12, 6)
+    _hold_product(a, w, b, gather=trans if gathered else None, resid=x, resid_gather=trans,
+                  row_scale=scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, k, n", [(4608, 768, 2304), (576, 3072, 768), (577, 96, 24)])
+def test_shared_product_launches_repeat_bit_for_bit(cuda, rows, k, n):
+    """K is never split, and each output value is one CTA's fixed-order sum:
+    two launches on the same operands agree bit for bit (every form the
+    plan picks at these shapes)."""
+    a, w, b, norm = _product_operands(cuda, rows, k, n, 7)
+    first = fl.fused_linear(a, w, b, norm, gelu=True)
+    assert torch.equal(first, fl.fused_linear(a, w, b, norm, gelu=True))
+
+
+@pytest.mark.cuda
+def test_shared_product_raises_outside_its_shapes(cuda):
+    """On the card the product launches or raises: N a multiple of 8, K /
+    segs of 32, weights in the activations' dtype."""
+    a, w, b, _ = _product_operands(cuda, 64, 96, 24, 3)
+    before = fl.launches
+    with pytest.raises(ValueError):
+        fl.fused_linear(a, w[:, :20].contiguous(), b[:20])
+    with pytest.raises(ValueError):
+        fl.fused_linear(a[:, :80].contiguous(), w[:80].contiguous(), b)
+    with pytest.raises(ValueError):
+        fl.fused_linear(a, w.float(), b)
+    assert fl.launches == before
