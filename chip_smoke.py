@@ -2,9 +2,9 @@
 """Smoke test of the PyTorch port (`on_device_image_captioning_torch`) on one
 NVIDIA card: the quickest proof that the port builds, is right and runs.
 
-    python3 chip_smoke.py [kernel ...]
+    python3 chip_smoke.py [[kernel] name ...]
 
-With kernel names (keys of KERNELS, e.g. `swin_attn_bwd swin_mlp_bwd`) only
+With kernel names (keys of KERNELS, e.g. `kernel swin_attn_bwd swin_mlp_bwd`) only
 phases 1-3 and the kernels' part of phase 6 run, for those kernels, and no
 result line is printed: the quick check while working on a kernel.
 
@@ -80,7 +80,10 @@ Phases, in order (any failure raises and exits non-zero before the result):
    the same reading between two checkouts).
 6. Times: each kernel against its plain version, its bound (the least time
    the card could take, from the case's bytes and operations) and, where one
-   PyTorch call computes the same function, that call (CUDA events); B12 as
+   PyTorch call computes the same function, that call (CUDA events); B6
+   against B4 + B5 at each main-path shape of stages 0 and 1 (ops/_cases.py
+   MAIN_PATH_BLOCKS; the kernels line lists each kernel's main-path cases);
+   B12 as
    the whole call and as its product alone on the int8 x; the shared bf16
    product of B4, B5 and B8 alone at the four stage-2 products of a b8
    encode, beside `F.linear` on the same tensors (a yardstick); encode
@@ -96,6 +99,7 @@ The next-to-last line is {"kernels": [...]} and the last line is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -264,6 +268,7 @@ class Smoke:
         self.card = ""
         self.errors = {k: 0.0 for k in KERNELS}
         self.times = {}
+        self.case_times = {}  # kernel -> the device times of its main-path cases (phase 6)
         self.launches = {}  # run -> kernel -> launches in that main-path run
         self.serve = {}  # run -> bf16 Captioner at b8 / beam 3 / L20
         self.trainer = None  # (cfg, model, optimizer, step, batch, generator) of the training run
@@ -1228,6 +1233,10 @@ class Smoke:
                         BF16_FLOPS if case.matmul and "bfloat16" in case.label else FP32_FLOPS)
                 by_bytes, by_ops = 1e3 * case.nbytes / HBM_BYTES_S, 1e3 * case.flops / peak
                 bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
+                if re.match(r"b\d+ stage\d ", case.label):  # a main-path shape of its own
+                    self.case_times.setdefault(case.kernel, []).append(dict(
+                        label=case.label, device_ms=device_ms, ms=ms, bound_ms=bound_ms,
+                        bound_by=bound_by))
                 if case.label == KERNELS[case.kernel]["headline"]:
                     self.times[case.kernel] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1242,6 +1251,25 @@ class Smoke:
                     f"plain {plain_ms:.4f} ms, "
                     f"bound {bound_ms:.5f} ms by {bound_by} ({case.nbytes} B, {case.flops} flop), "
                     f"library {lib} | {self.card}")
+        self.block_against_halves()
+
+    def block_against_halves(self):
+        """B6 against the two halves it replaces (B4 + B5) at each main-path
+        shape both have cases at, device ms from the same call."""
+        def at(kernel, b, stage):
+            return next((t["device_ms"] for t in self.case_times.get(kernel, [])
+                         if t["label"].startswith(f"b{b} stage{stage} ")), None)
+
+        from on_device_image_captioning_torch.ops import _cases
+
+        for b, stage in _cases.MAIN_PATH_BLOCKS:
+            block = at("swin_block", b, stage)
+            halves = [at(k, b, stage) for k in ("swin_attn_half", "swin_mlp_half")]
+            if block is None or None in halves:
+                continue
+            log(f"  B6 against B4 + B5 at b{b} stage{stage}, device ms: {block:.4f} against "
+                f"{halves[0]:.4f} + {halves[1]:.4f} = {sum(halves):.4f} "
+                f"({'faster' if block < sum(halves) else 'slower'}) | {self.card}")
 
     def path_timing(self):
         torch = self.torch
@@ -1330,6 +1358,8 @@ def main(names) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
+    if names[:1] == ["kernel"]:  # `chip_smoke.py kernel swin_block ...`
+        names = names[1:]
     unknown = [n for n in names if n not in KERNELS]
     if unknown:
         print(f"chip_smoke: no kernel named {unknown}; there are {list(KERNELS)}", file=sys.stderr)
@@ -1360,7 +1390,7 @@ def main(names) -> int:
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"], "launches": by_path[k["paths"][0]],
             "max_abs_err": smoke.errors[name], **smoke.times[name],
-            "launches_by_path": by_path,
+            "launches_by_path": by_path, "main_path_cases": smoke.case_times.get(name, []),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -324,6 +324,31 @@ def swin_block_cases(dev) -> Iterator[Case]:
                     + _nbytes(*norm1, *qkv, *proj, *norm2, *fc1, *fc2, bias, m),
                     flops=bw * N_TOKENS * (24 * c * c + 4 * N_TOKENS * c), matmul=True,
                 )
+    # the main path's own shapes (MAIN_PATH_BLOCKS), bf16 with the mask and the
+    # transition 0 -> 6: stages 0 and 1 at b8 (serve) and b1 (latency)
+    for b, stage in MAIN_PATH_BLOCKS:
+        c, heads, res = STAGES[stage]
+        g = torch.Generator().manual_seed(1240 + 10 * b + stage)
+        bw, dt = b * (res // WINDOW) ** 2, torch.bfloat16
+        x = _randn((bw, N_TOKENS, c), g, dev, dtype=dt)
+        norm1, qkv, proj = _norm(c, g, dev), _linear(c, 3 * c, g, dev, dt), _linear(c, c, g, dev, dt)
+        norm2, fc1, fc2 = _norm(c, g, dev), _linear(c, 4 * c, g, dev, dt), _linear(4 * c, c, g, dev, dt)
+        bias = _randn((heads, N_TOKENS, N_TOKENS), g, dev, scale=0.5)
+        mask = torch.from_numpy(shift_attn_mask(res, WINDOW, SHIFT)).to(dev)
+        a = (x, norm1, qkv, proj, norm2, fc1, fc2, bias, mask, heads, k1.HEAD_DIM**-0.5, 1e-5,
+             (res, 0, SHIFT))
+        yield Case(
+            "swin_block", f"b{b} stage{stage} x{tuple(x.shape)} mask trans0to6 bfloat16",
+            lambda a=a: sbf.swin_block(*a),
+            lambda a=a: sbf.swin_block_reference(*a),
+            _one(TOL[dt]), args=a,
+            nbytes=2 * _nbytes(x) + _nbytes(*norm1, *qkv, *proj, *norm2, *fc1, *fc2, bias, mask),
+            flops=bw * N_TOKENS * (24 * c * c + 4 * N_TOKENS * c), matmul=True,
+        )
+
+
+# (batch, stage) of the main path's whole-block shapes with cases of their own
+MAIN_PATH_BLOCKS = [(8, 0), (8, 1), (1, 0), (1, 1)]
 
 
 def swin_attn_half_cases(dev) -> Iterator[Case]:
@@ -376,7 +401,8 @@ def swin_attn_half_cases(dev) -> Iterator[Case]:
 
 
 # (batch, stage) of the main path's half-block shapes with cases of their own
-MAIN_PATH_HALVES = [(8, 2), (1, 2), (8, 0)]
+# (stages 0 and 1: the halves' side of the comparison with B6)
+MAIN_PATH_HALVES = [(8, 2), (1, 2), (8, 0), (8, 1), (1, 0), (1, 1)]
 
 
 def swin_mlp_half_cases(dev) -> Iterator[Case]:
@@ -482,9 +508,11 @@ GRAD_TOL = {torch.float32: _rel_to_max(2e-5), torch.bfloat16: _rel_to_max(2e-2)}
 
 
 def _scales(b, dev, zero_at):
-    """(B,) fp32 stochastic-depth scales: 1 / keep with one image dropped."""
+    """(B,) fp32 stochastic-depth scales: 1 / keep with image zero_at dropped
+    (none where the batch has no such image)."""
     m = torch.full((b,), 1.0 / 0.9)
-    m[zero_at] = 0.0
+    if zero_at < b:
+        m[zero_at] = 0.0
     return m.to(dev)
 
 
@@ -494,10 +522,10 @@ def _named(names, tol_of):
     return checks
 
 
-def _block_operands(stage, seed, dev, dt):
+def _block_operands(stage, seed, dev, dt, b=2):
     c, heads, res = STAGES[stage]
     g = torch.Generator().manual_seed(seed + stage)
-    bw = 2 * (res // WINDOW) ** 2
+    bw = b * (res // WINDOW) ** 2
     x = _randn((bw, N_TOKENS, c), g, dev, dtype=dt)
     dy = _randn((bw, N_TOKENS, c), g, dev, dtype=dt)
     ops = dict(
@@ -505,7 +533,7 @@ def _block_operands(stage, seed, dev, dt):
         norm2=_norm(c, g, dev), fc1=_linear(c, 4 * c, g, dev, dt), fc2=_linear(4 * c, c, g, dev, dt),
         bias=_randn((heads, N_TOKENS, N_TOKENS), g, dev, scale=0.5),
         mask=torch.from_numpy(shift_attn_mask(res, WINDOW, SHIFT)).to(dev),
-        m1=_scales(2, dev, 1), m2=_scales(2, dev, 0),
+        m1=_scales(b, dev, 1), m2=_scales(b, dev, 0),
     )
     return x, dy, ops, heads, k1.HEAD_DIM**-0.5
 
@@ -532,6 +560,22 @@ def swin_block_train_cases(dev) -> Iterator[Case]:
                         o["bias"], m, o["m1"], o["m2"]),
                     flops=x.shape[0] * N_TOKENS * (24 * c * c + 4 * N_TOKENS * c), matmul=True,
                 )
+    # the XE step's own batch (b4), stages 0 and 1, bf16 with the mask
+    for stage in (0, 1):
+        x, _, o, heads, scale = _block_operands(stage, 1240, dev, torch.bfloat16, b=4)
+        c = x.shape[-1]
+        a = (x, o["norm1"], o["qkv"], o["proj"], o["norm2"], o["fc1"], o["fc2"], o["bias"],
+             o["mask"], o["m1"], o["m2"], heads, scale, 1e-5)
+        yield Case(
+            "swin_block_train", f"b4 stage{stage} x{tuple(x.shape)} mask bfloat16",
+            lambda a=a: sbf.swin_block_train_forward(*a),
+            lambda a=a: sbf.swin_block_train_reference(*a),
+            _named(("y", "x2"), lambda w_: TOL[torch.bfloat16]), args=a,
+            nbytes=3 * _nbytes(x) + _nbytes(
+                *o["norm1"], *o["qkv"], *o["proj"], *o["norm2"], *o["fc1"], *o["fc2"],
+                o["bias"], o["mask"], o["m1"], o["m2"]),
+            flops=x.shape[0] * N_TOKENS * (24 * c * c + 4 * N_TOKENS * c), matmul=True,
+        )
 
 
 def swin_attn_half_train_cases(dev) -> Iterator[Case]:

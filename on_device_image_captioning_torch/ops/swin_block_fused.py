@@ -30,6 +30,7 @@ Bounds, designs and launch counts per width: the header of each `.cu`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 
 from . import _build
 from . import quant_matmul as qm
+from .block_plan import BlockPlan, plan_for
 from .layernorm import layernorm_reference
 from .linear_plan import form_for
 from .window_attention import HEAD_DIM
@@ -223,6 +225,23 @@ BLOCK_TOKENS = 144  # the window B6 is built for
 BLOCK_WIDTHS = (192, 384)  # and its widths (Swin-L stages 0 and 1)
 
 
+@functools.lru_cache(maxsize=1024)
+def _plan_ints(plan: BlockPlan):
+    """The plan as the C launcher reads it: an int array, made once a plan
+    (a wrapper passes it at every launch)."""
+    ints = plan.as_ints()
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+def _block_launch_plan(x: torch.Tensor, heads: int, hidden: int):
+    """(the plan's int array, the attention scratch) of a B6 / B9a launch on
+    x: the bf16 form's attention output passes between a cluster's CTAs
+    through a (bw, 144, c) scratch in L2."""
+    plan = plan_for(x, heads, hidden)
+    attn = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
+    return _plan_ints(plan), attn
+
+
 def swin_block(
     x: torch.Tensor, norm1: Norm, qkv: Linear, proj: Linear, norm2: Norm, fc1: Linear,
     fc2: Linear, bias: torch.Tensor, mask: Optional[torch.Tensor], heads: int, scale: float,
@@ -232,7 +251,8 @@ def swin_block(
     attention half (see `swin_attn_half`, transition included) and the MLP
     half in one pass. CPU tensors get the plain version; CUDA tensors get
     kernel B6, which is built for windows of 144 tokens, heads of 32 and
-    C = 192 or 384, and raises on anything else."""
+    C = 192 or 384, and raises on anything else; its clusters of CTAs a window
+    are laid out by `ops/block_plan.py::block_plan`."""
     global block_launches
     if not _check_device(x, "swin_block"):
         return swin_block_reference(
@@ -254,9 +274,11 @@ def swin_block(
     _build.check_cuda_tensors(
         *_flat([x, *norm1, *qkv, *proj, *norm2, *fc1, *fc2, bias, mask]))
     out = torch.empty_like(x)
+    plan, attn = _block_launch_plan(x, heads, hidden)
     fn = _build.cuda_function(
         "swin_block", "swin_block_launch",
-        [_P] * 16 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [_P],
+        [_P] * 16 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int, _P],
     )
     status = fn(
         x.data_ptr(), norm1[0].data_ptr(), norm1[1].data_ptr(),
@@ -265,8 +287,8 @@ def swin_block(
         fc1[0].data_ptr(), _ptr(fc1[1]), fc2[0].data_ptr(), _ptr(fc2[1]),
         bias.data_ptr(), _ptr(mask), out.data_ptr(),
         bw, n, c, heads, hidden, num_windows, float(scale), float(eps),
-        int(transition is not None), res, window, delta, _DTYPE_CODE[x.dtype],
-        _build.current_stream(),
+        int(transition is not None), res, window, delta, plan, _ptr(attn),
+        _DTYPE_CODE[x.dtype], _build.current_stream(),
     )
     _build.check_status(status, "swin_block")
     block_launches += 1
@@ -716,9 +738,11 @@ def swin_block_train_forward(
     _build.check_cuda_tensors(
         *_flat([x, *norm1, *qkv, *proj, *norm2, *fc1, *fc2, bias, mask, m1, m2]))
     out, x2 = torch.empty_like(x), torch.empty_like(x)
+    plan, attn = _block_launch_plan(x, heads, hidden)
     fn = _build.cuda_function(
         "swin_block", "swin_block_train_launch",
-        [_P] * 19 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int, _P],
+        [_P] * 19 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+        + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int, _P],
     )
     status = fn(
         x.data_ptr(), norm1[0].data_ptr(), norm1[1].data_ptr(),
@@ -727,7 +751,8 @@ def swin_block_train_forward(
         fc1[0].data_ptr(), _ptr(fc1[1]), fc2[0].data_ptr(), _ptr(fc2[1]),
         bias.data_ptr(), _ptr(mask), m1.data_ptr(), m2.data_ptr(), x2.data_ptr(),
         out.data_ptr(), bw, n, c, heads, hidden, num_windows, bw // b,
-        float(scale), float(eps), _DTYPE_CODE[x.dtype], _build.current_stream(),
+        float(scale), float(eps), plan, _ptr(attn), _DTYPE_CODE[x.dtype],
+        _build.current_stream(),
     )
     _build.check_status(status, "swin_block_train")
     block_train_launches += 1

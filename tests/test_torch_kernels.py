@@ -11,9 +11,9 @@ checks too: fp32 2e-5 abs + 1e-4 rel (summation order only); bf16 2e-2 abs +
 2e-2 rel (one bf16 ulp is 2^-8 relative); top-k values and indices exactly;
 the int8 product's int8 x exactly and its output within 1e-6 of its max; the
 int8 MLP half by int8 steps and rows (see `swin_mlp_half_a8_cases`); the
-decode-step kernels K2 and B16, and the shared bf16 product of B4, B5 and B8
-(alone, at ragged rows, stage 0's width, the merge and the transition), also
-bit for bit from one launch to the next.
+decode-step kernels K2 and B16, the whole-block kernels B6 and B9a, and the
+shared bf16 product of B4, B5 and B8 (alone, at ragged rows, stage 0's width,
+the merge and the transition), also bit for bit from one launch to the next.
 """
 import pytest
 import torch
@@ -124,6 +124,37 @@ def test_swin_block_raises_outside_its_shapes(cuda):
     with pytest.raises(ValueError, match="weights must be"):
         block(torch.randn((4, 144, 192), device=cuda).bfloat16(), 192, 6)
     assert sbf.block_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, stage", [(1, 1), (8, 0)])
+def test_whole_block_launches_repeat_bit_for_bit(cuda, b, stage):
+    """B6 and B9a add fc2's partial sums over the cluster in rank order (no
+    floating-point atomics): two launches on the same inputs give the same
+    bits, at b1 stage 1 (8 CTAs a window) and b8 stage 0 (3)."""
+    case = next(c for c in _cases.swin_block_cases(cuda)
+                if c.label.startswith(f"b{b} stage{stage} "))
+    first = case.run_kernel().clone()
+    assert torch.equal(first, case.run_kernel())
+    x, _, o, heads, scale = _cases._block_operands(stage, 1260, cuda, torch.bfloat16, b=b)
+    a = (x, o["norm1"], o["qkv"], o["proj"], o["norm2"], o["fc1"], o["fc2"], o["bias"],
+         o["mask"], o["m1"], o["m2"], heads, scale, 1e-5)
+    first = [t.clone() for t in sbf.swin_block_train_forward(*a)]
+    again = sbf.swin_block_train_forward(*a)
+    torch.cuda.synchronize()
+    assert all(torch.equal(f, g) for f, g in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_block_plan_cluster_slots_are_the_cards(cuda):
+    """ops/block_plan.py's CLUSTER_SLOTS is what the card reports for B6's
+    clusters (checked on a 132-SM card, the one the table was read on)."""
+    from on_device_image_captioning_torch.ops import block_plan as bp
+
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != bp.H100_SMS:
+        pytest.skip("CLUSTER_SLOTS was read on a 132-SM H100")
+    got = {k: bp.card_cluster_slots(384, k, 200000) for k in bp.CLUSTER_SLOTS}
+    assert got == bp.CLUSTER_SLOTS
 
 
 @pytest.mark.cuda
