@@ -86,7 +86,10 @@ Phases, in order (any failure raises and exits non-zero before the result):
    B12 as
    the whole call and as its product alone on the int8 x; the shared bf16
    product of B4, B5 and B8 alone at the four stage-2 products of a b8
-   encode, beside `F.linear` on the same tensors (a yardstick); encode
+   encode, beside `F.linear` on the same tensors (a yardstick); the
+   training backwards' product alone at the nine products of B9c and B9b
+   at the XE step's b4 shapes of stages 0-2, beside `torch.matmul` (a
+   yardstick), and the CUDA launches in one call of B9c and of B9b; encode
    ms of the three backbone forms; decode ms per step of both step paths;
    end-to-end img/s at b8/beam 3/L20 and p50 latency at b1/beam 5/L74, bf16,
    on the default path; encode ms of the w8a8 model against the "fused"
@@ -1088,7 +1091,8 @@ class Smoke:
             return "; ".join(f"{g} (tol {tols[g]:g}) {v:.3f} at {n}" for g, (v, n) in worst.items())
 
         # fp32 on both sides through 8 blocks and 6 caption layers, forward and
-        # backward: the sums run in another order (atomic adds on the card). Each
+        # backward: the sums run in another order (chunks, then the chunks'
+        # partials in order, on the card). Each
         # gradient is held relative to its own largest magnitude, plus a tenth
         # of that relative to the largest gradient of the model for the tensors
         # that are zero in exact arithmetic (the k bias under the softmax, a
@@ -1210,6 +1214,70 @@ class Smoke:
             tflops = 2 * m * n * k / 1e9
             log(f"  {name} ({m}, {k}) -> {n}: {fmt(ms)} ({tflops / ms:.0f} TFLOP/s; tile "
                 f"{plan.tile}, {plan.ctas} CTAs), F.linear {fmt(lib)} ({tflops / lib:.0f} TFLOP/s) "
+                f"| {self.card}")
+
+    def grad_product_timing(self):
+        """The training backwards' product alone at the XE step's b4 shapes of
+        stages 0-2 (B9c's five products and B9b's four, each in the launch
+        plan's tile form and split, partials summed, each output in the type
+        the path keeps: dxn fp32, the weight gradients fp32, the rest bf16;
+        B9c runs fc1 and dh1 as one fused launch, timed here as two), beside
+        `torch.matmul` on the same bf16 operands (a yardstick only: the port
+        never calls it; its outputs are bf16); device ms by CUDA-graph replay."""
+        torch = self.torch
+        from on_device_image_captioning_torch.ops import fused_linear as fl
+        from on_device_image_captioning_torch.ops import linear_plan as lp
+
+        g = torch.Generator().manual_seed(SEED + 10)
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        log(f"phase 6 the backward product alone at the XE step's b{B_TRAIN} shapes, device ms "
+            f"by CUDA-graph replay, beside torch.matmul on the same operands ({self.card})")
+        self.grad_tflops = {}
+        for stage, (c, res) in enumerate(((192, 96), (384, 48), (768, 24))):
+            r = B_TRAIN * res * res
+            flops = ms_sum = lib_sum = 0.0
+            for name, m, n, k, layout, rounded in (
+                    ("fc1 recompute x.W1", r, 4 * c, c, "xw", True),
+                    ("dh1 dmlp.W2^T", r, 4 * c, c, "dywt", True),
+                    ("dxn2 dh1.W1^T", r, c, 4 * c, "dywt", False),
+                    ("dW1 xn2^T.dh1", c, 4 * c, r, "atb", False),
+                    ("dW2 g^T.dmlp", 4 * c, c, r, "atb", False),
+                    ("dao dproj.Wproj^T", r, c, c, "dywt", True),
+                    ("dxn1 dqkv.Wqkv^T", r, c, 3 * c, "dywt", False),
+                    ("dWproj attn^T.dproj", c, c, r, "atb", False),
+                    ("dWqkv xn1^T.dqkv", c, 3 * c, r, "atb", False)):
+                shapes = {"xw": ((m, k), (k, n)), "dywt": ((m, k), (n, k)),
+                          "atb": ((k, m), (k, n))}[layout]
+                a, b = ((torch.randn(sh, generator=g)).to(self.dev, torch.bfloat16)
+                        for sh in shapes)
+                ms = self.graph_time(lambda: fl.grad_product(a, b, layout, rounded=rounded))
+                x = a.t() if layout == "atb" else a
+                y = b.t() if layout == "dywt" else b
+                lib = self.graph_time(lambda: torch.matmul(x, y))
+                plan = lp.grad_plan(m, n, k, layout, 2, sms)
+                tf = 2 * m * n * k / 1e9
+                flops, ms_sum, lib_sum = flops + tf, ms_sum + ms, lib_sum + lib
+                log(f"  stage{stage} {name} ({m} x {n}, K {k}, {layout}, "
+                    f"{'bf16' if rounded else 'fp32'} out): {fmt(ms)} ({tf / ms:.0f} TFLOP/s; "
+                    f"tile {plan.tile}, {plan.splits} chunks, {plan.ctas} CTAs), torch.matmul "
+                    f"{fmt(lib)} ({tf / lib:.0f} TFLOP/s) | {self.card}")
+            self.grad_tflops[stage] = flops / ms_sum
+            log(f"  stage{stage} all nine: {ms_sum:.4f} ms ({flops / ms_sum:.0f} TFLOP/s), "
+                f"torch.matmul {lib_sum:.4f} ms ({flops / lib_sum:.0f} TFLOP/s) | {self.card}")
+
+    def backward_launches(self):
+        """CUDA launches (kernels, copies, fills) in one call of B9c and of
+        B9b at their table shapes, from one profiled call."""
+        from on_device_image_captioning_torch.cli.breakdown import device_profile
+        from on_device_image_captioning_torch.ops import _cases
+
+        for name in ("swin_mlp_bwd", "swin_attn_bwd"):
+            case = next(c for c in _cases.CASES[name](self.dev)
+                        if c.label == KERNELS[name]["headline"])
+            case.run_kernel()
+            prof = device_profile(case.run_kernel)
+            log(f"  {name} {case.label}: {prof['launches']} CUDA launches per call "
+                f"({', '.join(f'{t['name'][:48]} x{t['calls']}' for t in prof['top'])}) "
                 f"| {self.card}")
 
     def kernel_timing(self, names=None):
@@ -1370,6 +1438,9 @@ def main(names) -> int:
     if names:
         smoke.kernels(names)
         smoke.kernel_timing(names)
+        if {"swin_mlp_bwd", "swin_attn_bwd"} & set(names):
+            smoke.grad_product_timing()
+            smoke.backward_launches()
         log(f"checked and timed {names} only: no result")
         return 0
     smoke.kernels()
@@ -1381,6 +1452,8 @@ def main(names) -> int:
     smoke.train_check()
     smoke.kernel_timing()
     smoke.product_timing()
+    smoke.grad_product_timing()
+    smoke.backward_launches()
     smoke.path_timing()
     smoke.train_timing()
     kernels = []

@@ -1,6 +1,6 @@
 """The backbone's shared bf16 product alone in every tile form, on one card.
 
-    python -m on_device_image_captioning_torch.cli.product_forms [--out FILE]
+    python -m on_device_image_captioning_torch.cli.product_forms [--backward] [--out FILE]
 
 At the main path's products (qkv, proj, fc1, fc2 of stage 2 at b8 and b1 and
 of stage 0 at b8, each with its own epilogue: the LayerNorm prologue on qkv
@@ -9,6 +9,12 @@ and fc1, GELU on fc1, the residual on proj and fc2), the product
 the plan picks, and `F.linear` on the same tensors as a yardstick: device ms
 by CUDA-graph replay (20 calls, replayed three times). These are the readings
 the plan's model is held to. The last line is one JSON object.
+
+With --backward the same for the training backwards' product
+(`ops/fused_linear.py::grad_product`) at the XE step's b4 shapes of stages
+0-2: B9c's dxn2, dW1, dW2 and B9b's dao, dxn1, dWproj, dWqkv, each in every
+form of `ops/linear_plan.py::GRAD_FORMS` its layout takes (each with its own
+split), the form the plan picks, and `torch.matmul` on the same operands.
 """
 from __future__ import annotations
 
@@ -51,6 +57,8 @@ def graph_ms(fn, iters: int = 20) -> float:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=str, default=None)
+    parser.add_argument("--backward", action="store_true",
+                        help="the training backwards' product at the XE step's b4 shapes")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("product_forms: needs a CUDA card")
@@ -59,6 +67,8 @@ def main(argv=None) -> dict:
     g = torch.Generator().manual_seed(0)
     rn = lambda shape, scale=1.0, dt=torch.float32: (  # noqa: E731
         torch.randn(shape, generator=g) * scale).to(dev, dt)
+    if args.backward:
+        return _write(backward_forms(card, dev, sms, rn), args.out)
     rows_out = []
     for label, m, c in SHAPES:
         x, h = rn((m, c), dt=torch.bfloat16), rn((m, 4 * c), dt=torch.bfloat16)
@@ -82,14 +92,48 @@ def main(argv=None) -> dict:
                   + f"; F.linear {lib:.4f} ms ({tf / lib:.0f} TFLOP/s) | {card}", flush=True)
             rows_out.append({"shape": label, "product": name, "m": m, "n": n, "k": k,
                              "form_ms": ms, "plan": plan, "f_linear_ms": lib})
-    result = {"card": card, "forms": [list(map(int, (f.bm, f.bn, f.bk, f.stages, f.ctas)))
-                                      for f in lp.FORMS], "products": rows_out}
+    return _write({"card": card, "forms": [list(map(int, (f.bm, f.bn, f.bk, f.stages, f.ctas)))
+                                           for f in lp.FORMS], "products": rows_out}, args.out)
+
+
+def _write(result: dict, out) -> dict:
     line = json.dumps(result)
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             f.write(line + "\n")
     print(line, flush=True)
     return result
+
+
+def backward_forms(card: str, dev, sms: int, rn) -> dict:
+    """The backward product in every form at the XE step's b4 shapes."""
+    rows_out = []
+    for stage, (c, res) in enumerate(((192, 96), (384, 48), (768, 24))):
+        r = 4 * res * res
+        for name, m, n, k, layout in (("dxn2", r, c, 4 * c, "dywt"), ("dW1", c, 4 * c, r, "atb"),
+                                      ("dW2", 4 * c, c, r, "atb"), ("dao", r, c, c, "dywt"),
+                                      ("dxn1", r, c, 3 * c, "dywt"), ("dWproj", c, c, r, "atb"),
+                                      ("dWqkv", c, 3 * c, r, "atb")):
+            shapes = {"dywt": ((m, k), (n, k)), "atb": ((k, m), (k, n))}[layout]
+            a, b = (rn(sh, dt=torch.bfloat16) for sh in shapes)
+            ms = {}
+            for f, form in enumerate(lp.GRAD_FORMS):
+                if layout == "dywt" or form.bn % 64 == 0:  # an MN-major B in 64-column blocks
+                    ms[f] = graph_ms(lambda f=f: fl.grad_product(a, b, layout, form=f))
+            x = a.t() if layout == "atb" else a
+            y = b.t() if layout == "dywt" else b
+            lib = graph_ms(lambda: torch.matmul(x, y))
+            plan = lp.grad_plan(m, n, k, layout, 2, sms).form
+            tf = 2 * m * n * k / 1e9
+            print(f"b4 stage{stage} {name} ({m} x {n}, K {k}, {layout}): "
+                  + ", ".join(f"form {f}{'*' if f == plan else ''} {t:.4f} ms "
+                              f"({tf / t:.0f} TFLOP/s)" for f, t in ms.items())
+                  + f"; torch.matmul {lib:.4f} ms ({tf / lib:.0f} TFLOP/s) | {card}", flush=True)
+            rows_out.append({"shape": f"b4 stage{stage}", "product": name, "m": m, "n": n,
+                             "k": k, "layout": layout, "form_ms": ms, "plan": plan,
+                             "matmul_ms": lib})
+    return {"card": card, "forms": [list(map(int, (f.bm, f.bn, f.bk, f.stages, f.ctas)))
+                                    for f in lp.GRAD_FORMS], "products": rows_out}
 
 
 if __name__ == "__main__":

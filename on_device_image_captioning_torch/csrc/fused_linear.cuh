@@ -21,7 +21,8 @@
 // Every rounding sits where the TPU kernels round (`_ln`, `_linear`,
 // `_gelu_exact(...).astype`), so bf16 results agree with them to a bf16 ulp.
 //
-// Two kernels compute it, with the same gather and epilogue:
+// Two kernels compute it, with the same gather and epilogue (the training
+// backwards' product, at the end of this file, shares the second one's ring):
 //
 // fused_linear_kernel (fp32, and the patch embed in either type): 256 threads
 //   as 16 x 16; a thread owns rows ty + 16 i and columns tx + 16 j of a
@@ -50,8 +51,6 @@
 //   sum in a fixed order, so two launches agree bit for bit.
 // See each .cu for what bounds it.
 #pragma once
-
-#include <mma.h>  // nvcuda::wmma, the backward's product
 
 #include <cstdint>
 #include <type_traits>
@@ -627,46 +626,61 @@ static cudaError_t launch_linear_rows(const LinearArgs& p, cudaStream_t s) {
   return launch_linear<T, 2, 12, true>(p, s);
 }
 
+
 // ---------------------------------------------------------------------------
 // The products of the training backwards. The TPU backward kernels
 // (ops/swin_block_fused.py `_mlp_bwd_kernel`, `_attn_bwd_kernel`) form, beside
 // x @ W, the two shapes a forward never needs:
 //   dY @ W^T   contract over the OUTPUT width of W (the input gradients), and
-//   A^T @ B    reduced over the rows (the weight gradients, fp32 sums).
-// One kernel serves all three: operands are addressed by strides,
-//   A(m, k) = a[m * sam + k * sak]     B(k, n) = b[k * sbk + n * sbn],
-// so a transpose is a swap of two strides. Products of the stored values are
-// summed in fp32 (fp32 inputs on the CUDA cores as full fp32, bf16 inputs on
-// the tensor cores), as `preferred_element_type=float32` does there.
+//   X^T @ dY   reduced over the rows (the weight gradients, fp32 sums).
+// One product serves all three, in three operand layouts (GradLayout), each
+// operand a row-major matrix in memory with row stride lda / ldb:
+//   kXW    A (M, K) K-major, B (K, N) MN-major                    x @ W
+//   kDYWT  A (M, K) K-major, B(k, n) = W[n][k], K-major           dY @ W^T
+//   kATB   A(m, k) = X[k][m], MN-major, B (K, N) MN-major         X^T @ dY
+// Products of the stored values are summed in fp32 (fp32 inputs on the CUDA
+// cores as full fp32, bf16 inputs on the tensor cores), as
+// `preferred_element_type=float32` does there.
 //
 // The TPU kernels carry the weight-gradient sums across a sequential grid in
-// resident accumulators. Here the rows are split over blockIdx.z and every
-// CTA adds its partial tile into the fp32 output with atomicAdd; the caller
-// zeroes the output. The order of those additions varies from run to run.
+// resident accumulators. Here K (the rows) is split into gridDim.z chunks of
+// k_chunk rows, as the launch plan says (ops/linear_plan.py::grad_plan): the
+// CTAs of chunk z write their fp32 partial tiles to slab z of out_f (splits,
+// M, N), and sum_partials_kernel adds the slabs in the order 0, 1, ... No
+// floating-point atomics: every sum has one order, and two launches agree bit
+// for bit.
 //
 // Epilogues (what the backward bodies do right after a product):
-//   kEpiPlain    v = acc + bias; stored as fp32 (out_f) and/or rounded (out_t)
+//   kEpiPlain    v = acc (+ bias); stored as fp32 (out_f) and/or rounded (out_t)
 //   kEpiGeluFwd  v = acc + bias kept in fp32 (aux), out_t = round(GELU(v)):
 //                the recomputed h1 and g of `_mlp_bwd_kernel`
 //   kEpiGeluBwd  out_t = round(acc * GELU'(aux)): dh1 = dg * GELU'(h1)
-// gemm_kernel (fp32) loads its tiles element by element, at any stride;
-// gemm_mma_kernel (bf16) moves them in 16-byte chunks and takes the three
-// operand layouts the backwards give it. PERF.md has the times.
+// and, where col_part is given, the column sums of the rounded out_t over the
+// CTA's rows in row order, row tile y's into row y of col_part (row tiles, N):
+// db1 of dh1, added up by sum_partials_kernel. bf16 takes the plain epilogue
+// without bias only: B9c runs its GELU epilogues in one fused kernel of its
+// own (swin_mlp_bwd.cu), which keeps h1 in registers.
+//
+// bf16 runs grad_wgmma_kernel: linear_wgmma_kernel's ring (16-byte cp.async
+// into 128-byte-swizzled stages, full barriers completed by the copies, empty
+// barriers by the warpgroups) with either operand in either major-ness
+// through wgmma's transpose bits; fp32 runs grad_fp32_kernel on the CUDA
+// cores. PERF.md has the times.
 enum GemmEpilogue { kEpiPlain = 0, kEpiGeluFwd = 1, kEpiGeluBwd = 2 };
-constexpr int kMmaBM = 128, kMmaBN = 96, kMmaBK = 32;
-constexpr int kLdA = kMmaBK + 8, kLdB = kMmaBN + 8;  // bf16 elements, 16-byte rows
+enum GradLayout { kXW = 0, kDYWT = 1, kATB = 2 };
 
 struct GemmArgs {
   const void* a;
-  long sam, sak;
+  long lda;
   const void* b;
-  long sbk, sbn;
+  long ldb;
   int M, N, K;
-  int k_chunk;        // reduction length of one blockIdx.z (set by launch_gemm)
+  int k_chunk;        // K values of one blockIdx.z (the plan's; K itself unless split)
   const float* bias;  // (N) or null
-  float* out_f;       // fp32 (M, N): stored, or added atomically when split
+  float* out_f;       // fp32 (gridDim.z, M, N): slab z holds chunk z's sums; or null
   void* out_t;        // storage type (M, N), rounded; or null
   float* aux;         // fp32 (M, N) pre-activation of the GELU epilogues
+  float* col_part;    // fp32 (gridDim.y, N): column sums of out_t by row tile; or null
   int epi;
 };
 
@@ -676,40 +690,213 @@ __device__ __forceinline__ float gelu_grad(float v) {
          v * expf(-0.5f * v * v) * 0.3989422804014327f;
 }
 
-template <typename T>
-__device__ __forceinline__ void gemm_store(const GemmArgs& p, long r, int c, float v) {
-  const long at = r * p.N + c;
-  if (p.epi == kEpiGeluBwd) {
-    v *= gelu_grad(p.aux[at]);
-  } else if (p.bias != nullptr) {
-    v += p.bias[c];
-  }
-  if (p.epi == kEpiGeluFwd) {
-    p.aux[at] = v;
-    v = gelu_exact(v);
-  }
-  if (p.out_f != nullptr) {
-    if (gridDim.z > 1)
-      atomicAdd(p.out_f + at, v);
-    else
-      p.out_f[at] = v;
-  }
-  if (p.out_t != nullptr) static_cast<T*>(p.out_t)[at] = from_f<T>(v);
+// Tile forms of grad_wgmma_kernel, as kProductForms: BM rows (a warpgroup for
+// every 64), BN columns, K slabs of BK, a ring of STAGES, CTAs an SM. 96
+// columns take only a K-major B (an MN-major B is stored in whole 64-column
+// blocks). The plan (ops/linear_plan.py, whose tests read this table) picks
+// one per product.
+struct GradForm {
+  int bm, bn, bk, stages, ctas;
+};
+constexpr GradForm kGradForms[] = {
+    {128, 128, 64, 3, 2},  // 0
+    {128, 96, 64, 3, 2},   // 1
+    {64, 192, 64, 3, 2},   // 2
+};
+
+// Dynamic shared memory of a form: the ring, 1024 bytes to align it, a full
+// and an empty barrier per stage.
+constexpr int grad_smem(const GradForm& f) {
+  return f.stages * (f.bm * f.bk + f.bk * f.bn) * 2 + 1024 + 2 * f.stages * 8;
 }
 
-// fp32 on the CUDA cores: the 128 x 96 tile and block_gemm of above.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
+// The ring of the backward products: acc (the warpgroup's 64 x BN fp32
+// accumulators) = the sum over K values kbeg .. kend - 1 of A B for the tile
+// at rows m0, columns n0. A stage holds the A slab then the B slab: a K-major
+// operand as rows of 64 K values (128 bytes, chunk c of row m at c ^ (m & 7)),
+// an MN-major one as 64-wide blocks of BK rows of 128 bytes (chunk c of k row
+// kr at c ^ (kr & 7)), both as the descriptors name them. Loads run S - 1
+// slabs ahead of the products, as in linear_wgmma_kernel; values past M, N or
+// kend are zero-filled. full[S] and empty[S] are fresh barriers (THREADS
+// arrivals each), one set per call; the ring is the caller's again once every
+// thread has returned (after a __syncthreads).
+template <int BM, int BN, int BK, int S, bool A_MN, bool B_MN>
+__device__ __forceinline__ void grad_mainloop(float (&acc)[BN / 2], const __nv_bfloat16* a,
+                                              long lda, const __nv_bfloat16* b, long ldb, int M,
+                                              int N, long m0, int n0, int kbeg, int kend,
+                                              uint32_t ring_s, uint64_t* full, uint64_t* empty) {
+  constexpr int THREADS = 2 * BM;
+  constexpr int A_BYTES = BM * BK * 2, STAGE = A_BYTES + BK * BN * 2;
+  constexpr int CPR = BK / 8;  // 16-byte chunks along K of a K-major row
+  constexpr int A_PER = BM * CPR / THREADS, B_PER = BN * CPR / THREADS;
+  static_assert(BK == 64 && (BM * CPR) % THREADS == 0 && (BN * CPR) % THREADS == 0,
+                "128-byte rows, every thread moves whole chunks");
+  static_assert(!B_MN || BN % 64 == 0, "an MN-major B in whole 64-column blocks");
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int slabs = (kend - kbeg + BK - 1) / BK;
+  auto load = [&](int j) {  // slab j into stage j % S, reported to full[j % S]
+    const int k0 = kbeg + j * BK;
+    const uint32_t sa = ring_s + (j % S) * STAGE, sb = sa + A_BYTES;
+#pragma unroll
+    for (int i = 0; i < A_PER; ++i) {
+      const int e = tid + i * THREADS;
+      if constexpr (A_MN) {
+        const int kr = e / (BM / 8), ch = e % (BM / 8);
+        const bool ok = k0 + kr < kend && m0 + ch * 8 < M;
+        cp_async16(sa + (ch >> 3) * (BK * 128) + kr * 128 + (((ch & 7) ^ (kr & 7)) << 4),
+                   ok ? a + static_cast<long>(k0 + kr) * lda + m0 + ch * 8 : a, ok);
+      } else {
+        const int m = e / CPR, ch = e % CPR;
+        const bool ok = m0 + m < M && k0 + ch * 8 < kend;
+        cp_async16(sa + m * 128 + ((ch ^ (m & 7)) << 4),
+                   ok ? a + (m0 + m) * lda + k0 + ch * 8 : a, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < B_PER; ++i) {
+      const int e = tid + i * THREADS;
+      if constexpr (B_MN) {
+        const int kr = e / (BN / 8), ch = e % (BN / 8);
+        const bool ok = k0 + kr < kend && n0 + ch * 8 < N;
+        cp_async16(sb + (ch >> 3) * (BK * 128) + kr * 128 + (((ch & 7) ^ (kr & 7)) << 4),
+                   ok ? b + static_cast<long>(k0 + kr) * ldb + n0 + ch * 8 : b, ok);
+      } else {
+        const int n = e / CPR, ch = e % CPR;
+        const bool ok = n0 + n < N && k0 + ch * 8 < kend;
+        cp_async16(sb + n * 128 + ((ch ^ (n & 7)) << 4),
+                   ok ? b + static_cast<long>(n0 + n) * ldb + k0 + ch * 8 : b, ok);
+      }
+    }
+    mbar_arrive_on_copies(&full[j % S]);
+  };
+
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j)
+    if (j < slabs) load(j);
+
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int j = 0; j < slabs; ++j) {
+    const int s = j % S;
+    mbar_wait(&full[s], (j / S) & 1);
+    fence_proxy_async();
+    const uint32_t sa = ring_s + s * STAGE, sb = sa + A_BYTES;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // the warpgroup's 64 rows: its 64-row block (MN-major) or rows 64 wg on
+      // (K-major); 16 K values on: two 8-row groups (MN-major) or 32 bytes
+      const uint64_t da = A_MN ? smem_desc(sa + wg * (BK * 128) + kk * 2048, BK * 128, 1024, 1)
+                               : smem_desc(sa + wg * 64 * 128 + kk * 32, 16, 1024, 1);
+      const uint64_t db = B_MN ? smem_desc(sb + kk * 2048, BK * 128, 1024, 1)
+                               : smem_desc(sb + kk * 32, 16, 1024, 1);
+      wgmma_grad<BN, A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the products on slab j - 1 are done
+    fence_acc(acc);
+    if (j > 0) mbar_arrive(&empty[(j - 1) % S]);
+    if (j + S - 1 < slabs) {  // refill the stage of slab j - 1 with slab j + S - 1
+      if (j > 0) mbar_wait(&empty[(j - 1) % S], ((j - 1) / S) & 1);
+      load(j + S - 1);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// One CTA computes the BM x BN tile (blockIdx.y, blockIdx.x) of chunk
+// blockIdx.z's sum through grad_mainloop, then the epilogue.
+template <int BM, int BN, int BK, int S, int CTAS, bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(2 * BM, CTAS) grad_wgmma_kernel(GemmArgs p) {
+  typedef __nv_bfloat16 T;
+  constexpr int THREADS = 2 * BM;
+  constexpr int STAGE = BM * BK * 2 + BK * BN * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * STAGE);
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long m0 = static_cast<long>(blockIdx.y) * BM;
+  const int n0 = blockIdx.x * BN;
+  const int kbeg = blockIdx.z * p.k_chunk;
+  const int kend = min(p.K, kbeg + p.k_chunk);
+  const uint32_t ring_s = smem_u32(ring);
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], THREADS);
+      mbar_init(&empty[s], THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[BN / 2];
+  grad_mainloop<BM, BN, BK, S, A_MN, B_MN>(acc, static_cast<const T*>(p.a), p.lda,
+                                           static_cast<const T*>(p.b), p.ldb, p.M, p.N, m0, n0,
+                                           kbeg, kend, ring_s, full, empty);
+  __syncthreads();  // every warpgroup is done with the ring: it takes the tile now
+
+  // accumulator d[4 j + 2 h + b] of lane l in warp v of the warpgroup is row
+  // 16 v + l / 4 + 8 h, column 8 j + 2 (l % 4) + b of the warpgroup's piece;
+  // fp32 results are stored from there (a lane quad writes 32 bytes of a
+  // row), rounded ones staged in the ring as rows of BN values and 16 bytes
+  constexpr int ST = BN * 2 + 16;
+  static_assert(BM * ST <= S * STAGE, "the finished tile fits the ring");
+  const int lane = tid & 31;
+  const int r0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  float* out_f = p.out_f == nullptr ? nullptr
+                                    : p.out_f + static_cast<long>(blockIdx.z) * p.M * p.N;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = j * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long r = m0 + r0 + 8 * h;
+      const bool in = r < p.M && n0 + c < p.N;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (out_f != nullptr && in)
+        *reinterpret_cast<float2*>(out_f + r * p.N + n0 + c) = make_float2(v0, v1);
+      if (p.out_t != nullptr)
+        *reinterpret_cast<__nv_bfloat162*>(ring + (r0 + 8 * h) * ST + c * 2) =
+            __floats2bfloat162_rn(v0, v1);
+    }
+  }
+  if (p.out_t == nullptr) return;
+  __syncthreads();
+  constexpr int CH = BN / 8, PER = BM * CH / THREADS;
+  static_assert((BM * CH) % THREADS == 0, "whole chunks a thread");
+  T* out_t = static_cast<T*>(p.out_t);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = tid + i * THREADS, row = e / CH, ch = e % CH;
+    const long r = m0 + row;
+    const int c = n0 + ch * 8;
+    if (r < p.M && c < p.N)
+      *reinterpret_cast<uint4*>(out_t + r * p.N + c) =
+          *reinterpret_cast<const uint4*>(ring + row * ST + ch * 16);
+  }
+}
+
+// fp32 on the CUDA cores: the 128 x 96 tile and block_gemm of above (slabs of
+// 16), any of the three layouts, the same epilogues and split.
+template <bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(kThreads) grad_fp32_kernel(GemmArgs p) {
   constexpr int TM = 8, TN = 6, BM = 16 * TM, BN = 16 * TN;
   __shared__ float As[kBK][BM + 1];
   __shared__ float Bs[kBK][BN];
+  __shared__ float colp[16][BN];
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long m0 = (long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const long m0 = static_cast<long>(blockIdx.y) * BM;
+  const int n0 = blockIdx.x * BN;
   const int kbeg = blockIdx.z * p.k_chunk;
   const int kend = min(p.K, kbeg + p.k_chunk);
-  const T* a = static_cast<const T*>(p.a);
-  const T* b = static_cast<const T*>(p.b);
+  const float* a = static_cast<const float*>(p.a);
+  const float* b = static_cast<const float*>(p.b);
 
   float acc[TM][TN];
 #pragma unroll
@@ -720,23 +907,25 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
   for (int k0 = kbeg; k0 < kend; k0 += kBK) {
     // consecutive threads along whichever index is contiguous in memory
     for (int e = tid; e < BM * kBK; e += kThreads) {
-      int m, kk;
-      if (p.sak == 1) { kk = e % kBK; m = e / kBK; } else { m = e % BM; kk = e / BM; }
+      const int m = A_MN ? e % BM : e / kBK, kk = A_MN ? e / BM : e % kBK;
       const long r = m0 + m;
       const int k = k0 + kk;
-      As[kk][m] = (r < p.M && k < kend) ? to_f<T>(a[r * p.sam + k * p.sak]) : 0.f;
+      As[kk][m] = (r < p.M && k < kend) ? (A_MN ? a[k * p.lda + r] : a[r * p.lda + k]) : 0.f;
     }
     for (int e = tid; e < kBK * BN; e += kThreads) {
-      int n, kk;
-      if (p.sbn == 1) { n = e % BN; kk = e / BN; } else { kk = e % kBK; n = e / kBK; }
+      const int n = B_MN ? e % BN : e / kBK, kk = B_MN ? e / BN : e % kBK;
       const int c = n0 + n, k = k0 + kk;
-      Bs[kk][n] = (c < p.N && k < kend) ? to_f<T>(b[k * p.sbk + c * p.sbn]) : 0.f;
+      Bs[kk][n] = (c < p.N && k < kend) ? (B_MN ? b[k * p.ldb + c] : b[c * p.ldb + k]) : 0.f;
     }
     __syncthreads();
     block_gemm<TM, TN>(acc, As, Bs, ty, tx);
     __syncthreads();
   }
 
+  float* out_f = p.out_f == nullptr ? nullptr
+                                    : p.out_f + static_cast<long>(blockIdx.z) * p.M * p.N;
+  float* out_t = static_cast<float*>(p.out_t);
+  float csum[TN] = {};
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const long r = m0 + ty + 16 * i;
@@ -744,220 +933,212 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = n0 + tx + 16 * j;
-      if (c < p.N) gemm_store<T>(p, r, c, acc[i][j]);
+      if (c >= p.N) continue;
+      const long at = r * p.N + c;
+      float v = acc[i][j];
+      if (p.epi == kEpiGeluBwd) {
+        v *= gelu_grad(p.aux[at]);
+      } else {
+        if (p.bias != nullptr) v += p.bias[c];
+        if (p.epi == kEpiGeluFwd) {
+          p.aux[at] = v;
+          v = gelu_exact(v);
+        }
+      }
+      if (out_f != nullptr) out_f[at] = v;
+      if (out_t != nullptr) out_t[at] = v;
+      csum[j] += v;
     }
+  }
+  if (p.col_part == nullptr) return;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) colp[ty][tx + 16 * j] = csum[j];
+  __syncthreads();
+  if (tid < BN && n0 + tid < p.N) {
+    float sum = 0.f;
+    for (int k = 0; k < 16; ++k) sum += colp[k][tid];
+    p.col_part[static_cast<long>(blockIdx.y) * p.N + n0 + tid] = sum;
   }
 }
 
-// bf16 on the tensor cores (nvcuda::wmma): a 128 x 96 tile, eight warps as
-// 4 x 2 each holding a 32 x 48 piece, the tiles moved in 16-byte chunks of 8 values, for operands whose contiguous
-// index is known and whose sizes, strides and pointers are multiples of 8
-// values (launch_gemm checks, and refuses any other). A_T: A is given
-// transposed, contiguous along m (the weight gradients' A^T), and sits in
-// shared memory as [k][m], read as a column-major fragment; else contiguous
-// along k, as [m][k]. B_T: B is contiguous along k (the input gradients' W^T),
-// held as [n][k] and read column-major; else contiguous along n, as [k][n].
-// A slab is fetched into registers while the one before it is multiplied.
-template <bool A_T, bool B_T>
-__global__ void __launch_bounds__(kThreads) gemm_mma_kernel(GemmArgs p) {
-  using namespace nvcuda;
-  typedef __nv_bfloat16 T;
-  constexpr int BM = kMmaBM, BN = kMmaBN, BK = kMmaBK;
-  constexpr int LDA = A_T ? BM + 8 : kLdA, LDB = B_T ? BK + 8 : kLdB;
-  __shared__ __align__(32) T As[(A_T ? BK : BM) * LDA];
-  __shared__ __align__(32) T Bs[(B_T ? BN : BK) * LDB];
-  __shared__ __align__(32) float Cw[kThreads / 32][16 * 16];
-  using LayoutA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LayoutB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const long m0 = (long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int kbeg = blockIdx.z * p.k_chunk;
-  const int kend = min(p.K, kbeg + p.k_chunk);
-  const T* a = static_cast<const T*>(p.a);
-  const T* b = static_cast<const T*>(p.b);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][3];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  constexpr int kChunksA = BM * BK / 8, kChunksB = BK * BN / 8;
-  constexpr int kPerA = kChunksA / kThreads, kPerB = (kChunksB + kThreads - 1) / kThreads;
-  static_assert(kChunksA % kThreads == 0, "every thread moves the same number of A chunks");
-  uint4 ra[kPerA], rb[kPerB];
-  // chunk e of a slab: its place in shared memory, and in the operand from
-  // the slab's first k (or a negative offset when it lies outside)
-  auto place_a = [&](int e, int* at_s, int* m, int* k) {
-    if (A_T) {
-      *k = e / (BM / 8), *m = (e % (BM / 8)) * 8;
-    } else {
-      *m = e / (BK / 8), *k = (e % (BK / 8)) * 8;
-    }
-    *at_s = A_T ? *k * LDA + *m : *m * LDA + *k;
-  };
-  auto place_b = [&](int e, int* at_s, int* n, int* k) {
-    if (B_T) {
-      *n = e / (BK / 8), *k = (e % (BK / 8)) * 8;
-    } else {
-      *k = e / (BN / 8), *n = (e % (BN / 8)) * 8;
-    }
-    *at_s = B_T ? *n * LDB + *k : *k * LDB + *n;
-  };
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kPerA; ++i) {
-      int at_s, m, k;
-      place_a(tid + i * kThreads, &at_s, &m, &k);
-      ra[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + m < p.M && k0 + k < kend)
-        ra[i] = *reinterpret_cast<const uint4*>(a + (m0 + m) * p.sam + (long)(k0 + k) * p.sak);
-    }
-#pragma unroll
-    for (int i = 0; i < kPerB; ++i) {
-      const int e = tid + i * kThreads;
-      if (e >= kChunksB) break;
-      int at_s, n, k;
-      place_b(e, &at_s, &n, &k);
-      rb[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + n < p.N && k0 + k < kend)
-        rb[i] = *reinterpret_cast<const uint4*>(b + (long)(k0 + k) * p.sbk +
-                                                (long)(n0 + n) * p.sbn);
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < kPerA; ++i) {
-      int at_s, m, k;
-      place_a(tid + i * kThreads, &at_s, &m, &k);
-      *reinterpret_cast<uint4*>(As + at_s) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kPerB; ++i) {
-      const int e = tid + i * kThreads;
-      if (e >= kChunksB) break;
-      int at_s, n, k;
-      place_b(e, &at_s, &n, &k);
-      *reinterpret_cast<uint4*>(Bs + at_s) = rb[i];
-    }
-  };
-
-  fetch(kbeg);
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    stash();
-    __syncthreads();
-    if (k0 + BK < kend) fetch(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LayoutA> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LayoutB> fb[3];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = 32 * wm + 16 * i;
-        wmma::load_matrix_sync(fa[i], As + (A_T ? kk * LDA + m : m * LDA + kk), LDA);
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int n = 48 * wn + 16 * j;
-        wmma::load_matrix_sync(fb[j], Bs + (B_T ? n * LDB + kk : kk * LDB + n), LDB);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* patch = Cw[warp];
-  const int pr = lane >> 1, pc = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long r = m0 + 32 * wm + 16 * i + pr;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      wmma::store_matrix_sync(patch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int c = n0 + 48 * wn + 16 * j + pc;
-      if (r < p.M) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (c + e < p.N) gemm_store<T>(p, r, c + e, patch[pr * 16 + pc + e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// Whether the bf16 operands can move in 16-byte chunks: one stride is 1, the
-// other and the extent along the contiguous index are multiples of 8, the
-// pointers are 16-byte aligned.
-static inline bool gemm_chunked(const GemmArgs& p, bool a_t, bool b_t) {
-  const bool a_ok = a_t ? (p.sam == 1 && p.sak % 8 == 0 && p.M % 8 == 0)
-                        : (p.sak == 1 && p.sam % 8 == 0 && p.K % 8 == 0);
-  const bool b_ok = b_t ? (p.sbk == 1 && p.sbn % 8 == 0 && p.K % 8 == 0)
-                        : (p.sbn == 1 && p.sbk % 8 == 0 && p.N % 8 == 0);
-  return a_ok && b_ok && reinterpret_cast<uintptr_t>(p.a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(p.b) % 16 == 0;
-}
-
-// Launch with the reduction split `splits` ways over blockIdx.z (1 = no
-// split). A split product adds into out_f, which the caller has zeroed, and
-// takes neither a bias nor a rounded output nor a GELU epilogue.
-template <typename T>
-static cudaError_t launch_gemm(GemmArgs p, int splits, cudaStream_t s) {
-  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || splits < 1) return cudaErrorInvalidValue;
-  p.k_chunk = ((p.K + splits - 1) / splits + kMmaBK - 1) / kMmaBK * kMmaBK;
-  const unsigned z = (unsigned)((p.K + p.k_chunk - 1) / p.k_chunk);
-  if (z > 1 && (p.bias != nullptr || p.epi != kEpiPlain || p.out_t != nullptr ||
-                p.out_f == nullptr))
-    return cudaErrorInvalidValue;
-  dim3 grid((unsigned)((p.M + kMmaBM - 1) / kMmaBM),
-            (unsigned)((p.N + kMmaBN - 1) / kMmaBN), z);
-  if constexpr (sizeof(T) == 4) {
-    gemm_kernel<T><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    // x @ W, dY @ W^T and A^T @ B as the backwards give them
-    if (gemm_chunked(p, false, false))
-      gemm_mma_kernel<false, false><<<grid, kThreads, 0, s>>>(p);
-    else if (gemm_chunked(p, false, true))
-      gemm_mma_kernel<false, true><<<grid, kThreads, 0, s>>>(p);
-    else if (gemm_chunked(p, true, false))
-      gemm_mma_kernel<true, false><<<grid, kThreads, 0, s>>>(p);
-    else
-      return cudaErrorInvalidValue;
-  }
+template <int F, bool A_MN, bool B_MN>
+static cudaError_t launch_grad_form(const GemmArgs& p, cudaStream_t s) {
+  constexpr GradForm f = kGradForms[F];
+  constexpr int smem = grad_smem(f);
+  static_assert(smem <= 232448 && f.ctas * (smem + 1024) <= 233472,
+                "a CTA's and an SM's shared memory");
+  const auto kernel = grad_wgmma_kernel<f.bm, f.bn, f.bk, f.stages, f.ctas, A_MN, B_MN>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  if (p.k_chunk % f.bk != 0 && p.k_chunk < p.K) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>((p.N + f.bn - 1) / f.bn),
+            static_cast<unsigned>((p.M + f.bm - 1) / f.bm),
+            static_cast<unsigned>((p.K + p.k_chunk - 1) / p.k_chunk));
+  kernel<<<grid, 2 * f.bm, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-// A weight gradient (M, N) = A^T @ B over `rows` rows of A (rows, M) and
-// B (rows, N), added into the zeroed fp32 `out`. The rows are split so that
-// a few hundred CTAs share the card.
-template <typename T>
-static cudaError_t launch_weight_grad(const void* a, const void* b, float* out,
-                                      int rows, int M, int N, cudaStream_t s) {
-  GemmArgs p = {};
-  p.a = a; p.sam = 1; p.sak = M;
-  p.b = b; p.sbk = N; p.sbn = 1;
-  p.M = M; p.N = N; p.K = rows;
-  p.out_f = out;
-  const int tiles = ((M + kMmaBM - 1) / kMmaBM) * ((N + kMmaBN - 1) / kMmaBN);
-  int splits = (528 + tiles - 1) / tiles;
-  if (splits > rows / 256) splits = rows / 256;
-  if (splits < 1) splits = 1;
-  return launch_gemm<T>(p, splits, s);
+template <bool A_MN, bool B_MN>
+static cudaError_t launch_grad_bf16(const GemmArgs& p, int form, cudaStream_t s) {
+  switch (form) {
+    case 0: return launch_grad_form<0, A_MN, B_MN>(p, s);
+    case 1:
+      if constexpr (!B_MN) return launch_grad_form<1, A_MN, B_MN>(p, s);
+      return cudaErrorInvalidValue;
+    case 2: return launch_grad_form<2, A_MN, B_MN>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-// An input gradient (rows, K_in) = dY (rows, N_out) @ W^T for W (K_in, N_out)
+template <bool A_MN, bool B_MN>
+static cudaError_t launch_grad_fp32(const GemmArgs& p, cudaStream_t s) {
+  if (p.k_chunk % kBK != 0 && p.k_chunk < p.K) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>((p.N + 95) / 96), static_cast<unsigned>((p.M + 127) / 128),
+            static_cast<unsigned>((p.K + p.k_chunk - 1) / p.k_chunk));
+  grad_fp32_kernel<A_MN, B_MN><<<grid, kThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+// One backward product in `layout`, bf16 in tile form `form` of kGradForms
+// (the plan's), fp32 in the CUDA cores' tile. A split K (k_chunk < K) takes
+// only fp32 partial slabs: no bias, GELU, rounded output or column sums.
+template <typename T>
+static cudaError_t launch_grad(const GemmArgs& p, int layout, int form, cudaStream_t s) {
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.k_chunk <= 0 || layout < kXW || layout > kATB)
+    return cudaErrorInvalidValue;
+  if (p.k_chunk < p.K && (p.bias != nullptr || p.epi != kEpiPlain || p.out_t != nullptr ||
+                          p.col_part != nullptr || p.out_f == nullptr))
+    return cudaErrorInvalidValue;
+  if (p.col_part != nullptr && p.out_t == nullptr) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 4) {
+    if (layout == kXW) return launch_grad_fp32<false, true>(p, s);
+    if (layout == kDYWT) return launch_grad_fp32<false, false>(p, s);
+    return launch_grad_fp32<true, true>(p, s);
+  }
+  // bf16: the plain epilogue (B9c's GELU epilogues run fused, swin_mlp_bwd.cu)
+  if (form < 0 || form >= static_cast<int>(sizeof(kGradForms) / sizeof(kGradForms[0])) ||
+      p.epi != kEpiPlain || p.bias != nullptr || p.col_part != nullptr)
+    return cudaErrorInvalidValue;
+  // 16-byte chunks: the contiguous extents and the row strides are multiples
+  // of 8 values, the operands 16-byte aligned
+  if (p.N % 8 != 0 || p.K % 8 != 0 || (layout == kATB && p.M % 8 != 0) || p.lda % 8 != 0 ||
+      p.ldb % 8 != 0 || reinterpret_cast<uintptr_t>(p.a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(p.b) % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (layout == kXW) return launch_grad_bf16<false, true>(p, form, s);
+  if (layout == kDYWT) return launch_grad_bf16<false, false>(p, form, s);
+  return launch_grad_bf16<true, true>(p, form, s);
+}
+
+// x @ W for x (rows, k) and W (k, n), both row-major.
+static inline GemmArgs xw_args(const void* x, const void* w, int rows, int k, int n) {
+  GemmArgs p = {};
+  p.a = x; p.lda = k;
+  p.b = w; p.ldb = n;
+  p.M = rows; p.N = n; p.K = k; p.k_chunk = k;
+  return p;
+}
+
+// An input gradient (rows, k_in) = dY (rows, n_out) @ W^T for W (k_in, n_out)
 // row-major: the contraction runs over W's output width.
 static inline GemmArgs input_grad_args(const void* dy, const void* w, int rows, int k_in,
-                                int n_out) {
+                                       int n_out) {
   GemmArgs p = {};
-  p.a = dy; p.sam = n_out; p.sak = 1;
-  p.b = w; p.sbk = 1; p.sbn = n_out;
-  p.M = rows; p.N = k_in; p.K = n_out;
+  p.a = dy; p.lda = n_out;
+  p.b = w; p.ldb = n_out;
+  p.M = rows; p.N = k_in; p.K = n_out; p.k_chunk = n_out;
   return p;
+}
+
+// A weight gradient (m, n) = X^T @ dY over `rows` rows of X (rows, m) and dY
+// (rows, n), in chunks of k_chunk rows: fp32 partial slabs into part
+// (chunks, m, n).
+static inline GemmArgs weight_grad_args(const void* x, const void* dy, float* part, int rows,
+                                        int m, int n, int k_chunk) {
+  GemmArgs p = {};
+  p.a = x; p.lda = m;
+  p.b = dy; p.ldb = n;
+  p.M = m; p.N = n; p.K = rows; p.k_chunk = k_chunk;
+  p.out_f = part;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// The fixed-order sums of the backwards' partials: out[i] = part[0][i] +
+// part[1][i] + ... + part[count - 1][i], in that order, for up to kMaxSums
+// (part, out) pairs in one launch (blockIdx.y picks the pair).
+struct PartialSum {
+  const float* part;  // (count, len)
+  float* out;         // (len)
+  int count;
+  int len;
+};
+constexpr int kMaxSums = 8;
+struct PartialSums {
+  PartialSum job[kMaxSums];
+  int n;
+};
+
+// A sum of few partials is a thread's, its partials loaded kSumBatch at a
+// time (in flight together), then added in order. A sum of kSumWarpFrom or
+// more is a warp's: lane l adds partials l, l + 32, ... in order (kSumBatch
+// loads in flight), then the lanes' sums meet in a fixed butterfly. Either
+// way the order is fixed.
+constexpr int kSumBatch = 8;
+constexpr int kSumWarpFrom = 32;
+__global__ void __launch_bounds__(kThreads) sum_partials_kernel(PartialSums sums) {
+  const PartialSum q = sums.job[blockIdx.y];
+  if (q.count >= kSumWarpFrom) {
+    const int lane = threadIdx.x & 31;
+    for (long i = (static_cast<long>(blockIdx.x) * kThreads + threadIdx.x) / 32; i < q.len;
+         i += static_cast<long>(gridDim.x) * (kThreads / 32)) {
+      const float* src = q.part + i;
+      float s = 0.f;
+      int c = lane;
+      for (; c + 32 * (kSumBatch - 1) < q.count; c += 32 * kSumBatch) {
+        float v[kSumBatch];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          v[u] = __ldg(src + static_cast<long>(c + 32 * u) * q.len);
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u) s += v[u];
+      }
+      for (; c < q.count; c += 32) s += __ldg(src + static_cast<long>(c) * q.len);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) q.out[i] = s;
+    }
+    return;
+  }
+  for (long i = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x; i < q.len;
+       i += static_cast<long>(gridDim.x) * kThreads) {
+    const float* src = q.part + i;
+    float s = 0.f;
+    int c = 0;
+    for (; c + kSumBatch <= q.count; c += kSumBatch) {
+      float v[kSumBatch];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) v[u] = __ldg(src + static_cast<long>(c + u) * q.len);
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) s += v[u];
+    }
+    for (; c < q.count; ++c) s += __ldg(src + static_cast<long>(c) * q.len);
+    q.out[i] = s;
+  }
+}
+
+static cudaError_t launch_sum_partials(const PartialSums& sums, cudaStream_t s) {
+  if (sums.n < 1 || sums.n > kMaxSums) return cudaErrorInvalidValue;
+  long threads = 0;  // the most a job has work for
+  for (int i = 0; i < sums.n; ++i) {
+    const PartialSum& q = sums.job[i];
+    if (q.count < 1 || q.len < 1) return cudaErrorInvalidValue;
+    const long t = static_cast<long>(q.len) * (q.count >= kSumWarpFrom ? 32 : 1);
+    threads = t > threads ? t : threads;
+  }
+  long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 1024) blocks = 1024;
+  sum_partials_kernel<<<dim3(static_cast<unsigned>(blocks), sums.n), kThreads, 0, s>>>(sums);
+  return cudaGetLastError();
 }

@@ -370,33 +370,6 @@ __device__ __forceinline__ void gather_rows(const bf16* src, Row row, uint8_t* A
 
 // --- the attention core on mma.sync (16 query rows a warp) ------------------
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// c (16 x 8 fp32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// chunk c (8 values) of row r of a head's q, k or v: rows of 64 bytes in the
-// 64-byte swizzle (ldmatrix reads eight rows of a chunk without conflicts)
-__device__ __forceinline__ int row64(int r, int c) { return r * 64 + ((c ^ ((r >> 1) & 3)) << 4); }
-
 // Rows 16 rt .. 16 rt + 15 of one head: scores against the 144 keys + bias +
 // mask, softmax in fp32, exp(s - max) rounded to bf16 and multiplied by v,
 // then divided by the fp32 row sum (`_attention_rows`); written to `out`

@@ -496,8 +496,9 @@ def downsample_cases(dev) -> Iterator[Case]:
 def _rel_to_max(t):
     """Tolerance of a gradient against its plain version: t times the largest
     magnitude of the tensor. The sums over every row or window of the grid
-    are atomic adds in another order each run, so single elements near zero
-    are held to the size of the tensor, not to their own."""
+    run in another order than the plain version's (chunks of rows or windows,
+    then the chunks in order), so single elements near zero are held to the
+    size of the tensor, not to their own."""
     return lambda want: (t * float(want.float().abs().max()), 0.0)
 
 
@@ -617,54 +618,70 @@ def swin_mlp_half_train_cases(dev) -> Iterator[Case]:
             )
 
 
+def _mlp_bwd_case(label, x2, dy, o, fc1, dt) -> Case:
+    c = x2.shape[-1]
+    a = (x2, dy, o["norm2"], fc1, o["fc2"], o["m2"], 1e-5)
+    return Case(
+        "swin_mlp_bwd", label,
+        lambda a=a: sbf.swin_mlp_bwd(*a),
+        lambda a=a: sbf.swin_mlp_bwd_reference(*a),
+        _named(("dx2", "dg2", "dbe2", "dw1", "db1", "dw2", "db2"), GRAD_TOL[dt]), args=a,
+        # x2, dy in and dx2 out; the weights in and their fp32 gradients out
+        nbytes=3 * _nbytes(x2) + _nbytes(*o["norm2"], *fc1, o["fc2"][0], o["m2"])
+        + 4 * (8 * c * c + 7 * c),
+        flops=x2.numel() * 40 * c, matmul=True,
+    )
+
+
 def swin_mlp_bwd_cases(dev) -> Iterator[Case]:
     """B9c on the rows of the three multi-window stages at B=2, one image
     dropped, one case without the fc1 bias; all seven gradients; fp32 and
-    bf16."""
-    names = ("dx2", "dg2", "dbe2", "dw1", "db1", "dw2", "db2")
+    bf16. Then the XE step's own batch (b4) at each of those stages, bf16."""
     for dt in (torch.float32, torch.bfloat16):
         for stage in (0, 1, 2):
             x2, dy, o, _, _ = _block_operands(stage, 1500, dev, dt)
-            c = x2.shape[-1]
             fc1 = o["fc1"] if stage else (o["fc1"][0], None)
-            a = (x2, dy, o["norm2"], fc1, o["fc2"], o["m2"], 1e-5)
-            yield Case(
-                "swin_mlp_bwd", f"stage{stage} x{tuple(x2.shape)} {_dtype_name(dt)}",
-                lambda a=a: sbf.swin_mlp_bwd(*a),
-                lambda a=a: sbf.swin_mlp_bwd_reference(*a),
-                _named(names, GRAD_TOL[dt]), args=a,
-                # x2, dy in and dx2 out; the weights in and their fp32 gradients out
-                nbytes=3 * _nbytes(x2) + _nbytes(*o["norm2"], *fc1, o["fc2"][0], o["m2"])
-                + 4 * (8 * c * c + 7 * c),
-                flops=x2.numel() * 40 * c, matmul=True,
-            )
+            yield _mlp_bwd_case(f"stage{stage} x{tuple(x2.shape)} {_dtype_name(dt)}", x2, dy, o,
+                                fc1, dt)
+    for stage in (0, 1, 2):
+        x2, dy, o, _, _ = _block_operands(stage, 1540, dev, torch.bfloat16, b=4)
+        yield _mlp_bwd_case(f"b4 stage{stage} x{tuple(x2.shape)} bfloat16", x2, dy, o, o["fc1"],
+                            torch.bfloat16)
+
+
+def _attn_bwd_case(label, x, dy, o, qkv, m, heads, scale, dt) -> Case:
+    c = x.shape[-1]
+    a = (x, dy, o["norm1"], qkv, o["proj"], o["bias"], m, o["m1"], heads, scale, 1e-5)
+    return Case(
+        "swin_attn_bwd", label,
+        lambda a=a: sbf.swin_attn_bwd(*a),
+        lambda a=a: sbf.swin_attn_bwd_reference(*a),
+        _named(("dx", "dg1", "dbe1", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"),
+               GRAD_TOL[dt]), args=a,
+        # x, dx2 in and dx out; weights, bias and mask in; fp32 gradients out
+        nbytes=3 * _nbytes(x) + _nbytes(*o["norm1"], *qkv, o["proj"][0], o["bias"], m, o["m1"])
+        + 4 * (4 * c * c + 6 * c) + _nbytes(o["bias"]),
+        flops=x.shape[0] * N_TOKENS * (22 * c * c + 12 * N_TOKENS * c), matmul=True,
+    )
 
 
 def swin_attn_bwd_cases(dev) -> Iterator[Case]:
     """B9b on the three multi-window stages at B=2, with and without the
     mask, one image dropped, one case without the qkv bias; all eight
-    gradients (dbias among them); fp32 and bf16."""
-    names = ("dx", "dg1", "dbe1", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+    gradients (dbias among them); fp32 and bf16. Then the XE step's own batch
+    (b4) at each of those stages, with the mask, bf16."""
     for dt in (torch.float32, torch.bfloat16):
         for stage in (0, 1, 2):
             x, dy, o, heads, scale = _block_operands(stage, 1600, dev, dt)
-            c = x.shape[-1]
             for m in (o["mask"], None):
                 qkv = o["qkv"] if m is not None else (o["qkv"][0], None)
-                a = (x, dy, o["norm1"], qkv, o["proj"], o["bias"], m, o["m1"], heads, scale, 1e-5)
-                yield Case(
-                    "swin_attn_bwd",
+                yield _attn_bwd_case(
                     f"stage{stage} x{tuple(x.shape)} {'mask' if m is not None else 'nomask'} "
-                    f"{_dtype_name(dt)}",
-                    lambda a=a: sbf.swin_attn_bwd(*a),
-                    lambda a=a: sbf.swin_attn_bwd_reference(*a),
-                    _named(names, GRAD_TOL[dt]), args=a,
-                    # x, dx2 in and dx out; weights, bias and mask in; fp32 gradients out
-                    nbytes=3 * _nbytes(x) + _nbytes(*o["norm1"], *qkv, o["proj"][0], o["bias"],
-                                                    m, o["m1"])
-                    + 4 * (4 * c * c + 6 * c) + _nbytes(o["bias"]),
-                    flops=x.shape[0] * N_TOKENS * (22 * c * c + 12 * N_TOKENS * c), matmul=True,
-                )
+                    f"{_dtype_name(dt)}", x, dy, o, qkv, m, heads, scale, dt)
+    for stage in (0, 1, 2):
+        x, dy, o, heads, scale = _block_operands(stage, 1640, dev, torch.bfloat16, b=4)
+        yield _attn_bwd_case(f"b4 stage{stage} x{tuple(x.shape)} mask bfloat16", x, dy, o,
+                             o["qkv"], o["mask"], heads, scale, torch.bfloat16)
 
 
 def _int8_weight(n, k, g, dev):

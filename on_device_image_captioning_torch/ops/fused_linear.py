@@ -10,6 +10,10 @@ residual and per-image scale, each rounded where B4, B5 and B8 round. The main
 path reaches the product only through those kernels' wrappers; this entry is
 for the card tests of the product's shapes and maps and for timing it beside
 a library product (`chip_smoke.py` phase 6).
+
+`grad_product` is the training backwards' product alone (B9b, B9c reach it
+through their own wrappers), in its three operand layouts, for the same two
+uses.
 """
 from __future__ import annotations
 
@@ -21,11 +25,12 @@ import torch.nn.functional as F
 
 from . import _build
 from .layernorm import layernorm_reference
-from .linear_plan import form_for
+from .linear_plan import GRAD_LAYOUTS, form_for, grad_plan, sm_count
 from .swin_block_fused import _DTYPE_CODE, _P, Norm, _ptr, _ln_scratch, linear_reference
 from .window_layout import source_rows
 
 launches = 0  # kernel launches since the last reset (plain-version calls do not count)
+grad_launches = 0  # grad_product calls that launched the backward product
 # (kind, res, window, delta): kind "transition" (a_map 1) or "merge" (a_map 3,
 # four segments along K, delta unused) over a res x res grid
 Gather = Tuple[str, int, int, int]
@@ -120,4 +125,57 @@ def fused_linear(
         float(eps), form, _DTYPE_CODE[a.dtype], _build.current_stream())
     _build.check_status(status, "fused_linear")
     launches += 1
+    return out
+
+
+def _grad_operands(a: torch.Tensor, b: torch.Tensor, layout: str):
+    """(A, B) of out = A @ B in `layout`: "xw" a @ b, "dywt" a @ b^T, "atb"
+    a^T @ b."""
+    if layout not in GRAD_LAYOUTS:
+        raise ValueError(f"grad_product: unknown layout {layout!r}")
+    return (a.t() if layout == "atb" else a), (b.t() if layout == "dywt" else b)
+
+
+def grad_product_reference(a: torch.Tensor, b: torch.Tensor, layout: str,
+                           rounded: bool = False) -> torch.Tensor:
+    """A @ B of the stored values summed in fp32 (`_mm` of the plain
+    backwards); rounded to a's dtype where `rounded`."""
+    x, y = _grad_operands(a, b, layout)
+    out = torch.matmul(x.float(), y.float())
+    return out.to(a.dtype) if rounded else out
+
+
+def grad_product(a: torch.Tensor, b: torch.Tensor, layout: str, form: Optional[int] = None,
+                 rounded: bool = False) -> torch.Tensor:
+    """(M, N) = A @ B in `layout` ("xw": a (M, K) @ b (K, N); "dywt": a (M, K)
+    @ b (N, K)^T; "atb": a (K, M)^T @ b (K, N)) of two contiguous matrices of
+    one dtype: fp32, or rounded to their dtype where `rounded` (not for
+    "atb", whose K the plan splits). CPU tensors get the plain version; CUDA
+    tensors the backward product in the launch plan's tile form (or in
+    `form`, bf16) and split, its partials summed in order."""
+    global grad_launches
+    x, y = _grad_operands(a, b, layout)
+    if a.device.type == "cpu":
+        return grad_product_reference(a, b, layout, rounded)
+    if a.device.type != "cuda" or a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+        raise ValueError(f"grad_product: unsupported operands {a.device} {a.dtype} / {b.dtype}")
+    (m, k), n = x.shape, y.shape[1]
+    if y.shape[0] != k:
+        raise ValueError(f"grad_product: shapes {tuple(a.shape)} and {tuple(b.shape)} do not "
+                         f"meet in layout {layout!r}")
+    plan = grad_plan(m, n, k, layout, a.element_size(), sm_count(a.device), form)
+    if rounded and plan.splits > 1:
+        raise ValueError("grad_product: a split product's sums stay fp32")
+    _build.check_cuda_tensors(a, b)
+    out = torch.empty((m, n), dtype=a.dtype if rounded else torch.float32, device=a.device)
+    part = None if plan.splits == 1 else torch.empty(
+        (plan.splits, m, n), dtype=torch.float32, device=a.device)
+    fn = _build.cuda_function(
+        "linear", "grad_product_launch", [_P] * 4 + [ctypes.c_int] * 10 + [_P])
+    status = fn(a.data_ptr(), b.data_ptr(), _ptr(part), out.data_ptr(), m, n, k, a.shape[1],
+                b.shape[1], plan.k_chunk, GRAD_LAYOUTS.index(layout), plan.form, int(rounded),
+                _DTYPE_CODE[a.dtype],
+                _build.current_stream())
+    _build.check_status(status, "grad_product")
+    grad_launches += 1
     return out

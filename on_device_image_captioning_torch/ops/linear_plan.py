@@ -1,7 +1,8 @@
-"""The launch plan of the backbone's shared product (`csrc/fused_linear.cuh`):
+"""The launch plans of the backbone's products (`csrc/fused_linear.cuh`):
 which tile each product launches in, decided on the host from the shapes and
 the card's SM count, and handed to the C launchers of B4, B5, B8, B9b and
-B10a / B10b.
+B10a / B10b (the forward product, `linear_plan`) and of B9b and B9c (the
+backward product, `grad_plan`, and B9b's attention core, `core_chunk`).
 
 In bf16 the product runs on `linear_wgmma_kernel`, whose tile forms are the
 table `kProductForms` of that file (mirrored here, in its order, as FORMS;
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -130,10 +131,164 @@ def linear_plan(m: int, n: int, k: int, segs: int, itemsize: int, sms: int) -> L
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def form_for(x: torch.Tensor, m: int, n: int, k: int, segs: int = 1) -> int:
     """The form index a wrapper passes for a product on x's card and dtype."""
-    return linear_plan(m, n, k, segs, x.element_size(), _sm_count(x.device)).form
+    return linear_plan(m, n, k, segs, x.element_size(), sm_count(x.device)).form
+
+
+# ---------------------------------------------------------------------------
+# The training backwards' product (B9b, B9c): `grad_wgmma_kernel` of
+# csrc/fused_linear.cuh in bf16, in three operand layouts (GRAD_LAYOUTS, the
+# C enum GradLayout in its order): "xw" x @ W (A K-major, B MN-major), "dywt"
+# dY @ W^T (A and B K-major), "atb" X^T @ dY (A and B MN-major, K = the rows).
+# Its tile forms are `kGradForms` of that file (GRAD_FORMS here, in order; the
+# CPU tests hold the two to each other). A form whose BN is not a multiple of
+# 64 takes no MN-major B. fp32 runs the CUDA cores' 128 x 96 tile in slabs of
+# 16 (form -1).
+#
+# Only "atb" splits K: the rows (tens of thousands) into `splits` chunks of
+# k_chunk rows, so that the few output tiles of a weight gradient (12 at
+# stage 0: 192 x 768) fill the card; each chunk's CTAs write an fp32 partial,
+# summed in chunk order afterwards. Among the forms the layout takes, the
+# least modelled time: the busiest SM's CTAs times a CTA's bytes (its A and B
+# slabs and its output) over the SM's L2 rate, whatever the CTAs an SM holds,
+# a one-warpgroup form (64 x 192) at GRAD_ONE_WG_RATE of it (fitted to
+# `cli/product_forms --backward` on an H100, PERF.md §6);
+# the split count is as many chunks as one wave of the card's CTA slots holds
+# (at least GRAD_MIN_SLABS slabs a chunk). The row products keep their whole K.
+
+GRAD_LAYOUTS = ("xw", "dywt", "atb")
+_B_MN = {"xw": True, "dywt": False, "atb": True}
+# `kGradForms` of csrc/fused_linear.cuh, in its order
+GRAD_FORMS: Tuple[Form, ...] = (
+    Form(128, 128, 64, 3, 2),
+    Form(128, 96, 64, 3, 2),
+    Form(64, 192, 64, 3, 2),
+)
+GRAD_MIN_SLABS = 8
+GRAD_ONE_WG_RATE = 0.7
+
+
+def grad_shared_bytes(f: Form) -> int:
+    """Dynamic shared memory of a backward form, as `grad_smem` in the
+    kernel's source: the ring, 1024 bytes to align it, a full and an empty
+    barrier per stage."""
+    return f.stages * (f.bm * f.bk + f.bk * f.bn) * 2 + 1024 + 2 * f.stages * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class GradPlan:
+    m: int
+    n: int
+    k: int
+    layout: str
+    form: int  # index of GRAD_FORMS; -1 for fp32 (the CUDA cores' tile)
+    tile: Tuple[int, int]  # (rows, columns) of a CTA's output tile
+    slab: int  # K values of a slab
+    k_chunk: int  # K values a chunk (blockIdx.z) walks: k itself unless split
+    grid: Tuple[int, int, int]  # (column tiles, row tiles, chunks)
+
+    @property
+    def splits(self) -> int:
+        return self.grid[2]
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def k_chunks(self) -> List[range]:
+        """The K values (rows, for "atb") of each chunk, in the order their
+        partials are summed."""
+        return [range(z * self.k_chunk, min(self.k, (z + 1) * self.k_chunk))
+                for z in range(self.splits)]
+
+
+def _grad_split(f_ctas: int, tiles: int, slabs: int, sms: int) -> int:
+    """As many chunks as the card's CTA slots hold at once (every chunk's
+    partial is written and read back: no more than one wave of them), at
+    least GRAD_MIN_SLABS slabs each."""
+    return max(1, min(sms * f_ctas // tiles, slabs // GRAD_MIN_SLABS))
+
+
+def _grad_seconds(bm: int, bn: int, m: int, n: int, k_chunk: int, splits: int, out_bytes: int,
+                  sms: int) -> float:
+    """The model's time of a backward product: the busiest SM's CTAs times a
+    CTA's bytes (its A and B slabs over its chunk, and its output tile) over
+    the SM's L2 rate, which a form of one warpgroup (BM = 64) reaches only
+    GRAD_ONE_WG_RATE of."""
+    ctas = _cdiv(m, bm) * _cdiv(n, bn) * splits
+    rate = SM_L2_BYTES * (1.0 if bm >= 128 else GRAD_ONE_WG_RATE)
+    return _cdiv(ctas, sms) * ((bm + bn) * k_chunk * 2 + bm * bn * out_bytes) / rate
+
+
+@functools.lru_cache(maxsize=4096)
+def grad_plan(m: int, n: int, k: int, layout: str, itemsize: int, sms: int,
+              form: Optional[int] = None) -> GradPlan:
+    """The launch of the backward product out (M, N) = A (M, K) @ B (K, N) in
+    `layout` on a card of `sms` SMs, in the form of least modelled time or
+    in `form` (bf16; a yardstick's way to compare forms). Raises ValueError
+    where the kernels do not take the shapes: M, N, K >= 1; N and K multiples
+    of 8 (16-byte rows), and M too for "atb" (its A rows run along M)."""
+    if layout not in GRAD_LAYOUTS:
+        raise ValueError(f"grad_plan: unknown layout {layout!r}")
+    if itemsize not in (2, 4):
+        raise ValueError(f"grad_plan: unsupported item size {itemsize}")
+    if m < 1 or n < 8 or k < 8 or sms < 1:
+        raise ValueError(f"grad_plan: unsupported shapes M={m} N={n} K={k}")
+    if n % 8 or k % 8 or (layout == "atb" and m % 8):
+        raise ValueError(f"grad_plan: M={m}, N={n}, K={k} are not multiples of 8")
+    split = layout == "atb"
+
+    def chunk_of(bm, bn, bk, ctas):
+        slabs = _cdiv(k, bk)
+        splits = _grad_split(ctas, _cdiv(m, bm) * _cdiv(n, bn), slabs, sms) if split else 1
+        return min(k, _cdiv(slabs, splits) * bk)
+
+    if itemsize == 4:
+        (bm, bn), bk, form = FP32_TILE, FP32_SLAB, -1
+        k_chunk = chunk_of(bm, bn, bk, 2)
+    else:
+        fits = [i for i, f in enumerate(GRAD_FORMS) if not (_B_MN[layout] and f.bn % 64)]
+        if form is None:
+            def cost(i):
+                f = GRAD_FORMS[i]
+                chunk = chunk_of(f.bm, f.bn, f.bk, f.ctas)
+                return _grad_seconds(f.bm, f.bn, m, n, chunk, _cdiv(k, chunk),
+                                     4 if split else itemsize, sms)
+
+            form = min(fits, key=lambda i: (cost(i), i))
+        elif form not in fits:
+            raise ValueError(f"grad_plan: form {form} does not take layout {layout!r}")
+        f = GRAD_FORMS[form]
+        bm, bn, bk = f.bm, f.bn, f.bk
+        k_chunk = chunk_of(bm, bn, bk, f.ctas)
+    return GradPlan(m, n, k, layout, form, (bm, bn), bk, k_chunk,
+                    (_cdiv(n, bn), _cdiv(m, bm), _cdiv(k, k_chunk)))
+
+
+# B9b's attention core runs one CTA per (chunk of windows, head), one CTA an
+# SM (its shared memory), the chunk's windows in order (dbias and dbqkv are
+# per-chunk partials, summed in chunk order). The chunk is the one whose
+# waves of CTAs take the least time: waves x windows a chunk x CORE_WINDOW_S,
+# plus writing and reading back the dbias partials (heads x N^2 fp32 a chunk).
+CORE_WINDOW_S = 20e-6  # a (window, head) of 144 tokens on one SM
+HBM_BYTES_S = 3.35e12
+
+
+@functools.lru_cache(maxsize=1024)
+def core_chunk(bw: int, heads: int, n: int, sms: int) -> int:
+    """Windows a CTA of the attention core takes, one after another."""
+    if bw < 1 or heads < 1 or n < 1 or sms < 1:
+        raise ValueError(f"core_chunk: unsupported shapes bw={bw} heads={heads} n={n}")
+
+    def cost(g):
+        chunks = _cdiv(bw, g)
+        waves = _cdiv(chunks * heads, sms)
+        return waves * g * CORE_WINDOW_S + 2 * chunks * heads * n * n * 4 / HBM_BYTES_S
+
+    return min(range(1, bw + 1), key=lambda g: (cost(g), -g))
+

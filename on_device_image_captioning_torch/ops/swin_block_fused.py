@@ -41,7 +41,7 @@ from . import _build
 from . import quant_matmul as qm
 from .block_plan import BlockPlan, plan_for
 from .layernorm import layernorm_reference
-from .linear_plan import form_for
+from .linear_plan import core_chunk, form_for, grad_plan, linear_plan, sm_count
 from .window_attention import HEAD_DIM
 from .window_layout import window_transition_perm
 
@@ -699,12 +699,65 @@ def swin_attn_bwd_reference(
     return dx, dg1, dbe1, dwqkv, dbqkv, dwproj, dbproj, dbias
 
 
-def _zeros_like_all(device, *shapes):
-    """fp32 zeros of the given shapes, carved out of one zeroed buffer (the
-    backward kernels add into their outputs)."""
+def _fp32_buffers(device, *shapes):
+    """fp32 tensors of the given shapes, carved out of one buffer."""
     sizes = [math.prod(s) for s in shapes]
-    buf = torch.zeros(sum(sizes), dtype=torch.float32, device=device)
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
     return [t.reshape(s) for t, s in zip(buf.split(sizes), shapes)]
+
+
+# rows a CTA of the backwards' row passes takes (`kRowPassRows`,
+# csrc/backward_rows.cuh): their column sums come in one partial row per CTA
+ROW_PASS_ROWS = 16
+
+
+def _row_parts(rows: int) -> int:
+    return -(-rows // ROW_PASS_ROWS)
+
+
+# rows of a tile of B9c's fused hidden-row product in bf16 (`kHiddenForm`,
+# csrc/swin_mlp_bwd.cu): db1's partials come one row per row tile
+HIDDEN_TILE_ROWS = 128
+
+
+@functools.lru_cache(maxsize=1024)
+def _mlp_bwd_plan(rows: int, c: int, hidden: int, itemsize: int, sms: int):
+    """B9c's launch on a card of `sms` SMs: (the plan's ints as
+    `swin_mlp_bwd_launch` reads them, the shapes of its fp32 partials in the
+    launcher's order: dW1, dW2 by chunk of rows, db1 by row tile of the
+    hidden rows' product (bf16: the fused one; fp32: dh1's), db2, dg2, dbe2
+    by row-pass CTA)."""
+    dw2 = grad_plan(hidden, c, rows, "atb", itemsize, sms)
+    dw1 = grad_plan(c, hidden, rows, "atb", itemsize, sms)
+    ints = (grad_plan(rows, c, hidden, "dywt", itemsize, sms).form,
+            dw2.form, dw2.k_chunk, dw1.form, dw1.k_chunk)
+    hidden_tiles = (-(-rows // HIDDEN_TILE_ROWS) if itemsize == 2
+                    else grad_plan(rows, hidden, c, "dywt", itemsize, sms).grid[1])
+    parts = _row_parts(rows)
+    shapes = ((dw1.splits, c, hidden), (dw2.splits, hidden, c), (hidden_tiles, hidden),
+              (parts, c), (parts, c), (parts, c))
+    return (ctypes.c_int * len(ints))(*ints), shapes
+
+
+@functools.lru_cache(maxsize=1024)
+def _attn_bwd_plan(bw: int, n: int, c: int, heads: int, itemsize: int, sms: int):
+    """B9b's launch on a card of `sms` SMs: (the plan's ints as
+    `swin_attn_bwd_launch` reads them, the shapes of its fp32 partials in the
+    launcher's order: dWqkv, dWproj by chunk of rows, dbqkv by chunk of the
+    core's windows, dbproj, dg1, dbe1 by row-pass CTA, dbias by chunk of
+    windows)."""
+    rows = bw * n
+    dwp = grad_plan(c, c, rows, "atb", itemsize, sms)
+    dwq = grad_plan(c, 3 * c, rows, "atb", itemsize, sms)
+    chunk = core_chunk(bw, heads, n, sms)
+    ints = (linear_plan(rows, 3 * c, c, 1, itemsize, sms).form,
+            grad_plan(rows, c, c, "dywt", itemsize, sms).form,
+            grad_plan(rows, c, 3 * c, "dywt", itemsize, sms).form,
+            dwp.form, dwp.k_chunk, dwq.form, dwq.k_chunk, chunk)
+    chunks, parts = -(-bw // chunk), _row_parts(rows)
+    shapes = ((dwq.splits, c, 3 * c), (dwp.splits, c, c), (chunks, 3 * c), (parts, c),
+              (parts, c), (parts, c), (chunks, heads, n, n))
+    return (ctypes.c_int * len(ints))(*ints), shapes
 
 
 def swin_block_train_forward(
@@ -860,23 +913,28 @@ def swin_mlp_bwd(
             "widths multiples of 8")
     _build.check_cuda_tensors(*_flat([x2, dy, *norm2, *fc1, fc2[0], m2]))
     dev, cd = x2.device, x2.dtype
+    plan, part_shapes = _mlp_bwd_plan(rows, c, hidden, x2.element_size(), sm_count(dev))
     xn2, dmlp, dx2 = (torch.empty((rows, c), dtype=cd, device=dev) for _ in range(3))
     g, dh1 = (torch.empty((rows, hidden), dtype=cd, device=dev) for _ in range(2))
-    h1 = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
+    # fp32 moves h1 between its two hidden-row products; bf16 keeps it in registers
+    h1 = (torch.empty((rows, hidden), dtype=torch.float32, device=dev)
+          if cd == torch.float32 else None)
     dxn2 = torch.empty((rows, c), dtype=torch.float32, device=dev)
-    dw1, db1, dw2, db2, dg2, dbe2 = _zeros_like_all(
+    parts = _fp32_buffers(dev, *part_shapes)
+    dw1, db1, dw2, db2, dg2, dbe2 = _fp32_buffers(
         dev, (c, hidden), (hidden,), (hidden, c), (c,), (c,), (c,))
     fn = _build.cuda_function(
         "swin_mlp_bwd", "swin_mlp_bwd_launch",
-        [_P] * 21 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, _P],
+        [_P] * 27 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.POINTER(ctypes.c_int),
+                                           ctypes.c_int, _P],
     )
     status = fn(
         x2.data_ptr(), dy.data_ptr(), norm2[0].data_ptr(), norm2[1].data_ptr(),
         fc1[0].data_ptr(), _ptr(fc1[1]), fc2[0].data_ptr(), m2.data_ptr(),
-        xn2.data_ptr(), h1.data_ptr(), g.data_ptr(), dmlp.data_ptr(), dh1.data_ptr(),
-        dxn2.data_ptr(), dx2.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
-        db2.data_ptr(), dg2.data_ptr(), dbe2.data_ptr(), rows, c, hidden, rows // b,
-        float(eps), _DTYPE_CODE[cd], _build.current_stream(),
+        xn2.data_ptr(), _ptr(h1), g.data_ptr(), dmlp.data_ptr(), dh1.data_ptr(),
+        dxn2.data_ptr(), dx2.data_ptr(), *(t.data_ptr() for t in parts), dw1.data_ptr(),
+        db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), dg2.data_ptr(), dbe2.data_ptr(),
+        rows, c, hidden, rows // b, float(eps), plan, _DTYPE_CODE[cd], _build.current_stream(),
     )
     _build.check_status(status, "swin_mlp_bwd")
     mlp_bwd_launches += 1
@@ -902,31 +960,34 @@ def swin_attn_bwd(
     _check_norm("swin_attn_bwd", norm1, c)
     _check_linears("swin_attn_bwd", x.dtype, qkv, proj)
     num_windows = _check_attention("swin_attn_bwd", x, qkv, proj, bias, mask, heads, None)[0]
-    if (2 * n * (n + 1) + 2 * n * (HEAD_DIM + 1)) * 4 > 227 * 1024 or c > 1024:
+    # the CUDA-core core's two N x N fp32 matrices, k and v, and its column sums
+    core_bytes = (2 * n * (n + 1) + 2 * n * (HEAD_DIM + 1) + 9 * 3 * HEAD_DIM) * 4
+    if core_bytes > 227 * 1024 or c > 1024:
         raise ValueError(
             f"swin_attn_bwd: window of {n} tokens at C={c} exceeds shared memory")
     _build.check_cuda_tensors(*_flat([x, dx2, *norm1, *qkv, proj[0], bias, mask, m1]))
     dev, cd = x.device, x.dtype
     rows = bw * n
+    plan, part_shapes = _attn_bwd_plan(bw, n, c, heads, x.element_size(), sm_count(dev))
     xn1, attn, dproj, dao, dx = (torch.empty((rows, c), dtype=cd, device=dev) for _ in range(5))
-    qkv_buf = torch.empty((rows, 3 * c), dtype=cd, device=dev)
-    dqkv = torch.empty((rows, 3 * c), dtype=torch.float32, device=dev)
-    dqkv_t = None if cd == torch.float32 else torch.empty((rows, 3 * c), dtype=cd, device=dev)
+    qkv_buf, dqkv = (torch.empty((rows, 3 * c), dtype=cd, device=dev) for _ in range(2))
     dxn1 = torch.empty((rows, c), dtype=torch.float32, device=dev)
-    dwqkv, dbqkv, dwproj, dbproj, dg1, dbe1, dbias = _zeros_like_all(
+    parts = _fp32_buffers(dev, *part_shapes)
+    dwqkv, dbqkv, dwproj, dbproj, dg1, dbe1, dbias = _fp32_buffers(
         dev, (c, 3 * c), (3 * c,), (c, c), (c,), (c,), (c,), (heads, n, n))
     fn = _build.cuda_function(
         "swin_attn_bwd", "swin_attn_bwd_launch",
-        [_P] * 26 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [_P],
+        [_P] * 32 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, _P],
     )
     status = fn(
         x.data_ptr(), dx2.data_ptr(), norm1[0].data_ptr(), norm1[1].data_ptr(),
         qkv[0].data_ptr(), _ptr(qkv[1]), proj[0].data_ptr(), bias.data_ptr(), _ptr(mask),
         m1.data_ptr(), xn1.data_ptr(), qkv_buf.data_ptr(), attn.data_ptr(), dproj.data_ptr(),
-        dao.data_ptr(), dqkv.data_ptr(), _ptr(dqkv_t), dxn1.data_ptr(), dx.data_ptr(),
-        dwqkv.data_ptr(), dbqkv.data_ptr(), dwproj.data_ptr(), dbproj.data_ptr(),
-        dg1.data_ptr(), dbe1.data_ptr(), dbias.data_ptr(), bw, n, c, heads, num_windows,
-        bw // b, float(scale), float(eps), form_for(xn1, rows, 3 * c, c), _DTYPE_CODE[cd],
+        dao.data_ptr(), dqkv.data_ptr(), dxn1.data_ptr(), dx.data_ptr(),
+        *(t.data_ptr() for t in parts), dwqkv.data_ptr(), dbqkv.data_ptr(), dwproj.data_ptr(),
+        dbproj.data_ptr(), dg1.data_ptr(), dbe1.data_ptr(), dbias.data_ptr(), bw, n, c, heads,
+        num_windows, bw // b, float(scale), float(eps), plan, _DTYPE_CODE[cd],
         _build.current_stream(),
     )
     _build.check_status(status, "swin_attn_bwd")

@@ -479,3 +479,55 @@ def test_shared_product_raises_outside_its_shapes(cuda):
     with pytest.raises(ValueError):
         fl.fused_linear(a, w.float(), b)
     assert fl.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, label", [
+    ("swin_mlp_bwd", "b4 stage0 x(256, 144, 192) bfloat16"),
+    ("swin_mlp_bwd", "stage1 x(32, 144, 384) bfloat16"),
+    ("swin_mlp_bwd", "stage2 x(8, 144, 768) float32"),
+    ("swin_attn_bwd", "b4 stage0 x(256, 144, 192) mask bfloat16"),
+    ("swin_attn_bwd", "stage1 x(32, 144, 384) nomask bfloat16"),
+    ("swin_attn_bwd", "stage2 x(8, 144, 768) mask float32"),
+])
+def test_training_backwards_repeat_bit_for_bit(cuda, kernel, label):
+    """B9c and B9b sum every gradient over the rows and windows in a fixed
+    order (chunks of the launch plan, then the chunks in order; no floating-
+    point atomics): two launches on the same inputs give the same bits in
+    every output, the weight, bias, LayerNorm and dbias gradients included."""
+    case = next(c for c in _cases.CASES[kernel](cuda) if c.label == label)
+    first = [t.clone() for t in case.run_kernel()]
+    again = case.run_kernel()
+    torch.cuda.synchronize()
+    assert len(first) == len(again)
+    for i, (f, g) in enumerate(zip(first, again)):
+        assert torch.equal(f, g), f"output {i} differs between two launches"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout, m, n, k", [
+    ("xw", 36864, 768, 192), ("dywt", 36864, 192, 768), ("atb", 192, 768, 36864),
+    ("atb", 768, 192, 36864), ("xw", 577, 200, 72), ("dywt", 1153, 104, 584),
+    ("atb", 200, 584, 1160), ("atb", 8, 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_product_in_each_layout(cuda, layout, m, n, k, dtype):
+    """The training backwards' product alone (`grad_product`) against fp32
+    products of the same stored values, at the XE step's stage-0 shapes and
+    at ragged ones (partial tiles and chunks): fp32 sums in another order
+    only, held to 1e-5 of the result's largest magnitude."""
+    g = torch.Generator().manual_seed(m + n + k)
+    shapes = {"xw": ((m, k), (k, n)), "dywt": ((m, k), (n, k)), "atb": ((k, m), (k, n))}[layout]
+    a, b = (torch.randn(s, generator=g).to(cuda, dtype) for s in shapes)
+    before = fl.grad_launches
+    got = fl.grad_product(a, b, layout)
+    want = fl.grad_product_reference(a, b, layout)
+    assert fl.grad_launches == before + 1
+    abs_err, rel_err, ok = _cases.compare(got, want, (1e-5 * float(want.abs().max()), 0.0))
+    assert ok, f"max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
+    assert torch.equal(got, fl.grad_product(a, b, layout))
+    if layout != "atb" and dtype == torch.bfloat16:  # rounded to bf16, as dao's
+        got = fl.grad_product(a, b, layout, rounded=True)
+        want = fl.grad_product_reference(a, b, layout, rounded=True)
+        assert got.dtype == dtype
+        abs_err, rel_err, ok = _cases.compare(got, want, _cases.TOL[dtype])
+        assert ok, f"rounded: max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
