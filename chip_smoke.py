@@ -15,7 +15,9 @@ Phases, in order (any failure raises and exits non-zero before the result):
    checkout (CUDA through nvcc, all sources at once; Triton through its JIT)
    and print the seconds.
 3. Each kernel against its plain PyTorch version on the card, at main-path
-   shapes, in fp32 and bf16, with the tolerance printed beside each check.
+   shapes, in fp32 and bf16, with the tolerance printed beside each check
+   (B6 in bf16: with one bf16 ulp of each of its output's two addends, and
+   the count of elements that needed it).
 4. Main path at full width, once per run of RUNS: the `attention_impl`
    "pallas" backbone; the "fused" backbone with its default stage modes (the
    whole-block kernel at stages 0 and 1) and the "pallas_fused" decode step;
@@ -86,8 +88,10 @@ Phases, in order (any failure raises and exits non-zero before the result):
    B12 as
    the whole call and as its product alone on the int8 x; the shared bf16
    product of B4, B5 and B8 alone at the four stage-2 products of a b8
-   encode, beside `F.linear` on the same tensors (a yardstick); the
-   training backwards' product alone at the nine products of B9c and B9b
+   encode, beside `F.linear` on the same tensors (a yardstick); B13's two
+   int8 products alone at its four main-path shapes (ops/_cases.py
+   MAIN_PATH_A8), beside `torch._int_mm` on the same int8 operands (a
+   yardstick); the training backwards' product alone at the nine products of B9c and B9b
    at the XE step's b4 shapes of stages 0-2, beside `torch.matmul` (a
    yardstick), and the CUDA launches in one call of B9c and of B9b; encode
    ms of the three backbone forms; decode ms per step of both step paths;
@@ -285,9 +289,12 @@ class Smoke:
             abs_err, rel_err, ok = _cases.compare(got, want, tol)
             if "int8" not in part:  # int8 parts count codes and steps, not errors of values
                 self.errors[case.kernel] = max(self.errors[case.kernel], abs_err)
+            slack = "" if len(tol) < 3 else (
+                f" + one bf16 ulp of each addend (needed by "
+                f"{_cases.slack_used(got, want, tol)} of {got.numel()} elements)")
             log(f"  [{'ok' if ok else 'FAIL'}] {case.kernel} {case.label} {part}: "
                 f"max_abs={abs_err:.3e} max_rel={rel_err:.3e} "
-                f"tol=atol {tol[0]:g} + rtol {tol[1]:g}")
+                f"tol=atol {tol[0]:g} + rtol {tol[1]:g}{slack}")
             if not ok:
                 raise AssertionError(
                     f"{case.kernel} {case.label} {part} disagrees with its plain version")
@@ -1216,6 +1223,47 @@ class Smoke:
                 f"{plan.tile}, {plan.ctas} CTAs), F.linear {fmt(lib)} ({tflops / lib:.0f} TFLOP/s) "
                 f"| {self.card}")
 
+    def a8_product_timing(self):
+        """B13's two int8 products alone at the main path's w8a8 shapes
+        (ops/_cases.py MAIN_PATH_A8): fc1 with its epilogue (the fp32 GELU
+        output and its row absmaxes) and fc2 with the residual (bf16), each
+        in the form the plan picks, beside `torch._int_mm` on the same int8
+        operands (a yardstick only: the port never calls it; it returns the
+        int32 sums and nothing else); device ms by CUDA-graph replay."""
+        torch = self.torch
+        from on_device_image_captioning_torch.ops import _cases
+        from on_device_image_captioning_torch.ops import linear_plan as lp
+        from on_device_image_captioning_torch.ops import swin_block_fused as sbf
+
+        g = torch.Generator().manual_seed(SEED + 11)
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        log(f"phase 6 B13's int8 products alone, device ms by CUDA-graph replay, beside "
+            f"torch._int_mm on the same int8 operands ({self.card})")
+        for b, stage in _cases.MAIN_PATH_A8:
+            c, _, res = _cases.STAGES[stage]
+            m = b * res * res
+            for name, k, n, fc2 in (("fc1", c, 4 * c, False), ("fc2", 4 * c, c, True)):
+                a_q = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(self.dev)
+                w_q = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(self.dev)
+                s = ((torch.rand((n,), generator=g) + 0.5) * (k ** -0.5 / 73.0)).to(self.dev)
+                bias = (torch.randn((n,), generator=g) * 0.2).to(self.dev)
+                if fc2:  # a_scale: the hidden rows' absmaxes
+                    a_scale = (torch.rand((m,), generator=g) + 1.0).to(self.dev)
+                    resid = torch.randn((m, n), generator=g).to(self.dev, torch.bfloat16)
+                else:
+                    a_scale = ((torch.rand((m,), generator=g) + 0.5) / 127.0).to(self.dev)
+                    resid = None
+                ms = self.graph_time(
+                    lambda: sbf.mlp_a8_product(a_q, a_scale, (w_q, s, bias), resid))
+                w_t = w_q.t()
+                lib = self.graph_time(lambda: torch._int_mm(a_q, w_t))
+                plan = lp.int8_plan(m, n, k, sms)
+                tops = 2 * m * n * k / 1e9
+                log(f"  b{b} stage{stage} {name} ({m}, {k}) -> {n}: {fmt(ms)} "
+                    f"({tops / ms:.0f} TOP/s; tile {plan.tile}, {plan.ctas} CTAs), "
+                    f"torch._int_mm {fmt(lib)} ({tops / lib:.0f} TOP/s), ratio "
+                    f"{ms / lib:.2f} | {self.card}")
+
     def grad_product_timing(self):
         """The training backwards' product alone at the XE step's b4 shapes of
         stages 0-2 (B9c's five products and B9b's four, each in the launch
@@ -1438,6 +1486,8 @@ def main(names) -> int:
     if names:
         smoke.kernels(names)
         smoke.kernel_timing(names)
+        if "swin_mlp_half_a8" in names:
+            smoke.a8_product_timing()
         if {"swin_mlp_bwd", "swin_attn_bwd"} & set(names):
             smoke.grad_product_timing()
             smoke.backward_launches()
@@ -1452,6 +1502,7 @@ def main(names) -> int:
     smoke.train_check()
     smoke.kernel_timing()
     smoke.product_timing()
+    smoke.a8_product_timing()
     smoke.grad_product_timing()
     smoke.backward_launches()
     smoke.path_timing()

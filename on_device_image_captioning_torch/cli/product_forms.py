@@ -1,6 +1,6 @@
 """The backbone's shared bf16 product alone in every tile form, on one card.
 
-    python -m on_device_image_captioning_torch.cli.product_forms [--backward] [--out FILE]
+    python -m on_device_image_captioning_torch.cli.product_forms [--backward | --int8] [--out FILE]
 
 At the main path's products (qkv, proj, fc1, fc2 of stage 2 at b8 and b1 and
 of stage 0 at b8, each with its own epilogue: the LayerNorm prologue on qkv
@@ -15,6 +15,13 @@ With --backward the same for the training backwards' product
 0-2: B9c's dxn2, dW1, dW2 and B9b's dao, dxn1, dWproj, dWqkv, each in every
 form of `ops/linear_plan.py::GRAD_FORMS` its layout takes (each with its own
 split), the form the plan picks, and `torch.matmul` on the same operands.
+
+With --int8 the same for the w8a8 MLP half B13 (`ops/swin_block_fused.py`)
+at its main-path shapes (ops/_cases.py MAIN_PATH_A8, bf16): its two int8
+products alone (`mlp_a8_product`: fc1 with its fp32 GELU epilogue, fc2 with
+the residual) in every form of `ops/linear_plan.py::INT8_FORMS`, the form the
+plan picks, and `torch._int_mm` on the same int8 operands; then the whole
+call.
 """
 from __future__ import annotations
 
@@ -57,8 +64,11 @@ def graph_ms(fn, iters: int = 20) -> float:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=str, default=None)
-    parser.add_argument("--backward", action="store_true",
-                        help="the training backwards' product at the XE step's b4 shapes")
+    kind = parser.add_mutually_exclusive_group()
+    kind.add_argument("--backward", action="store_true",
+                      help="the training backwards' product at the XE step's b4 shapes")
+    kind.add_argument("--int8", action="store_true",
+                      help="the w8a8 MLP half's products and hidden forms")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("product_forms: needs a CUDA card")
@@ -69,6 +79,8 @@ def main(argv=None) -> dict:
         torch.randn(shape, generator=g) * scale).to(dev, dt)
     if args.backward:
         return _write(backward_forms(card, dev, sms, rn), args.out)
+    if args.int8:
+        return _write(int8_forms(card, dev, sms, g), args.out)
     rows_out = []
     for label, m, c in SHAPES:
         x, h = rn((m, c), dt=torch.bfloat16), rn((m, 4 * c), dt=torch.bfloat16)
@@ -134,6 +146,49 @@ def backward_forms(card: str, dev, sms: int, rn) -> dict:
                              "matmul_ms": lib})
     return {"card": card, "forms": [list(map(int, (f.bm, f.bn, f.bk, f.stages, f.ctas)))
                                     for f in lp.GRAD_FORMS], "products": rows_out}
+
+
+def int8_forms(card: str, dev, sms: int, g) -> dict:
+    """B13's products in every int8 form and the whole call, at the main
+    path's w8a8 shapes."""
+    from ..ops import _cases
+    from ..ops import swin_block_fused as sbf
+
+    ri = lambda shape: torch.randint(  # noqa: E731
+        -127, 128, shape, generator=g, dtype=torch.int8).to(dev)
+    ru = lambda shape, lo, hi: (  # noqa: E731
+        torch.rand(shape, generator=g) * (hi - lo) + lo).to(dev)
+    rows_out, halves = [], []
+    for b, stage in _cases.MAIN_PATH_A8:
+        c, _, res = _cases.STAGES[stage]
+        m, label = b * res * res, f"b{b} stage{stage}"
+        for name, k, n, fc2 in (("fc1", c, 4 * c, False), ("fc2", 4 * c, c, True)):
+            a_q, w_q = ri((m, k)), ri((n, k))
+            lin = (w_q, ru((n,), 0.5, 1.5) * (k ** -0.5 / 73.0), ru((n,), -0.2, 0.2))
+            if fc2:
+                a_scale = ru((m,), 1.0, 2.0)
+                resid = torch.randn((m, n), generator=g).to(dev, torch.bfloat16)
+            else:
+                a_scale, resid = ru((m,), 0.5, 1.5) / 127.0, None
+            ms = {f: graph_ms(lambda f=f: sbf.mlp_a8_product(a_q, a_scale, lin, resid, form=f))
+                  for f in range(len(lp.INT8_FORMS))}
+            w_t = w_q.t()
+            lib = graph_ms(lambda: torch._int_mm(a_q, w_t))
+            plan = lp.int8_plan(m, n, k, sms).form
+            tops = 2 * m * n * k / 1e9
+            print(f"{label} {name} ({m}, {k}) -> {n}: "
+                  + ", ".join(f"form {f}{'*' if f == plan else ''} {t:.4f} ms "
+                              f"({tops / t:.0f} TOP/s)" for f, t in ms.items())
+                  + f"; torch._int_mm {lib:.4f} ms ({tops / lib:.0f} TOP/s) | {card}", flush=True)
+            rows_out.append({"shape": label, "product": name, "m": m, "n": n, "k": k,
+                             "form_ms": ms, "plan": plan, "int_mm_ms": lib})
+        case = next(x for x in _cases.swin_mlp_half_a8_cases(dev) if x.label.startswith(label))
+        ms = graph_ms(case.time_kernel)
+        print(f"{label} B13 {case.label}: {ms:.4f} ms | {card}", flush=True)
+        halves.append({"shape": label, "ms": ms})
+    return {"card": card, "forms": [list(map(int, (f.bm, f.bn, f.stages, f.ctas)))
+                                    for f in lp.INT8_FORMS], "products": rows_out,
+            "halves": halves}
 
 
 if __name__ == "__main__":

@@ -292,3 +292,124 @@ def core_chunk(bw: int, heads: int, n: int, sms: int) -> int:
 
     return min(range(1, bw + 1), key=lambda g: (cost(g), -g))
 
+
+# ---------------------------------------------------------------------------
+# B13's int8 products (`a8_product_kernel` of csrc/swin_mlp_half_a8.cu): wgmma
+# s8 x s8 -> s32 with both operands K-major, K in slabs of 128 values (one
+# 128-byte swizzled row; a zero-filled tail where K is not a multiple of 128),
+# a CTA of one or two warpgroups over a BM x BN tile, K never split. The tile
+# forms are `kInt8Forms` of that file (INT8_FORMS here, in order; the CPU
+# tests hold the two to each other). The grid is one-dimensional, a CTA a tile: CTA t
+# takes row tile t // column tiles and column tile t % column tiles.
+#
+# How a form is chosen: the least modelled time. The grid runs in rounds of
+# one tile on each CTA slot of every SM (form.ctas an SM). A round takes the
+# longer of its tiles' A and W slabs through the SM's share of L2
+# (INT8_SM_BYTES_S) and their epilogues on the SM's ALUs (INT8_VALUE_S an
+# output value: fc1's exact-erf GELU costs as much as its products), plus a
+# ring's fill (INT8_ROUND_S) and one tile's epilogue that no other CTA
+# hides. The three constants are fitted to `cli/product_forms --int8` on an
+# H100 (PERF.md): they pick the measured-fastest form at seven of the main
+# path's eight products and one within 5% at the eighth (b1's fc1).
+
+INT8_SLAB = 128
+INT8_SM_BYTES_S = 80e9  # operand bytes an SM draws from L2 a second for the int8 products
+INT8_VALUE_S = 0.2e-9  # epilogue seconds an output value on one SM
+INT8_ROUND_S = 4e-6  # a round's exposed latency: the ring's first slabs
+MAX_GRID = 2**31 - 1  # CTAs of a one-dimensional grid
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Form:
+    bm: int
+    bn: int
+    stages: int
+    ctas: int  # CTAs an SM holds at this shared memory (the launch bounds)
+
+    @property
+    def shared_bytes(self) -> int:
+        """Dynamic shared memory, as `int8_smem` in the kernel's source: the
+        ring, 1024 bytes to align it, a full and an empty barrier per stage,
+        a scale a row, a scale and a bias a column."""
+        return (self.stages * (self.bm + self.bn) * INT8_SLAB + 1024 + 2 * self.stages * 8
+                + (self.bm + 2 * self.bn) * 4)
+
+
+# `kInt8Forms` of csrc/swin_mlp_half_a8.cu, in its order
+INT8_FORMS: Tuple[Int8Form, ...] = (
+    Int8Form(128, 128, 3, 2),
+    Int8Form(128, 64, 3, 3),
+    Int8Form(64, 64, 3, 4),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Plan:
+    m: int
+    n: int
+    k: int
+    form: int  # index of INT8_FORMS
+    tile: Tuple[int, int]  # (rows, columns) of a CTA's output tile
+    grid: Tuple[int, int]  # (column tiles, row tiles), flattened column tiles fastest
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def tile_of(self, cta: int) -> Tuple[int, int]:
+        """(column tile, row tile) of CTA `cta` of the one-dimensional grid."""
+        return cta % self.grid[0], cta // self.grid[0]
+
+    def tile_span(self, bx: int, by: int) -> Tuple[range, range]:
+        """The output rows and columns tile (bx, by) writes (clipped to M, N)."""
+        bm, bn = self.tile
+        return (range(by * bm, min(self.m, (by + 1) * bm)),
+                range(bx * bn, min(self.n, (bx + 1) * bn)))
+
+    def k_slabs(self) -> List[Tuple[int, int]]:
+        """(first K value, values read) of each slab, in the order every CTA
+        walks them; the last slab's zero-filled tail is not read."""
+        return [(k0, min(INT8_SLAB, self.k - k0)) for k0 in range(0, self.k, INT8_SLAB)]
+
+
+def _int8_seconds(f: Int8Form, m: int, n: int, k: int, sms: int) -> float:
+    """The model's time of an int8 product in form f (see above)."""
+    rounds = _cdiv(_cdiv(m, f.bm) * _cdiv(n, f.bn), sms * f.ctas)
+    loads = f.ctas * (f.bm + f.bn) * _cdiv(k, INT8_SLAB) * INT8_SLAB / INT8_SM_BYTES_S
+    epilogue = f.bm * f.bn * INT8_VALUE_S
+    return rounds * (max(loads, f.ctas * epilogue) + INT8_ROUND_S + epilogue)
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_plan(m: int, n: int, k: int, sms: int, form: Optional[int] = None) -> Int8Plan:
+    """The launch of B13's int8 product out (M, N) = A (M, K) @ W (N, K)^T on
+    a card of `sms` SMs, in the form of least modelled time or in `form` (a
+    yardstick's way to compare forms). Raises ValueError where the kernel
+    does not take the shapes: M >= 1, N and K positive multiples of 16
+    (16-byte int8 chunks and staged output rows)."""
+    if m < 1 or n < 16 or k < 16 or sms < 1:
+        raise ValueError(f"int8_plan: unsupported shapes M={m} N={n} K={k}")
+    if n % 16 or k % 16:
+        raise ValueError(f"int8_plan: N={n} and K={k} must be multiples of 16")
+    if form is None:
+        form = min(range(len(INT8_FORMS)),
+                   key=lambda i: (_int8_seconds(INT8_FORMS[i], m, n, k, sms), i))
+    elif not 0 <= form < len(INT8_FORMS):
+        raise ValueError(f"int8_plan: no form {form}")
+    f = INT8_FORMS[form]
+    grid = (_cdiv(n, f.bn), _cdiv(m, f.bm))
+    if grid[0] * grid[1] > MAX_GRID:
+        raise ValueError(f"int8_plan: M={m} x N={n} takes more CTAs than a grid holds")
+    return Int8Plan(m, n, k, form, (f.bm, f.bn), grid)
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpA8Plan:
+    fc1: Int8Plan  # (rows, hidden) fp32 GELU = LN2 rows (rows, C) @ W1 (hidden, C)^T
+    fc2: Int8Plan  # (rows, C) = int8 hidden (rows, hidden) @ W2 (C, hidden)^T
+
+
+@functools.lru_cache(maxsize=1024)
+def mlp_a8_plan(rows: int, c: int, hidden: int, sms: int) -> MlpA8Plan:
+    """B13's launch: fc1's form and fc2's."""
+    return MlpA8Plan(int8_plan(rows, hidden, c, sms), int8_plan(rows, c, hidden, sms))

@@ -41,17 +41,20 @@ from . import _build
 from . import quant_matmul as qm
 from .block_plan import BlockPlan, plan_for
 from .layernorm import layernorm_reference
-from .linear_plan import core_chunk, form_for, grad_plan, linear_plan, sm_count
+from .linear_plan import (
+    core_chunk, form_for, grad_plan, int8_plan, linear_plan, mlp_a8_plan, sm_count,
+)
 from .window_attention import HEAD_DIM
 from .window_layout import window_transition_perm
 
 # wrapper calls that launched their kernels since the last reset (plain-version
 # calls do not count); one call of B6 is one launch, of B4 a chain of three,
-# of B5 two, of B13 three
+# of B5 two, of B13 four
 block_launches = 0
 attn_half_launches = 0
 mlp_half_launches = 0
 mlp_half_a8_launches = 0
+mlp_a8_product_launches = 0  # B13's products alone (`mlp_a8_product`: timing, card tests)
 transition_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -121,13 +124,20 @@ def swin_attn_half_reference(
     return x + linear_reference(h, *proj)
 
 
-def swin_mlp_half_reference(
+def swin_mlp_branch_reference(
     x: torch.Tensor, norm2: Norm, fc1: Linear, fc2: Linear, eps: float
 ) -> torch.Tensor:
+    """fc2(GELU(fc1(LN2(x)))) rounded to x's dtype: what the MLP half adds."""
     h = layernorm_reference(x, norm2[0], norm2[1], eps)
     h = linear_reference(h, *fc1)
     h = F.gelu(h.float()).to(h.dtype)  # exact erf, in fp32
-    return x + linear_reference(h, *fc2)
+    return linear_reference(h, *fc2)
+
+
+def swin_mlp_half_reference(
+    x: torch.Tensor, norm2: Norm, fc1: Linear, fc2: Linear, eps: float
+) -> torch.Tensor:
+    return x + swin_mlp_branch_reference(x, norm2, fc1, fc2, eps)
 
 
 def swin_block_reference(
@@ -421,40 +431,111 @@ def swin_mlp_half_a8(
     and per-row int8 activations (a w8a8 block's MLP half). CPU tensors get the
     plain version; CUDA tensors get kernel B13. hidden=True also returns the
     int8 rows the two products read, LN2's and the hidden (on the card the
-    latter formed from the fp32 hidden and its row maxima exactly as the third
-    launch forms them; for checks)."""
-    global mlp_half_a8_launches
+    very buffers the kernel's products read; for checks)."""
     if not _check_device(x, "swin_mlp_half_a8"):
         return swin_mlp_half_a8_reference(x, norm2, fc1, fc2, eps, hidden)
+    out, xq, _, hq, _ = _launch_mlp_half_a8(x, norm2, fc1, fc2, eps)
+    return (out, xq, hq) if hidden else out
+
+
+def _launch_mlp_half_a8(
+    x: torch.Tensor, norm2: Norm, fc1: QuantLinear, fc2: QuantLinear, eps: float
+) -> Tuple[torch.Tensor, ...]:
+    """B13 on CUDA tensors in the launch `ops/linear_plan.py::mlp_a8_plan`
+    picks. Returns the output, LN2's int8 rows and their scales, the int8
+    hidden and its rows' absmaxes: what fc1 and fc2 read."""
+    global mlp_half_a8_launches
     c = x.shape[-1]
     rows = x.numel() // c
     _check_norm("swin_mlp_half_a8", norm2, c)
     hid = _check_quant_linears("swin_mlp_half_a8", c, fc1, fc2)
-    x = qm.aligned(x)
+    # 16-byte accesses: x, the LayerNorm parameters and the int8 weight rows
+    x, norm2 = qm.aligned(x), tuple(qm.aligned(t) for t in norm2)
+    fc1 = (qm.aligned(fc1[0]), *fc1[1:])
+    fc2 = (qm.aligned(fc2[0]), *fc2[1:])
     _build.check_cuda_tensors(*_flat([x, *norm2, *fc1, *fc2]))
+    plan = mlp_a8_plan(rows, c, hid, sm_count(x.device))
     dev = x.device
     xq = torch.empty((rows, c), dtype=torch.int8, device=dev)
     xs = torch.empty((rows,), dtype=torch.float32, device=dev)
-    hidden_buf = torch.empty((rows, hid), dtype=torch.float32, device=dev)
+    gelu = torch.empty((rows, hid), dtype=torch.float32, device=dev)
+    hq = torch.empty((rows, hid), dtype=torch.int8, device=dev)
     hmax = torch.empty((rows,), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     fn = _build.cuda_function(
         "swin_mlp_half_a8", "swin_mlp_half_a8_launch",
-        [_P] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P],
+        [_P] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3 + [_P],
     )
     status = fn(
         x.data_ptr(), norm2[0].data_ptr(), norm2[1].data_ptr(),
         fc1[0].data_ptr(), fc1[1].data_ptr(), _ptr(fc1[2]),
         fc2[0].data_ptr(), fc2[1].data_ptr(), _ptr(fc2[2]),
-        xq.data_ptr(), xs.data_ptr(), hidden_buf.data_ptr(), hmax.data_ptr(), out.data_ptr(),
-        rows, c, hid, float(eps), _DTYPE_CODE[x.dtype], _build.current_stream(),
+        xq.data_ptr(), xs.data_ptr(), gelu.data_ptr(), hq.data_ptr(), hmax.data_ptr(),
+        out.data_ptr(), rows, c, hid, float(eps), plan.fc1.form, plan.fc2.form,
+        _DTYPE_CODE[x.dtype], _build.current_stream(),
     )
     _build.check_status(status, "swin_mlp_half_a8")
     mlp_half_a8_launches += 1
-    if hidden:
-        scale = torch.clamp(hmax, min=1e-8)[:, None] / qm.QMAX
-        return out, xq, qm.quantize(hidden_buf, scale)
-    return out
+    return out, xq, xs, hq, hmax
+
+
+def _amax_scales(amax: torch.Tensor) -> torch.Tensor:
+    """(R, 1) row scales max(amax, 1e-8) / 127 of row absmaxes (R,), by IEEE
+    division (a CUDA division by a Python number would multiply by a rounded
+    reciprocal)."""
+    return torch.clamp(amax, min=1e-8)[:, None] / amax.new_full((), qm.QMAX)
+
+
+def mlp_a8_product_reference(
+    a_q: torch.Tensor, a_scale: torch.Tensor, lin: QuantLinear,
+    resid: Optional[torch.Tensor] = None,
+):
+    """The plain version of `mlp_a8_product`: fc1 (resid None) GELU(y) and
+    its row absmaxes, or fc2 resid + T(z) with a_scale the hidden rows'
+    absmaxes."""
+    if resid is None:
+        y = F.gelu(_int8_linear_reference(a_q, a_scale[:, None], lin))
+        return y, y.abs().amax(dim=1)
+    z = _int8_linear_reference(a_q, _amax_scales(a_scale), lin)
+    return resid + z.to(resid.dtype)
+
+
+def mlp_a8_product(
+    a_q: torch.Tensor, a_scale: torch.Tensor, lin: QuantLinear,
+    resid: Optional[torch.Tensor] = None, form: Optional[int] = None,
+):
+    """One of B13's int8 products alone (for timing and card tests): fc1,
+    a_q (M, K) int8 LN2 rows with scales a_scale (M,), giving GELU(y) (M, N)
+    in fp32 and its row absmaxes (M,); or, with resid (M, N) in fp32 / bf16,
+    fc2 on the int8 hidden a_q whose row absmaxes are a_scale, giving resid +
+    T(z). In the form `int8_plan` picks or in `form`. CPU tensors get the
+    plain version."""
+    global mlp_a8_product_launches
+    if a_q.device.type == "cpu":
+        return mlp_a8_product_reference(a_q, a_scale, lin, resid)
+    w_q, s, b = lin
+    (m, k), n = a_q.shape, w_q.shape[0]
+    fc2 = resid is not None
+    fp32 = lambda t, shape: t.dtype == torch.float32 and t.shape == shape  # noqa: E731
+    if (a_q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.shape != (n, k)
+            or not fp32(a_scale, (m,)) or not fp32(s, (n,)) or (b is not None and not fp32(b, (n,)))
+            or (fc2 and (resid.shape != (m, n) or resid.dtype not in _DTYPE_CODE))):
+        raise ValueError("mlp_a8_product: int8 (M, K) rows with fp32 (M,) scales, an int8 (N, K) "
+                         "weight with fp32 (N,) scales and bias and, for fc2, an (M, N) fp32 / "
+                         "bf16 residual")
+    plan = int8_plan(m, n, k, sm_count(a_q.device), form)
+    _build.check_cuda_tensors(*_flat([a_q, a_scale, w_q, s, b, resid]))
+    hmax = None if fc2 else torch.zeros((m,), dtype=torch.float32, device=a_q.device)
+    out = (torch.empty_like(resid) if fc2
+           else torch.empty((m, n), dtype=torch.float32, device=a_q.device))
+    fn = _build.cuda_function("swin_mlp_half_a8", "a8_product_launch",
+                              [_P] * 8 + [ctypes.c_int] * 6 + [_P])
+    status = fn(a_q.data_ptr(), a_scale.data_ptr(), w_q.data_ptr(), s.data_ptr(), _ptr(b),
+                _ptr(hmax), out.data_ptr(), _ptr(resid), m, n, k, int(fc2), plan.form,
+                _DTYPE_CODE[resid.dtype] if fc2 else 0, _build.current_stream())
+    _build.check_status(status, "mlp_a8_product")
+    mlp_a8_product_launches += 1
+    return out if fc2 else (out, hmax)
 
 
 TRANSITION_WARPS = 8  # warps of a CTA of kernel B11

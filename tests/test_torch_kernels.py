@@ -283,6 +283,108 @@ def test_int8_kernels_raise_outside_their_shapes(cuda):
 
 
 @pytest.mark.cuda
+def test_int8_mlp_half_raises_outside_its_shapes(cuda):
+    """B13 takes int8 weights (4C, C) and (C, 4C) with C and the hidden width
+    multiples of 16 (16-byte int8 chunks); on the card it launches or raises."""
+    case = next(c for c in _cases.swin_mlp_half_a8_cases(cuda) if "stage0" in c.label)
+    x, norm2, fc1, fc2, eps = case.args
+    before = sbf.mlp_half_a8_launches
+    with pytest.raises(ValueError, match="int8"):
+        sbf.swin_mlp_half_a8(x, norm2, (fc1[0].to(torch.bfloat16), *fc1[1:]), fc2, eps)
+    with pytest.raises(ValueError, match="int8"):
+        sbf.swin_mlp_half_a8(x, norm2, fc1, (fc2[0].float(), *fc2[1:]), eps)
+    narrow = x[..., :184].contiguous()  # C = 184: not a multiple of 16
+    norm = (norm2[0][:184].contiguous(), norm2[1][:184].contiguous())
+    w1 = (fc1[0][:736, :184].contiguous(), fc1[1][:736].contiguous(), fc1[2][:736].contiguous())
+    w2 = (fc2[0][:184, :736].contiguous(), fc2[1][:184].contiguous(), fc2[2][:184].contiguous())
+    with pytest.raises(ValueError, match="multiples of 16"):
+        sbf.swin_mlp_half_a8(narrow, norm, w1, w2, eps)
+    w1 = (fc1[0][:760].contiguous(), fc1[1][:760].contiguous(), fc1[2][:760].contiguous())
+    w2 = (fc2[0][:, :760].contiguous(), fc2[1], fc2[2])  # hidden 760: not a multiple of 16
+    with pytest.raises(ValueError, match="multiples of 16"):
+        sbf.swin_mlp_half_a8(x, norm2, w1, w2, eps)
+    assert sbf.mlp_half_a8_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["b8 stage0 ", "b1 stage2 "])
+def test_int8_mlp_half_launches_repeat_bit_for_bit(cuda, label):
+    """B13 sums every output in one CTA in a fixed order (K is not split) and
+    its only atomic is the max on the bits of non-negative floats: two
+    launches on the same inputs give the same bits, outputs and int8 rows."""
+    case = next(c for c in _cases.swin_mlp_half_a8_cases(cuda) if c.label.startswith(label))
+    first = [t.clone() for t in case.run_kernel()]
+    again = case.run_kernel()
+    torch.cuda.synchronize()
+    assert all(torch.equal(f, g) for f, g in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["stage0 ", "b1 stage2 "])
+def test_int8_mlp_half_hidden_is_what_fc2_read(cuda, label):
+    """hidden=True returns the kernel's own int8 buffers: fc1 alone on LN2's
+    int8 rows gives the row absmaxes, and its GELU output quantized by them
+    (IEEE division, as the kernel) the hidden, bit for bit; fc2 alone on that
+    hidden gives the half's output bit for bit (same forms, same sums)."""
+    case = next(c for c in _cases.swin_mlp_half_a8_cases(cuda) if c.label.startswith(label))
+    x, norm2, fc1, fc2, eps = case.args
+    out, xq, xs, hq, hmax = sbf._launch_mlp_half_a8(x, norm2, fc1, fc2, eps)
+    _, want_xq, want_hq = sbf.swin_mlp_half_a8(x, norm2, fc1, fc2, eps, hidden=True)
+    assert torch.equal(xq, want_xq) and torch.equal(hq, want_hq)
+    gelu, amax = sbf.mlp_a8_product(xq, xs, fc1)
+    assert torch.equal(amax, hmax)
+    assert torch.equal(qm.quantize(gelu, sbf._amax_scales(hmax)), hq)
+    c = x.shape[-1]
+    got = sbf.mlp_a8_product(hq, hmax, fc2, resid=x.reshape(-1, c))
+    assert torch.equal(got, out.reshape(-1, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, c", [(200, 192), (576, 768), (4608, 384)])
+@pytest.mark.parametrize("form", [None, 0, 1, 2])
+def test_int8_products_alone_in_every_form(cuda, m, c, form):
+    """B13's products alone (`mlp_a8_product`) in each int8 form against their
+    plain versions on the card: K = 192 (a slab and a half), N = 192 and 200
+    rows (a ragged row tile). fc2's output bit for bit (int32 sums are exact
+    and the epilogue rounds as the plain version does); fc1's fp32 GELU and
+    its row absmaxes within 1e-6 of their max (erff against torch's erf)."""
+    g = torch.Generator().manual_seed(m + c)
+    ri = lambda *shape: torch.randint(  # noqa: E731
+        -127, 128, shape, generator=g, dtype=torch.int8).to(cuda)
+    for k, n, fc2 in ((c, 4 * c, False), (4 * c, c, True)):
+        a_q, w_q = ri(m, k), ri(n, k)
+        lin = (w_q, ((torch.rand(n, generator=g) + 0.5) * (k ** -0.5 / 73.0)).to(cuda),
+               (torch.randn(n, generator=g) * 0.2).to(cuda))
+        if fc2:
+            a_scale = (torch.rand(m, generator=g) + 1.0).to(cuda)
+            resid = torch.randn((m, n), generator=g).to(cuda, torch.bfloat16)
+        else:
+            a_scale, resid = ((torch.rand(m, generator=g) + 0.5) / 127.0).to(cuda), None
+        before = sbf.mlp_a8_product_launches
+        got = sbf.mlp_a8_product(a_q, a_scale, lin, resid, form=form)
+        want = sbf.mlp_a8_product_reference(a_q, a_scale, lin, resid)
+        assert sbf.mlp_a8_product_launches == before + 1
+        if fc2:
+            assert torch.equal(got, want)
+        else:
+            for part, w in zip(got, want):
+                abs_err, _, ok = _cases.compare(part, w, _cases._within_max(1e-6)(w))
+                assert ok, f"fc1 ({m}, {k}) -> {n} form {form}: {abs_err:.3e}"
+
+
+@pytest.mark.cuda
+def test_whole_block_first_seed_case_within_addend_ulps(cuda):
+    """The b8 stage-1 B6 case drawn from the first seed base (1221), whose
+    output adds x1 and the MLP branch where they nearly cancel, holds under
+    the bf16 bound of ops/_cases.py: TOL plus one bf16 ulp of each addend."""
+    case = next(c for c in _cases.swin_block_cases(cuda) if c.label.startswith("seed1221 "))
+    for part, got, want, tol in case.check():
+        abs_err, rel_err, ok = _cases.compare(got, want, tol)
+        assert len(tol) == 3 and ok, (f"{case.label} {part}: max_abs {abs_err:.3e}, "
+                                      f"{_cases.slack_used(got, want, tol)} in the slack")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [63, 64, 65, 66])
 @pytest.mark.parametrize("k, n", [(48, 192), (512, _cases.VOCAB), (2080, 512)])
 @pytest.mark.parametrize("dtype, static", [(torch.float32, False), (torch.bfloat16, False),

@@ -244,6 +244,53 @@ def test_case_compare_matches_nan_and_inf_and_applies_tolerance():
     assert not pcases.compare(torch.zeros(2), torch.zeros(3), (1.0, 1.0))[2]
 
 
+def test_case_compare_takes_an_elementwise_slack():
+    """A (atol, rtol, slack) tolerance adds the slack tensor elementwise to
+    atol + rtol |want|; `slack_used` counts the elements that need it."""
+    got, want = torch.tensor([1.0, 0.0, 5.0]), torch.tensor([1.0, 0.1, 5.2])
+    tol = (0.05, 0.0, torch.tensor([0.0, 0.06, 0.2]))
+    assert pcases.compare(got, want, tol)[2] and pcases.slack_used(got, want, tol) == 2
+    tight = (0.05, 0.0, torch.tensor([0.0, 0.04, 0.2]))
+    assert not pcases.compare(got, want, tight)[2]
+    assert pcases.slack_used(got, want, (0.05, 0.0)) == 0
+
+
+def test_bf16_ulp_of_the_addends():
+    """`_ulp_bf16`: the spacing of bf16 values at |t| (2^-7 relative to the
+    power of two below), 0 at 0; one ulp up from a bf16 value is the next."""
+    t = torch.tensor([1.0, -1.5, 2.0, 0.75, 0.0, 3e-3])
+    want = torch.tensor([2.0 ** -7, 2.0 ** -7, 2.0 ** -6, 2.0 ** -8, 0.0, 2.0 ** -16])
+    assert torch.equal(pcases._ulp_bf16(t), want)
+    b = torch.randn(1000, generator=torch.Generator().manual_seed(3)).to(torch.bfloat16)
+    up = (b.float().abs() + pcases._ulp_bf16(b)).to(torch.bfloat16)
+    nxt = torch.nextafter(b.float().abs().to(torch.bfloat16), torch.tensor(float("inf"),
+                                                                          dtype=torch.bfloat16))
+    assert torch.equal(up, nxt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whole_block_plain_addends_sum_to_its_output(dtype):
+    """The B6 check's plain side (ops/_cases.py `_block_plain`): x1 (B4's plain
+    version) plus the MLP branch is `swin_block_reference`'s output, bit for
+    bit, with the mask and the transition."""
+    from on_device_image_captioning_torch.models.swin import shift_attn_mask
+    from on_device_image_captioning_torch.ops import swin_block_fused as sbf
+
+    g = torch.Generator().manual_seed(7)
+    c, heads, res, win = 64, 2, 8, 4
+    rn = lambda *shape, s=1.0: (torch.randn(shape, generator=g) * s)  # noqa: E731
+    x = rn(8, 16, c).to(dtype)
+    norm1, norm2 = (rn(c, s=0.2) + 1, rn(c, s=0.2)), (rn(c, s=0.2) + 1, rn(c, s=0.2))
+    lin = lambda k, n: (rn(k, n, s=k ** -0.5).to(dtype), rn(n, s=0.2))  # noqa: E731
+    mask = torch.from_numpy(shift_attn_mask(res, win, 2))
+    a = (x, norm1, lin(c, 3 * c), lin(c, c), norm2, lin(c, 4 * c), lin(4 * c, c),
+         rn(heads, 16, 16, s=0.5), mask, heads, 32 ** -0.5, 1e-5, (res, 0, 2))
+    out, x1, branch = pcases._block_plain(a)
+    assert torch.equal(out, sbf.swin_block_reference(*a))
+    assert torch.equal(x1, sbf.swin_attn_half_reference(*a[:4], *a[7:]))
+    assert torch.equal(x1 + branch, sbf.swin_mlp_half_reference(x1, *a[4:7], 1e-5))
+
+
 # ---------------------------------------------------------------------------
 # masks and CPU dispatch
 # ---------------------------------------------------------------------------
