@@ -12,8 +12,7 @@ Phases, in order (any failure raises and exits non-zero before the result):
 
 1. Device: card name and power limit; TF32 off for matmuls and cuDNN.
 2. Build: compile every kernel of the main path from the sources in the
-   checkout (CUDA through nvcc, all sources at once; Triton through its JIT)
-   and print the seconds.
+   checkout (nvcc, all sources at once) and print the seconds.
 3. Each kernel against its plain PyTorch version on the card, at main-path
    shapes, in fp32 and bf16, with the tolerance printed beside each check
    (B6 in bf16: with one bf16 ulp of each of its output's two addends, and
@@ -93,8 +92,10 @@ Phases, in order (any failure raises and exits non-zero before the result):
    MAIN_PATH_A8), beside `torch._int_mm` on the same int8 operands (a
    yardstick); the training backwards' product alone at the nine products of B9c and B9b
    at the XE step's b4 shapes of stages 0-2, beside `torch.matmul` (a
-   yardstick), and the CUDA launches in one call of B9c and of B9b; encode
-   ms of the three backbone forms; decode ms per step of both step paths;
+   yardstick), and the CUDA launches in one call of B9c and of B9b; K3 at
+   each of its cases in every cluster size the kernel takes (1 to 16 CTAs a
+   row), each held exactly to the plain version, the plan's size marked;
+   encode ms of the three backbone forms; decode ms per step of both step paths;
    end-to-end img/s at b8/beam 3/L20 and p50 latency at b1/beam 5/L74, bf16,
    on the default path; encode ms of the w8a8 model against the "fused"
    bf16 one in turns, its decode ms per step and img/s at b8; ms per XE step at b4 bf16 with its split into
@@ -142,6 +143,9 @@ HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS, INT8_OPS = 3.35e12, 989e12, 67e12, 1979e12
 BF16_FEATURES_REL_RMS = 2.1e-2
 _TPU = "on_device_image_captioning_tpu/ops/"
 _PORT = "on_device_image_captioning_torch/"
+# labels of the cases at a main-path shape of their own (ops/_cases.py): the
+# kernels line lists their times
+MAIN_PATH_LABEL = re.compile(r"b\d+ (stage\d|decode|encoder|sampling) ")
 # kernel -> route, source, the TPU kernel it replaces, (ops module, launch
 # counter), the runs that launch it, and the phase-6 case whose times go into
 # the {"kernels": ...} line
@@ -159,7 +163,7 @@ KERNELS = {
         replaces=_TPU + "topk.py:78", counter=("topk", "launches"),
         paths=ALL_RUNS + Q_RUNS, headline="R24 V10000 k3 float32"),
     "layernorm": dict(
-        route="triton", source=_PORT + "ops/layernorm.py",
+        route="cuda", source=_PORT + "csrc/layernorm.cu",
         replaces=_TPU + "layernorm.py:36", counter=("layernorm", "launches"),
         paths=ALL_RUNS + (TRAIN,) + Q_RUNS, headline="(18432, 192) bfloat16"),
     "patch_embed": dict(
@@ -418,20 +422,15 @@ class Smoke:
 
     # -- phase 2 ---------------------------------------------------------------
     def build(self):
-        torch = self.torch
-        from on_device_image_captioning_torch.ops import _build, layernorm
+        from on_device_image_captioning_torch.ops import _build
 
         start = time.perf_counter()
         _build.compile_all()
         for src in sorted(_build.CSRC_DIR.glob("*.cu")):
             _build.load_cuda_library(src.stem)
-        x = torch.ones((4, 192), device=self.dev)
-        layernorm.layernorm(x, torch.ones(192, device=self.dev), torch.zeros(192, device=self.dev))
-        torch.cuda.synchronize()
         total = time.perf_counter() - start
         per = ", ".join(f"{k} {v:.1f}s" for k, v in _build.build_seconds.items())
-        log(f"phase 2 build: {total:.1f}s in all (nvcc, all sources at once: {per}; "
-            f"the rest is the Triton JIT)")
+        log(f"phase 2 build: {total:.1f}s in all (nvcc, all sources at once: {per})")
 
     # -- phase 3 ---------------------------------------------------------------
     def kernels(self, names=None):
@@ -1313,6 +1312,34 @@ class Smoke:
             log(f"  stage{stage} all nine: {ms_sum:.4f} ms ({flops / ms_sum:.0f} TFLOP/s), "
                 f"torch.matmul {lib_sum:.4f} ms ({flops / lib_sum:.0f} TFLOP/s) | {self.card}")
 
+    def topk_cluster_timing(self):
+        """K3 at each of its cases in every cluster size the kernel takes,
+        each held exactly to the plain version, device ms by CUDA-graph
+        replay; the size `topk_plan` picks is marked."""
+        torch = self.torch
+        from on_device_image_captioning_torch.ops import _cases
+        from on_device_image_captioning_torch.ops import topk as k3
+
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        log(f"phase 6 K3 in every cluster size, device ms by CUDA-graph replay ({self.card})")
+        for case in _cases.CASES["topk"](self.dev):
+            x, k = case.args
+            rows, v = x.shape
+            pick = k3.topk_plan(rows, v, k, sms, x.element_size()).cluster
+            want = k3.topk_reference(x, k)
+            times = []
+            for cluster in k3.CLUSTER_SIZES:
+                plan = k3.TopkPlan(cluster, rows * cluster)
+                got = k3.launch(x, k, plan)
+                for part, a, b in (("indices", got[1], want[1]), ("values", got[0], want[0])):
+                    if not _cases.compare(a, b, _cases.EXACT)[2]:
+                        raise AssertionError(f"topk {case.label} cluster {cluster} {part} "
+                                             "disagrees with its plain version")
+                ms = self.graph_time(lambda: k3.launch(x, k, plan))
+                times.append(f"{cluster}{'*' if cluster == pick else ''}: {fmt(ms)}")
+            log(f"  topk {case.label}, CTAs a row (* the plan's): {'; '.join(times)} "
+                f"| {self.card}")
+
     def backward_launches(self):
         """CUDA launches (kernels, copies, fills) in one call of B9c and of
         B9b at their table shapes, from one profiled call."""
@@ -1349,7 +1376,7 @@ class Smoke:
                         BF16_FLOPS if case.matmul and "bfloat16" in case.label else FP32_FLOPS)
                 by_bytes, by_ops = 1e3 * case.nbytes / HBM_BYTES_S, 1e3 * case.flops / peak
                 bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
-                if re.match(r"b\d+ stage\d ", case.label):  # a main-path shape of its own
+                if MAIN_PATH_LABEL.match(case.label):  # a main-path shape of its own
                     self.case_times.setdefault(case.kernel, []).append(dict(
                         label=case.label, device_ms=device_ms, ms=ms, bound_ms=bound_ms,
                         bound_by=bound_by))
@@ -1488,6 +1515,8 @@ def main(names) -> int:
         smoke.kernel_timing(names)
         if "swin_mlp_half_a8" in names:
             smoke.a8_product_timing()
+        if "topk" in names:
+            smoke.topk_cluster_timing()
         if {"swin_mlp_bwd", "swin_attn_bwd"} & set(names):
             smoke.grad_product_timing()
             smoke.backward_launches()
@@ -1505,6 +1534,7 @@ def main(names) -> int:
     smoke.a8_product_timing()
     smoke.grad_product_timing()
     smoke.backward_launches()
+    smoke.topk_cluster_timing()
     smoke.path_timing()
     smoke.train_timing()
     kernels = []

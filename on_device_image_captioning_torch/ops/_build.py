@@ -2,9 +2,8 @@
 
 CUDA sources under `csrc/` are compiled by `nvcc` into shared libraries with a
 plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
-takes seconds). Triton kernels compile through Triton's own JIT, with its
-cache pointed into the same build directory. The build directory lives inside
-the package and is listed in `.gitignore`; nothing prebuilt is committed.
+takes seconds). The build directory lives inside the package and is listed in
+`.gitignore`; nothing prebuilt is committed.
 
 Nothing here runs at import time: `load_cuda_library` is called by a
 wrapper right before its first launch on a CUDA tensor.
@@ -52,10 +51,10 @@ def _nvcc() -> str:
 def check_cuda_tensors(*tensors: torch.Tensor) -> None:
     """Every tensor a kernel reads or writes must be a contiguous tensor on
     the same CUDA device."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()  # an int: cheaper than comparing torch.device objects
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"kernel operands on {t.device} and {dev}")
+        if t.get_device() != dev:
+            raise ValueError(f"kernel operands on {t.device} and {tensors[0].device}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
 
@@ -120,11 +119,8 @@ def _typed_function(library: str, name: str, argtypes: tuple):
     return fn
 
 
-def triton_cache_dir() -> None:
-    """Point Triton's on-disk cache into the build directory (call before the
-    first `import triton`)."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-
-
 def current_stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The raw handle of PyTorch's current stream on the current CUDA device
+    (what `torch.cuda.current_stream().cuda_stream` returns, at a fraction of
+    its host cost: the decode's small kernels pay it at every launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

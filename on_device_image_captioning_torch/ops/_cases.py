@@ -251,6 +251,18 @@ def topk_cases(dev) -> Iterator[Case]:
     runs = [(f"R24 V{VOCAB} k{k} float32", x, k) for k in (1, 3, 5, 8)]
     runs += [(f"R24 V{VOCAB} k{k} bfloat16", xb, k) for k in (3, 8)]
     runs.append((f"R8 V{VOCAB} k3 float32 (SOS step)", x[:8].contiguous(), 3))
+    # rows enough for clusters of 4 (b8 x beam 5) and of one CTA
+    runs.append((f"R40 V{VOCAB} k5 float32", torch.cat([x, x[:16]]).to(dev), 5))
+    runs.append((f"R160 V{VOCAB} k8 float32", torch.cat([x] * 6 + [x[:16]]).to(dev), 8))
+    # the main path's own: the b1 / beam 5 beam step, and the sampling path's
+    # Gumbel-noised rows (decode/beam_search.py::_candidates)
+    g = torch.Generator().manual_seed(310)
+    lat = torch.log_softmax(torch.randn((5, VOCAB), generator=g) * 3.0, dim=-1)
+    runs.append((f"b1 decode R5 V{VOCAB} k5 float32", lat.to(dev), 5))
+    logp = torch.log_softmax(torch.randn((24, VOCAB), generator=g) * 3.0, dim=-1)
+    u = torch.rand((24, VOCAB), generator=g).clamp_min(torch.finfo(torch.float32).tiny)
+    runs.append((f"b8 sampling R24 V{VOCAB} k3 float32 Gumbel",
+                 (logp - torch.log(-torch.log(u))).to(dev), 3))
 
     def checks(got, want):
         (vals, idx), (want_v, want_i) = got, want
@@ -267,9 +279,37 @@ def topk_cases(dev) -> Iterator[Case]:
         )
 
 
+def _layernorm_case(label, x, w, bias) -> Case:
+    rows, c = x.shape
+    dt = x.dtype
+    a = (x, w, bias)
+    return Case(
+        "layernorm", f"{label}({rows}, {c}) {_dtype_name(dt)}",
+        lambda a=a: k4.layernorm(*a),
+        lambda a=a: k4.layernorm_reference(*a),
+        _one(TOL[dt]), args=a,
+        nbytes=2 * _nbytes(x) + _nbytes(w, bias), flops=8 * x.numel(),
+    )
+
+
+# the main path's own LayerNorm calls: (label, rows, C, dtype, seed). The
+# decode's (fp32 stream: decode/cache.py) at b8 x beam 3 and b1 x beam 5;
+# the b8 caption encoder's reduction (models/captioner.py, the bf16 stream);
+# the "pallas" backbone's stage 3 and stage 0 at b8; one width of no whole
+# 16-byte chunks (the any-width kernel).
+MAIN_PATH_NORMS = [
+    ("b8 decode ", 24, 512, torch.float32, 451), ("b1 decode ", 5, 512, torch.float32, 452),
+    ("b8 encoder ", 1152, 512, torch.bfloat16, 453),
+    ("b8 stage3 ", 1152, 1536, torch.bfloat16, 454),
+    ("b8 stage0 ", 73728, 192, torch.bfloat16, 455),
+    ("any width ", 288, 130, torch.float32, 456),
+]
+
+
 def layernorm_cases(dev) -> Iterator[Case]:
     """Every LayerNorm width of the main path at its row count for B=2:
-    Swin stages 0-3, the 4C patch-merge input, and the d512 captioner."""
+    Swin stages 0-3, the 4C patch-merge input, and the d512 captioner; then
+    MAIN_PATH_NORMS."""
     for c, rows in [(192, 18432), (384, 4608), (768, 1152), (1536, 288),
                     (3072, 288), (512, 288)]:
         g = torch.Generator().manual_seed(400 + c)
@@ -277,14 +317,12 @@ def layernorm_cases(dev) -> Iterator[Case]:
         bias = _randn((c,), g, dev, scale=0.5)
         for dt in (torch.float32, torch.bfloat16):
             x = _randn((rows, c), g, dev, scale=2.0, dtype=dt) + 0.5
-            a = (x, w, bias)
-            yield Case(
-                "layernorm", f"({rows}, {c}) {_dtype_name(dt)}",
-                lambda a=a: k4.layernorm(*a),
-                lambda a=a: k4.layernorm_reference(*a),
-                _one(TOL[dt]), args=a,
-                nbytes=2 * _nbytes(x) + _nbytes(w, bias), flops=8 * x.numel(),
-            )
+            yield _layernorm_case("", x, w, bias)
+    for label, rows, c, dt, seed in MAIN_PATH_NORMS:
+        g = torch.Generator().manual_seed(seed)
+        w = _randn((c,), g, dev, scale=0.5) + 1.0
+        bias = _randn((c,), g, dev, scale=0.5)
+        yield _layernorm_case(label, _randn((rows, c), g, dev, scale=2.0, dtype=dt) + 0.5, w, bias)
 
 
 def _norm(c, g, dev):

@@ -1,26 +1,38 @@
-"""Row LayerNorm over the last axis: a Triton kernel and its plain version.
+"""Row LayerNorm over the last axis: kernel K4 (`csrc/layernorm.cu`) and its
+plain version.
 
 Replaces `on_device_image_captioning_tpu/ops/layernorm.py::layernorm_pallas`:
 the kernel is the forward; as there, the gradient (`layernorm_autograd`) is
 the plain formula from the saved (x, scale), on either device.
 
-What bounds it on the H100: bytes. Each row is read once and written once
-(2 x rows x C x itemsize) with a handful of flops per element, far below the
-card's ~295 flop/byte balance point. The design keeps the row in registers:
-one program per row, a masked power-of-two block (`next_power_of_2(C)`)
-covering the non-power-of-two widths 192/384/768/1536/3072/512, statistics in
-fp32 (biased variance, eps 1e-5), output in the input dtype. No tensor-core
-work, so Triton serves as well as CUDA would.
+Bound and design: see the header of `csrc/layernorm.cu` (bytes at the
+backbone's row counts, the launch at the decode's; a group of lanes a row,
+the row in registers, both sums warp shuffles). `layernorm_plan` picks the
+kernel's instance and grid from the shapes and the card's SM count; the
+wrapper's own host work is kept small, because at the decode's (24, 512)
+calls it is the time.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
+from typing import List
 
 import torch
 
 from . import _build
+from .linear_plan import sm_count
 
 launches = 0  # kernel launches since the last reset (plain-version calls do not count)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/layernorm.cu: threads a CTA, CTAs an SM (its launch bounds), and the
+# 16-byte chunks a lane may hold, one kernel instance each (0: any width)
+THREADS = 256
+CTAS_PER_SM = 2
+LANE_CHUNKS = (1, 2, 3, 4, 6, 8, 12, 16, 24)
+GROUPS = (32, 16, 8, 4, 2, 1)  # lanes a row, widest first
 
 
 def layernorm_reference(
@@ -34,43 +46,74 @@ def layernorm_reference(
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    _build.triton_cache_dir()
-    import triton
-    import triton.language as tl
+@dataclasses.dataclass(frozen=True)
+class LayerNormPlan:
+    group: int  # lanes of a warp a row takes (32 / group rows a warp at once)
+    lane_chunks: int  # 16-byte chunks a lane holds (0: the any-width kernel, a value at a time)
+    ctas: int  # CTAs of the grid; the warps walk the rows with a grid-wide stride
 
-    @triton.jit
-    def layernorm_kernel(
-        x_ptr, w_ptr, b_ptr, out_ptr, C, eps, BLOCK: tl.constexpr
-    ):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        m = cols < C
-        x = tl.load(x_ptr + row * C + cols, mask=m, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=0) / C
-        diff = tl.where(m, x - mean, 0.0)
-        var = tl.sum(diff * diff, axis=0) / C
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(w_ptr + cols, mask=m, other=0.0)
-        b = tl.load(b_ptr + cols, mask=m, other=0.0)
-        y = diff * rstd * w + b
-        tl.store(out_ptr + row * C + cols, y.to(out_ptr.dtype.element_ty), mask=m)
+    def rows_of(self, cta: int, warp: int, rows: int) -> List[int]:
+        """The rows warp `warp` of CTA `cta` normalizes (its first row group
+        at warp x ctas + cta, numbered CTA first, then a grid-wide stride):
+        the lane-group rows of each group it walks."""
+        per_warp = 32 // self.group
+        stride = self.ctas * THREADS // 32 * per_warp
+        start = (warp * self.ctas + cta) * per_warp
+        return [r for r0 in range(start, rows, stride) for r in range(r0, min(r0 + per_warp, rows))]
 
-    return triton, layernorm_kernel
+
+@functools.lru_cache(maxsize=1024)
+def layernorm_plan(rows: int, c: int, dtype: torch.dtype, sms: int,
+                   aligned: bool = True) -> LayerNormPlan:
+    """K4's launch for `rows` rows of width `c` in `dtype` on a card of `sms`
+    SMs. A row of whole 16-byte chunks, with every operand 16-byte aligned,
+    takes the widest lane group whose lanes hold it in a count of chunks the
+    kernel has an instance for (C = 192 bf16: 24 chunks, 8 lanes of 3); else
+    32 lanes of the fewest chunks that hold it; else (no whole chunks, not
+    aligned, or wider than 32 x 24 chunks) the any-width kernel, a warp a row.
+    The grid: a CTA for each group of rows a warp takes, at most CTAS_PER_SM
+    an SM."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"layernorm: unsupported dtype {dtype}")
+    if rows <= 0 or c <= 0 or sms <= 0:
+        raise ValueError(f"layernorm: no launch for rows={rows} c={c} sms={sms}")
+    itemsize = dtype.itemsize
+    group, lane_chunks = 32, 0
+    if aligned and (c * itemsize) % 16 == 0:
+        chunks = c * itemsize // 16
+        exact = [(g, chunks // g) for g in GROUPS
+                 if chunks % g == 0 and chunks // g in LANE_CHUNKS]
+        ragged = [n for n in LANE_CHUNKS if 32 * n >= chunks]
+        if exact:
+            group, lane_chunks = exact[0]
+        elif ragged:
+            lane_chunks = ragged[0]
+    # warps are numbered CTA first, so a call of few rows spreads over as
+    # many SMs as it has row groups
+    return LayerNormPlan(group, lane_chunks, min(-(-rows // (32 // group)), CTAS_PER_SM * sms))
+
+
+@functools.cache
+def _launcher():
+    return _build.cuda_function("layernorm", "layernorm_launch", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ))
 
 
 def layernorm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
     """LayerNorm over the last axis of x (any leading shape). CPU tensors get
-    the plain version; CUDA tensors get the Triton kernel."""
+    the plain version; CUDA tensors get K4."""
     global launches
-    if x.device.type == "cpu":
-        return layernorm_reference(x, weight, bias, eps)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return layernorm_reference(x, weight, bias, eps)
         raise ValueError(f"layernorm: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
         raise ValueError(f"layernorm: unsupported dtype {x.dtype}")
     c = x.shape[-1]
     if weight.shape != (c,) or bias.shape != (c,):
@@ -79,15 +122,15 @@ def layernorm(
         raise ValueError("layernorm: weight and bias must be float32")
     _build.check_cuda_tensors(x, weight, bias)
     out = torch.empty_like(x)
-    rows = x.numel() // c
+    rows = x.numel() // c if c else 0
     if rows == 0:
         return out
-    triton, kernel = _kernel()
-    block = triton.next_power_of_2(c)
-    kernel[(rows,)](
-        x, weight, bias, out, c, eps, BLOCK=block,
-        num_warps=4 if block <= 1024 else 8,
-    )
+    ptrs = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr())
+    aligned = (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16 == 0
+    plan = layernorm_plan(rows, c, x.dtype, sm_count(x.device), aligned)
+    status = _launcher()(*ptrs, rows, c, plan.group, plan.lane_chunks, plan.ctas, eps, code,
+                         _build.current_stream())
+    _build.check_status(status, "layernorm")
     launches += 1
     return out
 

@@ -13,7 +13,8 @@ the int8 product's int8 x exactly and its output within 1e-6 of its max; the
 int8 MLP half by int8 steps and rows (see `swin_mlp_half_a8_cases`); the
 decode-step kernels K2 and B16, the whole-block kernels B6 and B9a, and the
 shared bf16 product of B4, B5 and B8 (alone, at ragged rows, stage 0's width,
-the merge and the transition), also bit for bit from one launch to the next.
+the merge and the transition), K3 and K4, also bit for bit from one launch to
+the next; K3 also in every cluster size it takes.
 """
 import pytest
 import torch
@@ -21,6 +22,7 @@ import torch
 from on_device_image_captioning_torch.ops import _cases
 from on_device_image_captioning_torch.ops import dyn_exp_step as k2
 from on_device_image_captioning_torch.ops import fused_linear as fl
+from on_device_image_captioning_torch.ops import layernorm as k4
 from on_device_image_captioning_torch.ops import quant_matmul as qm
 from on_device_image_captioning_torch.ops import stage_boundary as sb
 from on_device_image_captioning_torch.ops import swin_block_fused as sbf
@@ -59,6 +61,101 @@ def test_topk_raises_outside_kernel_shapes(cuda, width, k):
     with pytest.raises(ValueError):
         k3.topk(x, k)
     assert k3.launches == before
+
+
+def _topk_rows(cuda, rows, v, seed, dtype=torch.float32):
+    """Log-prob rows with planted ties, a row of dense ties, a row of fewer
+    than 8 finite values and NaN rows (NaN at 0, at 2, past 8, last)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.log_softmax(torch.randn((rows, v), generator=g) * 3.0, dim=-1)
+    x[:, 100] = x[:, 7]
+    x[:, 900] = x.max(dim=1).values
+    x[1] = torch.randn(3, generator=g)[torch.randint(0, 3, (v,), generator=g)]
+    x[2] = -float("inf")
+    x[2, 10], x[2, v - 1] = -1.0, -2.0
+    for r, at in ((3, 0), (4, 2), (5, 1500), (6, v - 1)):
+        if r < rows:
+            x[r, at] = float("nan")
+    return x.to(cuda, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_topk_every_cluster_size(cuda, k, dtype):
+    """K3 in every cluster size it takes, on rows of V = 10001 (each row's
+    first 16-byte boundary elsewhere: heads and tails of every length), equals
+    the plain version exactly."""
+    x = _topk_rows(cuda, 12, 10001, 600 + k, dtype)
+    want_v, want_i = k3.topk_reference(x, k)
+    for cluster in k3.CLUSTER_SIZES:
+        got_v, got_i = k3.launch(x, k, k3.TopkPlan(cluster, 12 * cluster))
+        torch.cuda.synchronize()
+        assert torch.equal(got_i, want_i), f"cluster {cluster}"
+        assert torch.equal(got_v.isnan(), want_v.isnan()), f"cluster {cluster}"
+        assert torch.equal(got_v.nan_to_num(), want_v.nan_to_num()), f"cluster {cluster}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype", [
+    ((24, 512), torch.float32), ((5, 512), torch.float32), ((73728, 192), torch.bfloat16)])
+def test_layernorm_bit_for_bit(cuda, shape, dtype):
+    """K4's sums run in an order fixed by the lane layout: two launches on
+    the same inputs give the same bits (the decode's shapes and the
+    "pallas" backbone's b8 stage 0)."""
+    g = torch.Generator().manual_seed(70)
+    x = (torch.randn(shape, generator=g) * 2 + 0.5).to(cuda, dtype)
+    w, b = (torch.randn(shape[-1:], generator=g).to(cuda) for _ in range(2))
+    first = k4.layernorm(x, w, b)
+    assert torch.equal(first, k4.layernorm(x, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, k", [(24, 3), (5, 5), (24, 8)])
+def test_topk_bit_for_bit(cuda, rows, k):
+    """K3 at the decode's shapes: two launches agree bit for bit."""
+    x = _topk_rows(cuda, rows, 10000, 71)
+    first = k3.topk(x, k)
+    second = k3.topk(x, k)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [33, 64, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_other_widths(cuda, c, dtype):
+    """Widths off the main path run the kernel (the any-width instance where
+    a row is no whole number of 16-byte chunks, or x is not 16-byte aligned)
+    and match the plain version."""
+    g = torch.Generator().manual_seed(c)
+    w, b = (torch.randn((c,), generator=g).to(cuda) for _ in range(2))
+    flat = (torch.randn((77 * c + 1,), generator=g) * 2).to(cuda, dtype)
+    for x in (flat[: 77 * c].view(77, c), flat[1:].view(77, c)):  # aligned, then not
+        before = k4.launches
+        got = k4.layernorm(x, w, b)
+        assert k4.launches == before + 1
+        abs_err, rel_err, ok = _cases.compare(got, k4.layernorm_reference(x, w, b),
+                                              _cases.TOL[dtype])
+        assert ok, f"max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
+
+
+@pytest.mark.cuda
+def test_layernorm_raises_outside_its_operands(cuda):
+    """On the card K4 launches or raises: fp32 weight and bias only, fp32 or
+    bf16 x only, every operand on the same CUDA device."""
+    x = torch.randn((4, 192), device=cuda)
+    w, b = torch.ones(192, device=cuda), torch.zeros(192, device=cuda)
+    before = k4.launches
+    with pytest.raises(ValueError, match="float32"):
+        k4.layernorm(x.bfloat16(), w.bfloat16(), b)
+    with pytest.raises(ValueError, match="dtype"):
+        k4.layernorm(x.half(), w, b)
+    with pytest.raises(ValueError, match="operands on"):
+        k4.layernorm(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="device"):
+        k4.layernorm(x.to("meta"), w.to("meta"), b.to("meta"))
+    assert k4.launches == before
 
 
 @pytest.mark.cuda
