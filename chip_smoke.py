@@ -86,11 +86,16 @@ Phases, in order (any failure raises and exits non-zero before the result):
    MAIN_PATH_BLOCKS; the kernels line lists each kernel's main-path cases);
    B12 as
    the whole call and as its product alone on the int8 x; the shared bf16
-   product of B4, B5 and B8 alone at the four stage-2 products of a b8
+   product of B4 and B5 alone at the four stage-2 products of a b8
    encode, beside `F.linear` on the same tensors (a yardstick); B13's two
    int8 products alone at its four main-path shapes (ops/_cases.py
    MAIN_PATH_A8), beside `torch._int_mm` on the same int8 operands (a
-   yardstick); the training backwards' product alone at the nine products of B9c and B9b
+   yardstick); B8 (bf16) at B = 2 and at its six main-path shapes
+   (ops/_cases.py MAIN_PATH_MERGES): its launch plan (route, tile and K
+   split), the whole call, its product alone on what its first launch left
+   in scratch (the row statistics, or the normalized rows), and
+   `F.linear` on the same normalized bf16 rows (a yardstick); the training
+   backwards' product alone at the nine products of B9c and B9b
    at the XE step's b4 shapes of stages 0-2, beside `torch.matmul` (a
    yardstick), and the CUDA launches in one call of B9c and of B9b; K3 at
    each of its cases in every cluster size the kernel takes (1 to 16 CTAs a
@@ -1263,6 +1268,39 @@ class Smoke:
                     f"torch._int_mm {fmt(lib)} ({tops / lib:.0f} TOP/s), ratio "
                     f"{ms / lib:.2f} | {self.card}")
 
+    def merge_product_timing(self):
+        """B8 in bf16 at B = 2 and at the main path's shapes (ops/_cases.py
+        MAIN_PATH_MERGES): the plan's tile and split, the whole call (the
+        row-statistics pre-pass and the product), the product alone on the
+        statistics a first call left, and `F.linear` on the same normalized
+        bf16 rows (a yardstick only: the port never calls it); device ms by
+        CUDA-graph replay."""
+        torch = self.torch
+        F = torch.nn.functional
+        from on_device_image_captioning_torch.ops import _cases
+        from on_device_image_captioning_torch.ops import layernorm as k4
+        from on_device_image_captioning_torch.ops import stage_boundary as sb
+
+        log(f"phase 6 B8's product alone beside F.linear on the same normalized rows, device "
+            f"ms by CUDA-graph replay ({self.card})")
+        for case in _cases.CASES["downsample"](self.dev):
+            if "bfloat16" not in case.label:
+                continue
+            xw, norm, w, w_in, window, eps = case.args
+            plan = sb.downsample_plan(xw)
+            rows = k4.layernorm_reference(sb._merged_rows(xw, w_in, window), *norm, eps)
+            rows = rows.reshape(-1, w.shape[0])
+            w_t = w.t().contiguous()
+            whole = self.graph_time(case.run_kernel)
+            alone = self.graph_time(case.time_alone)
+            lib = self.graph_time(lambda: F.linear(rows, w_t))
+            tf = 2 * rows.shape[0] * w.shape[0] * w.shape[1] / 1e9
+            route = f"{plan.splits} splits" if plan.ring else "the scratch route"
+            log(f"  downsample {case.label}: tile {plan.tile}, {route} "
+                f"({plan.ctas} CTAs): whole {fmt(whole)}, product alone {fmt(alone)} "
+                f"({tf / alone:.0f} TFLOP/s), F.linear {fmt(lib)} ({tf / lib:.0f} TFLOP/s) "
+                f"| {self.card}")
+
     def grad_product_timing(self):
         """The training backwards' product alone at the XE step's b4 shapes of
         stages 0-2 (B9c's five products and B9b's four, each in the launch
@@ -1515,6 +1553,8 @@ def main(names) -> int:
         smoke.kernel_timing(names)
         if "swin_mlp_half_a8" in names:
             smoke.a8_product_timing()
+        if "downsample" in names:
+            smoke.merge_product_timing()
         if "topk" in names:
             smoke.topk_cluster_timing()
         if {"swin_mlp_bwd", "swin_attn_bwd"} & set(names):
@@ -1532,6 +1572,7 @@ def main(names) -> int:
     smoke.kernel_timing()
     smoke.product_timing()
     smoke.a8_product_timing()
+    smoke.merge_product_timing()
     smoke.grad_product_timing()
     smoke.backward_launches()
     smoke.topk_cluster_timing()

@@ -12,8 +12,9 @@ half-block kernels, P = "pallas"; for each form, at b8 and b1 (seeded uint8
 images):
 
 - the encode (`Captioner.forward_enc`): wall ms, the median of three after a
-  warm-up, and device ms, the summed device time of one `torch.profiler` pass
-  (the tree's own `cli/breakdown` helpers);
+  warm-up, and device ms, the summed device time of a `torch.profiler` pass,
+  the median of PROFILED_PASSES of them (the tree's own `cli/breakdown`
+  helpers; single passes read up to 0.5 ms apart at b1 and 2.4 ms at b8);
 - the bf16 backbone features (2, 144, 1536) of D and of H against P's, same
   weights and images: the relative RMS of the difference (its RMS over P's)
   and its largest absolute value. P runs no kernel of the shared product, so
@@ -46,6 +47,7 @@ from on_device_image_captioning_torch.utils.image import normalize_on_device
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 forms = {"D": ("fused", False), "H": ("fused", True), "P": ("pallas", False)}
+PROFILED_PASSES = 5
 encode, feats = {}, {}
 check = torch.from_numpy(
     np.random.default_rng(7).integers(0, 256, (2, 384, 384, 3), dtype=np.uint8)).cuda()
@@ -58,10 +60,11 @@ for name, (impl, halves) in forms.items():
     for b in (8, 1):
         imgs = np.random.default_rng(100 + b).integers(0, 256, (b, 384, 384, 3), dtype=np.uint8)
         wall = wall_ms(lambda: cap.forward_enc(imgs))
-        prof = device_profile(lambda: cap.forward_enc(imgs))
+        profs = [device_profile(lambda: cap.forward_enc(imgs)) for _ in range(PROFILED_PASSES)]
         encode[f"{name} b{b}"] = {"wall_ms": statistics.median(wall),
-                                  "device_ms": prof["device_ms"], "launches": prof["launches"],
-                                  "top": prof["top"][:4]}
+                                  "device_ms": statistics.median(p["device_ms"] for p in profs),
+                                  "device_ms_passes": [p["device_ms"] for p in profs],
+                                  "launches": profs[-1]["launches"], "top": profs[-1]["top"][:4]}
     with torch.inference_mode():
         feats[name] = model.swin_transf(normalize_on_device(check), cfg.compute_dtype).float()
     del cap, model

@@ -1,6 +1,7 @@
 """The backbone's shared bf16 product alone in every tile form, on one card.
 
-    python -m on_device_image_captioning_torch.cli.product_forms [--backward | --int8] [--out FILE]
+    python -m on_device_image_captioning_torch.cli.product_forms \
+        [--backward | --int8 | --merge] [--out FILE]
 
 At the main path's products (qkv, proj, fc1, fc2 of stage 2 at b8 and b1 and
 of stage 0 at b8, each with its own epilogue: the LayerNorm prologue on qkv
@@ -22,6 +23,15 @@ products alone (`mlp_a8_product`: fc1 with its fp32 GELU epilogue, fc2 with
 the residual) in every form of `ops/linear_plan.py::INT8_FORMS`, the form the
 plan picks, and `torch._int_mm` on the same int8 operands; then the whole
 call.
+
+With --merge the same for the patch merging B8 (`ops/stage_boundary.py`,
+bf16) at B = 2 and at its main-path shapes (ops/_cases.py MAIN_PATH_MERGES):
+the whole call (both launches) in every tile form and K split
+`ops/linear_plan.py::merge_plan` takes ("FxZ": form F, Z splits; Z = 1 is
+the scratch route, Z > 1 the row-statistics pre-pass and the LayerNorm in the
+ring), each first held to the plain version (ops/_cases.py's bf16
+tolerance) and to a second launch (bit for bit); the plan's pick; `F.linear`
+on the same normalized rows.
 """
 from __future__ import annotations
 
@@ -69,6 +79,8 @@ def main(argv=None) -> dict:
                       help="the training backwards' product at the XE step's b4 shapes")
     kind.add_argument("--int8", action="store_true",
                       help="the w8a8 MLP half's products and hidden forms")
+    kind.add_argument("--merge", action="store_true",
+                      help="the patch merging's product in every tile form and K split")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("product_forms: needs a CUDA card")
@@ -81,6 +93,8 @@ def main(argv=None) -> dict:
         return _write(backward_forms(card, dev, sms, rn), args.out)
     if args.int8:
         return _write(int8_forms(card, dev, sms, g), args.out)
+    if args.merge:
+        return _write(merge_forms(card, dev, sms), args.out)
     rows_out = []
     for label, m, c in SHAPES:
         x, h = rn((m, c), dt=torch.bfloat16), rn((m, 4 * c), dt=torch.bfloat16)
@@ -189,6 +203,51 @@ def int8_forms(card: str, dev, sms: int, g) -> dict:
     return {"card": card, "forms": [list(map(int, (f.bm, f.bn, f.stages, f.ctas)))
                                     for f in lp.INT8_FORMS], "products": rows_out,
             "halves": halves}
+
+
+def merge_forms(card: str, dev, sms: int) -> dict:
+    """B8 in every tile form and K split at B = 2 and the main path's shapes."""
+    from ..ops import _cases
+    from ..ops import layernorm as k4
+    from ..ops import stage_boundary as sb
+
+    rows_out = []
+    for case in _cases.downsample_cases(dev):
+        if "bfloat16" not in case.label:
+            continue
+        xw, norm, w, w_in, window, eps = case.args
+        m, n, k = xw.shape[0] * xw.shape[1] // 4, w.shape[1], w.shape[0]
+        want = case.run_plain()
+        pick = lp.merge_plan(m, n, k, 4, 2, sms)
+        ms = {}
+        for f in range(len(lp.FORMS)):
+            for z in lp.MERGE_SPLITS:
+                try:
+                    plan = lp.merge_plan(m, n, k, 4, 2, sms, form=f, splits=z)
+                except ValueError:
+                    continue
+                run = lambda plan=plan: sb.downsample_launch(*case.args, plan=plan)  # noqa: E731
+                got = run()
+                if not _cases.compare(got, want, _cases.TOL[torch.bfloat16])[2]:
+                    raise AssertionError(f"merge_forms: {case.label} form {f} x {z} splits "
+                                         f"disagrees with the plain version")
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"merge_forms: {case.label} form {f} x {z} splits "
+                                         f"differs between two launches")
+                ms[f"{f}x{z}"] = graph_ms(run)
+        rows = k4.layernorm_reference(sb._merged_rows(xw, w_in, window), *norm, eps)
+        rows = rows.reshape(m, k)
+        w_t = w.t().contiguous()
+        lib = graph_ms(lambda: F.linear(rows, w_t))
+        key = f"{pick.form}x{pick.splits}"
+        print(f"downsample {case.label} ({m}, {k}) -> {n}: "
+              + ", ".join(f"{fz}{'*' if fz == key else ''} {t:.4f}" for fz, t in ms.items())
+              + f" ms (form x splits; x1 the scratch route); F.linear {lib:.4f} ms | {card}",
+              flush=True)
+        rows_out.append({"shape": case.label, "m": m, "n": n, "k": k, "ms": ms, "plan": key,
+                         "f_linear_ms": lib})
+    return {"card": card, "forms": [list(map(int, (f.bm, f.bn, f.bk, f.stages, f.ctas)))
+                                    for f in lp.FORMS], "merges": rows_out}
 
 
 if __name__ == "__main__":

@@ -24,7 +24,8 @@
 // Two kernels compute it, with the same gather and epilogue (the training
 // backwards' product, at the end of this file, shares the second one's ring):
 //
-// fused_linear_kernel (fp32, and the patch embed in either type): 256 threads
+// fused_linear_kernel (fp32: every product of the fp32 parity route, the
+//   patch embed's among them): 256 threads
 //   as 16 x 16; a thread owns rows ty + 16 i and columns tx + 16 j of a
 //   (16 TM) x (16 TN) block tile and walks K in slabs of 16 through shared
 //   memory (A stored k-major so a warp reads it as broadcasts, W row-major so
@@ -47,10 +48,23 @@
 //   stores whole rows in 16-byte chunks with the residual. The tile (64 or
 //   128 rows by 64 or 128 columns, two or three CTAs an SM) comes from a
 //   launch plan made in Python from the shapes and the card's SM count
-//   (ops/linear_plan.py). K is never split: every output value is one CTA's
-//   sum in a fixed order, so two launches agree bit for bit.
+//   (ops/linear_plan.py). K is not split there: every output value is one
+//   CTA's sum in a fixed order, so two launches agree bit for bit.
+// linear_wgmma_kernel's MERGE form (B8, the patch merging, where its few
+//   tiles leave CTA slots idle: ops/linear_plan.py::merge_plan): K split over
+//   a cluster of CTAs along z, and no (M, K) scratch. A pre-pass
+//   (merge_stats_kernel: a warp a row, the row read once) writes each row's
+//   mean and 1/sqrt(var + eps), 8 bytes a row; each warpgroup normalizes its
+//   own 64 rows of every gathered A slab in the ring, rounded to bf16 as
+//   ln_rows_kernel rounds them, before its products on the slab. Each CTA
+//   sums its run of slabs, the partial tiles meet in distributed shared
+//   memory and every output value is their sum in rank order, then rounded
+//   once: a fixed order, no atomics, so two launches agree bit for bit.
+//   Where the tiles fill the card, B8 takes the scratch and the plain form.
 // See each .cu for what bounds it.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <cstdint>
 #include <type_traits>
@@ -85,6 +99,10 @@ struct LinearArgs {
   // (M, K) scratch: the LayerNorm prologue's rows of a bf16 product, written
   // by ln_rows_kernel and read by the product in their place
   void* ln_rows;
+  // the MERGE form (B8): (M) mean and 1/sqrt(var + eps) of each gathered A
+  // row, written by merge_stats_kernel; and the K values a blockIdx.z sums
+  float2* row_stats;
+  int k_chunk;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -372,7 +390,19 @@ __device__ __forceinline__ int swizzle_a(int m, int c) {
 // where they lie, stages the rounded tile in the ring, then adds the
 // residual and stores whole rows in 16-byte chunks. A LayerNorm prologue has
 // been applied by ln_rows_kernel before the launch.
-template <int BM, int BN, int BK, int S, int CTAS>
+//
+// MERGE (B8): the A slabs arrive as the raw gathered rows; after a stage is
+// full, each warpgroup normalizes its 64 rows of it in place from the
+// pre-pass's row statistics (a thread always the same chunk column of four
+// rows, or two at BK 32, their statistics held in registers), rounded to
+// bf16 as ln_rows_kernel rounds them, fences them for the tensor cores and
+// meets its warpgroup at a named barrier before its products (normalizing
+// register A fragments for wgmma instead measured slower at b8).
+// blockIdx.z sums slabs k_chunk / BK of K only, in a cluster of gridDim.z
+// CTAs along z: the fp32 partial tiles meet in the cluster's shared memory
+// and each CTA adds a 1 / splits share of the tile's outputs over the ranks
+// in order 0, 1, ... and rounds it once.
+template <int BM, int BN, int BK, int S, int CTAS, bool MERGE = false>
 __global__ void __launch_bounds__(2 * BM, CTAS) linear_wgmma_kernel(LinearArgs p) {
   typedef __nv_bfloat16 T;
   constexpr int THREADS = 2 * BM;
@@ -393,7 +423,11 @@ __global__ void __launch_bounds__(2 * BM, CTAS) linear_wgmma_kernel(LinearArgs p
   const int tid = threadIdx.x, wg = tid >> 7;
   const long m0 = static_cast<long>(blockIdx.y) * BM;
   const int n0 = blockIdx.x * BN;
-  const int ks = p.K / p.segs, slabs = p.K / BK;
+  const int ks = p.K / p.segs;
+  // the K values this CTA sums: kbeg .. kbeg + BK slabs - 1 (all of K but in
+  // the MERGE form)
+  const int kbeg = MERGE ? static_cast<int>(blockIdx.z) * p.k_chunk : 0;
+  const int slabs = MERGE ? (min(p.K, kbeg + p.k_chunk) - kbeg) / BK : p.K / BK;
   const T* a = static_cast<const T*>(p.a);
   const T* w = static_cast<const T*>(p.w);
   const uint32_t ring_s = smem_u32(ring);
@@ -412,7 +446,7 @@ __global__ void __launch_bounds__(2 * BM, CTAS) linear_wgmma_kernel(LinearArgs p
   __syncthreads();
 
   auto load = [&](int j) {  // slab j into stage j % S, reported to full[j % S]
-    const int k0 = j * BK, seg = k0 / ks;  // a slab never straddles two gathered rows
+    const int k0 = kbeg + j * BK, seg = k0 / ks;  // a slab never straddles two gathered rows
     const int kseg = k0 - seg * ks;
     const uint32_t sa = ring_s + (j % S) * STAGE, sw = sa + A_BYTES;
 #pragma unroll
@@ -436,14 +470,53 @@ __global__ void __launch_bounds__(2 * BM, CTAS) linear_wgmma_kernel(LinearArgs p
   for (int j = 0; j < S - 1; ++j)
     if (j < slabs) load(j);
 
+  // MERGE: the thread normalizes chunk kc of rows 64 wg + (tid % 128) / CPR
+  // + i 128 / CPR of every slab, with their statistics held in registers
+  constexpr int NORM_ROWS = MERGE ? 64 * CPR / 128 : 1;
+  float2 stat[NORM_ROWS];
+  if constexpr (MERGE) {
+#pragma unroll
+    for (int i = 0; i < NORM_ROWS; ++i) {
+      const long r = m0 + wg * 64 + (tid & 127) / CPR + i * (128 / CPR);
+      stat[i] = r < p.M ? p.row_stats[r] : make_float2(0.f, 0.f);
+    }
+  }
+
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   const uint32_t a_rows = wg * 64 * ROW;  // the warpgroup's 64 rows of a slab
   for (int j = 0; j < slabs; ++j) {
     const int s = j % S;
-    mbar_wait(&full[s], (j / S) & 1);
-    fence_proxy_async();
+    if constexpr (MERGE) {
+      // the LayerNorm's scale and shift of the thread's chunk, asked for
+      // before the wait for the slab
+      const int k = kbeg + j * BK + kc * 8;
+      const float4* gp = reinterpret_cast<const float4*>(p.ln_g + k);
+      const float4* bp = reinterpret_cast<const float4*>(p.ln_b + k);
+      const float4 g4[2] = {gp[0], gp[1]}, b4[2] = {bp[0], bp[1]};
+      const float* gf = reinterpret_cast<const float*>(g4);
+      const float* bf = reinterpret_cast<const float*>(b4);
+      mbar_wait(&full[s], (j / S) & 1);
+#pragma unroll
+      for (int i = 0; i < NORM_ROWS; ++i) {
+        const int m = wg * 64 + (tid & 127) / CPR + i * (128 / CPR);
+        uint4* chunk = reinterpret_cast<uint4*>(ring + s * STAGE + m * ROW +
+                                                (swizzle_a<BK>(m, kc) << 4));
+        uint4 raw = *chunk;
+        T* h = reinterpret_cast<T*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          h[e] = __float2bfloat16((__bfloat162float(h[e]) - stat[i].x) * stat[i].y * gf[e] +
+                                  bf[e]);
+        *chunk = raw;
+      }
+      fence_proxy_async();  // the normalized rows, to the tensor cores
+      asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");  // the warpgroup's rows
+    } else {
+      mbar_wait(&full[s], (j / S) & 1);
+      fence_proxy_async();
+    }
     const uint32_t sa = ring_s + s * STAGE;
     fence_acc(acc);
     wgmma_fence();
@@ -471,6 +544,45 @@ __global__ void __launch_bounds__(2 * BM, CTAS) linear_wgmma_kernel(LinearArgs p
   static_assert(BM * ST <= S * STAGE, "the finished tile fits the ring");
   const int lane = tid & 31;
   const int r0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  if constexpr (MERGE) {  // the partial tiles meet in the cluster
+    constexpr int PST = BN * 4 + 16;  // bytes of a staged fp32 row
+    static_assert(BM * PST <= S * STAGE, "the partial tile fits the ring");
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(ring + (r0 + 8 * h) * PST + c * 4) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    cluster.sync();  // every rank's partial tile is in its ring
+    const int splits = static_cast<int>(gridDim.z), rank = static_cast<int>(blockIdx.z);
+    constexpr int CH = BN / 8;  // 8-column units of a row
+    T* out = static_cast<T*>(p.out);
+    for (int u = rank * THREADS + tid; u < BM * CH; u += splits * THREADS) {
+      const int row = u / CH, ch = u % CH;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int z = 0; z < splits; ++z) {  // rank order: the same sum at every launch
+        const float4* part = reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(ring + row * PST + ch * 32, z));
+        const float4 lo = part[0], hi = part[1];
+        v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+        v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+      }
+      const long r = m0 + row;
+      const int c = n0 + ch * 8;
+      if (r < p.M && c < p.N) {
+        uint4 raw;
+        __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+        *reinterpret_cast<uint4*>(out + r * p.N + c) = raw;
+      }
+    }
+    cluster.sync();  // no rank leaves while another reads its partial tile
+    return;
+  }
   const bool bias = p.bias != nullptr;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
@@ -566,6 +678,85 @@ __global__ void __launch_bounds__(kThreads) ln_rows_kernel(LinearArgs p) {
   }
 }
 
+// Source row of segment seg of output row r of the 2x2 merge (kMapMerge's
+// map_row) in 32-bit arithmetic: rows below 2^31.
+__device__ __forceinline__ int merge_source_row(int r, int seg, int res, int window) {
+  const int n = window * window, wn = res / window, wno = wn / 2;
+  const int per_img = (res / 2) * (res / 2);
+  const int img = r / per_img, f = r - img * per_img, w = f / n, q = f - w * n;
+  const int y = (w / wno) * window + q / window, x = (w % wno) * window + q % window;
+  const int sy = 2 * y + (seg & 1), sx = 2 * x + (seg >> 1);
+  return ((img * wn + sy / window) * wn + sx / window) * n + (sy % window) * window +
+         sx % window;
+}
+
+// The MERGE form's pre-pass: a warp a row of the 2x2 merge (lanes 0-3 find
+// its four source rows, in 32-bit arithmetic), the gathered row read once
+// into registers (lane l holds chunks l, l + 32, ... of its K / 8 16-byte
+// chunks, NCH of them at most: 3, 6 and 12 at stages 0-2), the fp32 mean,
+// then the sum of squares about it from the same registers; 8 bytes a row
+// into p.row_stats. (Several rows a warp, 8 or 16 lanes each, measured
+// slower at every main-path shape.)
+constexpr int kMergeStatChunks = 12;  // rows of up to 3072 bf16 values (stage 2's 4C)
+template <int NCH>
+__global__ void __launch_bounds__(kThreads) merge_stats_kernel(LinearArgs p) {
+  typedef __nv_bfloat16 T;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (r >= p.M) return;  // a whole warp
+  const int ks = p.K / 4, cps = ks / 8, chunks = p.K / 8;
+  const int mine = lane < 4 ? merge_source_row(r, lane, p.geo.res, p.geo.window) : 0;
+  const long s0 = static_cast<long>(__shfl_sync(0xffffffffu, mine, 0)) * ks;
+  const long s1 = static_cast<long>(__shfl_sync(0xffffffffu, mine, 1)) * ks;
+  const long s2 = static_cast<long>(__shfl_sync(0xffffffffu, mine, 2)) * ks;
+  const long s3 = static_cast<long>(__shfl_sync(0xffffffffu, mine, 3)) * ks;
+  const T* a = static_cast<const T*>(p.a);
+  uint4 raw[NCH];
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) {
+    const int ch = lane + 32 * i;
+    if (ch < chunks) {
+      const int seg = ch / cps;
+      const long base = seg == 0 ? s0 : seg == 1 ? s1 : seg == 2 ? s2 : s3;
+      raw[i] = *reinterpret_cast<const uint4*>(a + base + (ch - seg * cps) * 8);
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+    if (lane + 32 * i < chunks) {
+      const T* h = reinterpret_cast<const T*>(&raw[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += __bfloat162float(h[e]);
+    }
+  const float mean = warp_sum(sum) / p.K;
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+    if (lane + 32 * i < chunks) {
+      const T* h = reinterpret_cast<const T*>(&raw[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = __bfloat162float(h[e]) - mean;
+        sq = fmaf(d, d, sq);
+      }
+    }
+  const float rstd = 1.0f / sqrtf(warp_sum(sq) / p.K + p.eps);
+  if (lane == 0) p.row_stats[r] = make_float2(mean, rstd);
+}
+
+static cudaError_t merge_stats_launch(const LinearArgs& p, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((p.M + kThreads / 32 - 1) / (kThreads / 32)));
+  const int chunks = p.K / 8;
+  if (chunks <= 32 * 3)
+    merge_stats_kernel<3><<<grid, kThreads, 0, s>>>(p);
+  else if (chunks <= 32 * 6)
+    merge_stats_kernel<6><<<grid, kThreads, 0, s>>>(p);
+  else
+    merge_stats_kernel<kMergeStatChunks><<<grid, kThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
 // One launch of form F: the attribute once per form (a process-wide static).
 template <int F>
 static cudaError_t launch_wgmma(const LinearArgs& p, cudaStream_t s) {
@@ -619,11 +810,67 @@ cudaError_t launch_linear_wide<__nv_bfloat16>(const LinearArgs& p, int form, cud
   }
 }
 
-// 32 x 192 with the row-LayerNorm epilogue for the patch embed, whose output
-// row is 192 wide (bound by bytes: CUDA cores in both types).
+// 32 x 192 with the row-LayerNorm epilogue: the fp32 patch embed (and any
+// width the bf16 kernel of stage_boundary.cu does not take), on the CUDA cores.
 template <typename T>
 static cudaError_t launch_linear_rows(const LinearArgs& p, cudaStream_t s) {
   return launch_linear<T, 2, 12, true>(p, s);
+}
+
+// One launch of the MERGE form F: `splits` CTAs along z, a cluster of them.
+template <int F>
+static cudaError_t launch_merge_form(const LinearArgs& p, int splits, cudaStream_t s) {
+  constexpr ProductForm f = kProductForms[F];
+  constexpr int smem = product_smem(f);
+  const auto kernel = linear_wgmma_kernel<f.bm, f.bn, f.bk, f.stages, f.ctas, true>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  if ((p.K / p.segs) % f.bk != 0 || p.k_chunk % f.bk != 0) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((p.N + f.bn - 1) / f.bn),
+                     static_cast<unsigned>((p.M + f.bm - 1) / f.bm),
+                     static_cast<unsigned>(splits));
+  cfg.blockDim = dim3(2 * f.bm);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = s;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 1;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = static_cast<unsigned>(splits);
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// B8's bf16 product with its LayerNorm prologue and K split:
+// merge_stats_kernel into p.row_stats (M float2) unless `stats_ready`, then
+// the MERGE form `form` of kProductForms with K in `splits` chunks of
+// p.k_chunk (ops/linear_plan.py::merge_plan). The chunks are whole slabs;
+// splits 2 to 8 (a portable cluster).
+static cudaError_t launch_merge(const LinearArgs& p, int form, int splits, bool stats_ready,
+                                cudaStream_t s) {
+  if (p.M <= 0 || p.segs < 1 || p.segs > 4 || p.K % p.segs != 0 || (p.K / p.segs) % 32 != 0 ||
+      p.N % 8 != 0 || p.ln_g == nullptr || p.row_stats == nullptr || p.bias != nullptr ||
+      p.resid != nullptr || p.gelu || splits < 2 || splits > 8 || p.k_chunk <= 0 ||
+      p.K / 8 > 32 * kMergeStatChunks || p.a_map != kMapMerge || p.segs != 4 ||
+      p.M >= (1 << 28) ||
+      (splits - 1) * p.k_chunk >= p.K || splits * p.k_chunk < p.K)
+    return cudaErrorInvalidValue;
+  if (!stats_ready) {
+    const cudaError_t err = merge_stats_launch(p, s);
+    if (err != cudaSuccess) return err;
+  }
+  switch (form) {
+    case 0: return launch_merge_form<0>(p, splits, s);
+    case 1: return launch_merge_form<1>(p, splits, s);
+    case 2: return launch_merge_form<2>(p, splits, s);
+    case 3: return launch_merge_form<3>(p, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 

@@ -1,8 +1,10 @@
 """The launch plans of the backbone's products (`csrc/fused_linear.cuh`):
 which tile each product launches in, decided on the host from the shapes and
-the card's SM count, and handed to the C launchers of B4, B5, B8, B9b and
-B10a / B10b (the forward product, `linear_plan`) and of B9b and B9c (the
-backward product, `grad_plan`, and B9b's attention core, `core_chunk`).
+the card's SM count, and handed to the C launchers of B4, B5, B9b and
+B10a / B10b (the forward product, `linear_plan`), of B8 (the forward
+product's MERGE form where it splits K, `merge_plan`), of B9b and B9c (the
+backward product, `grad_plan`, and B9b's attention core, `core_chunk`) and of
+B13 (the int8 product, `int8_plan`).
 
 In bf16 the product runs on `linear_wgmma_kernel`, whose tile forms are the
 table `kProductForms` of that file (mirrored here, in its order, as FORMS;
@@ -18,9 +20,10 @@ CTAs or more, about half that with one. So the model's time of a form is the
 busiest SM's tiles (ceil(tiles / SMs) of them) times a tile's bytes (its A
 and W slabs and its output) over that SM's rate. Among the forms whose slab
 divides a gathered row (K / segs; BK 32 only where 64 does not), those with a
-tile for every SM, if any has; of these the least time. K is never split: at
-every M of the main path (576 rows and up) the smallest tile gives the card
-72 CTAs or more (108 on the blocks' products).
+tile for every SM, if any has; of these the least time. `linear_plan` never
+splits K: at every M of B4's and B5's main path (576 rows and up) the
+smallest tile gives the card 108 CTAs or more. B8's plan (`merge_plan`,
+below) does, where its few tiles leave SMs idle.
 """
 from __future__ import annotations
 
@@ -413,3 +416,122 @@ class MlpA8Plan:
 def mlp_a8_plan(rows: int, c: int, hidden: int, sms: int) -> MlpA8Plan:
     """B13's launch: fc1's form and fc2's."""
     return MlpA8Plan(int8_plan(rows, hidden, c, sms), int8_plan(rows, c, hidden, sms))
+
+
+# ---------------------------------------------------------------------------
+# B8 (`downsample_fused`), bf16, takes one of two routes. Where its few tiles
+# leave CTA slots idle, the MERGE form of `linear_wgmma_kernel` (the LayerNorm
+# applied to each gathered A slab in the ring from a pre-pass's row
+# statistics) in a tile form of FORMS, with K split into `splits` chunks of
+# whole slabs over a cluster of 2 to MAX_SPLITS CTAs along z (a portable
+# cluster), the partial tiles summed in rank order in the cluster's shared
+# memory. Where the tiles fill the card, the scratch route (splits = 1):
+# `ln_rows_kernel` writes the normalized rows once and the plain form reads
+# them (`linear_plan`'s form, K whole), as B4 and B5 run. fp32 runs the CUDA
+# cores' 128 x 96 tile, K whole.
+#
+# How they are chosen: the least modelled time over tile forms and splits.
+# CTAs (tiles x splits) run in rounds of one on every CTA slot of the card
+# (form.ctas an SM); a CTA takes MERGE_CTA_S (its ring's fill and its
+# epilogue) plus MERGE_VALUE_S for every A value it walks (BM rows x its
+# chunk of K: the gathered loads and their normalization, which set the
+# pace, not W's columns). Fitted to `cli/product_forms --merge` on an H100
+# (PERF.md §6): it picks the measured-fastest form and split, or one within
+# 8% of it, at every main-path shape and at B = 2. Chunks of fewer than
+# MERGE_MIN_SLABS slabs are not taken (measured slower everywhere). Where the
+# least time is unsplit, the tiles fill the card and the split buys nothing;
+# the ring would then normalize each row again for each of its column tiles,
+# which measured slower than the scratch's one pass (b8 stages 0 and 1), so
+# the scratch route runs instead.
+
+MAX_SPLITS = 8
+MERGE_SPLITS = (1, 2, 3, 4, 6, 8)
+MERGE_MIN_SLABS = 4
+MERGE_CTA_S = 2e-6
+MERGE_VALUE_S = 1e-6 / (128 * 64)  # a 64-wide slab of 128 rows: 1 us
+
+
+@dataclasses.dataclass(frozen=True)
+class MergePlan:
+    m: int
+    n: int
+    k: int
+    segs: int
+    form: int  # index of FORMS; -1 for fp32 (the CUDA cores' tile)
+    tile: Tuple[int, int]  # (rows, columns) of a CTA's output tile
+    slab: int  # K values of a slab
+    k_chunk: int  # K values a blockIdx.z sums (k itself unless split)
+    grid: Tuple[int, int, int]  # (column tiles, row tiles, splits)
+
+    @property
+    def splits(self) -> int:
+        return self.grid[2]
+
+    @property
+    def ring(self) -> bool:
+        """The MERGE form (the LayerNorm in the ring, K split); else the
+        scratch route in bf16, or fp32's CUDA cores."""
+        return self.splits > 1
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def k_chunks(self) -> List[range]:
+        """The K values each split sums, in the order their partials are
+        added: all of K, once."""
+        return [range(z * self.k_chunk, min(self.k, (z + 1) * self.k_chunk))
+                for z in range(self.splits)]
+
+    def k_slabs(self, z: int = 0) -> List[Tuple[int, int]]:
+        """The (segment, offset in the gathered row) of each K slab split z
+        walks, in order."""
+        ks = self.k // self.segs
+        return [(k0 // ks, k0 % ks) for k0 in self.k_chunks()[z][::self.slab]]
+
+
+def _merge_seconds(f: Form, m: int, n: int, k: int, splits: int, sms: int) -> float:
+    """The model's time of B8's product in form f with K in `splits` chunks
+    (see above)."""
+    ctas = _cdiv(m, f.bm) * _cdiv(n, f.bn) * splits
+    chunk = _cdiv(_cdiv(k, f.bk), splits) * f.bk
+    return _cdiv(ctas, sms * f.ctas) * (MERGE_CTA_S + f.bm * chunk * MERGE_VALUE_S)
+
+
+@functools.lru_cache(maxsize=4096)
+def merge_plan(m: int, n: int, k: int, segs: int, itemsize: int, sms: int,
+               form: Optional[int] = None, splits: Optional[int] = None) -> MergePlan:
+    """B8's launch: out (M, N) = LN(gather(A)) @ W (K, N) on a card of `sms`
+    SMs, in the route, form and split of least modelled time, or in `form`
+    and `splits` (bf16; a yardstick's way to compare them; splits = 1 is the
+    scratch route). Raises ValueError where the kernels do not take the
+    shapes (those of `linear_plan`) or the split (whole slabs a chunk, every
+    chunk non-empty, at most MAX_SPLITS)."""
+    base = linear_plan(m, n, k, segs, itemsize, sms)  # checks the shapes
+    if itemsize == 4:
+        if splits not in (None, 1):
+            raise ValueError("merge_plan: fp32 does not split K")
+        return MergePlan(m, n, k, segs, -1, base.tile, base.slab, k, (*base.grid, 1))
+
+    def fits(i, z):
+        slabs = k // FORMS[i].bk
+        chunk = _cdiv(slabs, z)
+        return (z <= MAX_SPLITS and _cdiv(slabs, chunk) == z
+                and (z == 1 or chunk >= MERGE_MIN_SLABS))
+
+    forms = [i for i, f in enumerate(FORMS) if (k // segs) % f.bk == 0]
+    if any(FORMS[i].bk == 64 for i in forms):
+        forms = [i for i in forms if FORMS[i].bk == 64]
+    if form is not None and form not in forms:
+        raise ValueError(f"merge_plan: form {form} does not take K / segs = {k // segs}")
+    candidates = [(i, z) for i in ([form] if form is not None else forms) for z in MERGE_SPLITS
+                  if (splits is None or z == splits) and fits(i, z)]
+    if not candidates:
+        raise ValueError(f"merge_plan: K = {k} takes no {splits} splits in forms {forms}")
+    best, z = min(candidates, key=lambda c: (_merge_seconds(FORMS[c[0]], m, n, k, c[1], sms), c))
+    if z == 1:  # the scratch route, in the form given or linear_plan's
+        best = base.form if form is None else form
+    f = FORMS[best]
+    chunk = _cdiv(k // f.bk, z) * f.bk
+    return MergePlan(m, n, k, segs, best, (f.bm, f.bn), f.bk, chunk,
+                     (_cdiv(n, f.bn), _cdiv(m, f.bm), z))

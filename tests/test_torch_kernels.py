@@ -12,9 +12,10 @@ checks too: fp32 2e-5 abs + 1e-4 rel (summation order only); bf16 2e-2 abs +
 the int8 product's int8 x exactly and its output within 1e-6 of its max; the
 int8 MLP half by int8 steps and rows (see `swin_mlp_half_a8_cases`); the
 decode-step kernels K2 and B16, the whole-block kernels B6 and B9a, and the
-shared bf16 product of B4, B5 and B8 (alone, at ragged rows, stage 0's width,
-the merge and the transition), K3 and K4, also bit for bit from one launch to
-the next; K3 also in every cluster size it takes.
+shared bf16 product of B4 and B5 (alone, at ragged rows, stage 0's width,
+the merge and the transition), K3 and K4, and B7 and B8 in every grid, tile
+form and K split, also bit for bit from one launch to the next; K3 also in
+every cluster size it takes.
 """
 import pytest
 import torch
@@ -579,7 +580,7 @@ def test_decode_step_raises_outside_its_shapes(cuda):
     assert (k2.launches, k2.cross_launches) == before
 
 
-# -- the shared bf16 product of B4, B5 and B8 alone (ops/fused_linear.py) ----
+# -- the shared bf16 product of B4 and B5 alone (ops/fused_linear.py) --------
 
 def _product_operands(cuda, rows, k, n, seed):
     g = torch.Generator().manual_seed(seed)
@@ -657,7 +658,7 @@ def test_shared_product_residual_through_transition_with_row_scale(cuda, gathere
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows, k, n", [(4608, 768, 2304), (576, 3072, 768), (577, 96, 24)])
 def test_shared_product_launches_repeat_bit_for_bit(cuda, rows, k, n):
-    """K is never split, and each output value is one CTA's fixed-order sum:
+    """K is not split there, and each output value is one CTA's fixed-order sum:
     two launches on the same operands agree bit for bit (every form the
     plan picks at these shapes)."""
     a, w, b, norm = _product_operands(cuda, rows, k, n, 7)
@@ -730,3 +731,119 @@ def test_backward_product_in_each_layout(cuda, layout, m, n, k, dtype):
         assert got.dtype == dtype
         abs_err, rel_err, ok = _cases.compare(got, want, _cases.TOL[dtype])
         assert ok, f"rounded: max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
+
+
+def _embed_operands(cuda, shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda s, scale=1.0: (torch.randn(s, generator=g) * scale).to(cuda)  # noqa: E731
+    x = rn(shape).to(dtype)
+    proj = (rn((48, 192), 48 ** -0.5).to(dtype), rn((192,), 0.2))
+    return x, proj, (rn((192,), 0.2) + 1.0, rn((192,), 0.2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 12, 12, 48), (3, 24, 24, 48), (2, 96, 96, 48),
+                                   (8, 96, 96, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_patch_embed_every_grid_and_partial_tiles(cuda, shape, dtype):
+    """B7 against its plain version where the last row tile is partial (144
+    and 1728 rows) and at the main path's batches; bf16 also on grids other
+    than the plan's (one CTA, a few, one a tile); every launch bit for bit
+    the same as the first."""
+    x, proj, norm = _embed_operands(cuda, shape, dtype, sum(shape))
+    want = sb.patch_embed_reference(x, proj, norm, 12, 1e-5)
+    first = sb.patch_embed_fused(x, proj, norm, 12, 1e-5)
+    plans = [None]
+    if dtype == torch.bfloat16:
+        rows = shape[0] * shape[1] * shape[2]
+        tiles = -(-rows // sb.EMBED_ROWS)
+        plans += [sb.EmbedPlan(rows, tiles, c) for c in {1, 3, tiles}]
+    for plan in plans:
+        got = sb.patch_embed_launch(x, proj, norm, 12, 1e-5, plan)
+        abs_err, rel_err, ok = _cases.compare(got, want, _cases.TOL[dtype])
+        assert ok, f"{plan}: max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
+        assert torch.equal(got, first), f"{plan} differs from the plan's launch"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, stage", [(2, 0), (2, 1), (2, 2)] + _cases.MAIN_PATH_MERGES)
+def test_downsample_every_plan_bit_for_bit(cuda, b, stage):
+    """B8 in bf16 in every tile form and K split `merge_plan` takes (the
+    plan's among them), and in fp32 on the CUDA cores, against the plain
+    version; two launches of one plan agree bit for bit (no atomics: a
+    split's partial tiles are summed in rank order). b1 stage 2's 144 rows
+    leave the last row tile partial."""
+    from on_device_image_captioning_torch.ops import linear_plan as lp
+
+    c, _, res = _cases.STAGES[stage]
+    g = torch.Generator().manual_seed(970 + 10 * b + stage)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((b * (res // 12) ** 2, 144, c), generator=g)).to(cuda, dtype)
+        norm = ((torch.randn(4 * c, generator=g) * 0.2 + 1.0).to(cuda),
+                (torch.randn(4 * c, generator=g) * 0.2).to(cuda))
+        w = (torch.randn((4 * c, 2 * c), generator=g) * (4 * c) ** -0.5).to(cuda, dtype)
+        a = (x, norm, w, res // 12, 12, 1e-5)
+        want = sb.downsample_reference(*a)
+        plans = [sb.downsample_plan(x)]
+        if dtype == torch.bfloat16:
+            for form in range(len(lp.FORMS)):
+                for splits in lp.MERGE_SPLITS:
+                    try:
+                        plans.append(sb.downsample_plan(x, form, splits))
+                    except ValueError:
+                        pass
+        for plan in plans:
+            got = sb.downsample_launch(*a, plan=plan)
+            abs_err, rel_err, ok = _cases.compare(got, want, _cases.TOL[dtype])
+            assert ok, f"{dtype} {plan}: max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
+            assert torch.equal(got, sb.downsample_launch(*a, plan=plan)), f"{plan} repeats"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, stage", [(8, 0), (1, 1)])
+def test_downsample_product_alone_repeats_the_whole_call(cuda, b, stage):
+    """B8's second launch alone (prologue_ready), on what the first left in
+    scratch, writes what the whole call writes, on either route: the
+    scratch route at b8 stage 0, the split at b1 stage 1."""
+    c, _, res = _cases.STAGES[stage]
+    g = torch.Generator().manual_seed(990 + 10 * b + stage)
+    x = torch.randn((b * (res // 12) ** 2, 144, c), generator=g).to(cuda, torch.bfloat16)
+    norm = ((torch.randn(4 * c, generator=g) * 0.2 + 1.0).to(cuda),
+            (torch.randn(4 * c, generator=g) * 0.2).to(cuda))
+    w = (torch.randn((4 * c, 2 * c), generator=g) * (4 * c) ** -0.5).to(cuda, torch.bfloat16)
+    a = (x, norm, w, res // 12, 12, 1e-5)
+    plan = sb.downsample_plan(x)
+    assert plan.ring == (stage == 1)
+    scratch = sb.downsample_scratch(x, plan)
+    whole = sb.downsample_launch(*a, scratch=scratch)
+    assert torch.equal(sb.downsample_launch(*a, scratch=scratch, prologue_ready=True), whole)
+
+
+@pytest.mark.cuda
+def test_stage_boundaries_raise_outside_their_shapes(cuda):
+    """B8 takes the plan of its own shapes and dtype, and its product alone
+    only on scratch of its route's shape already there; B7's grid must be its route's; neither
+    launches on what it refuses."""
+    x = torch.randn((32, 144, 384), device=cuda, dtype=torch.bfloat16)
+    norm = (torch.ones(1536, device=cuda), torch.zeros(1536, device=cuda))
+    w = torch.randn((1536, 768), device=cuda, dtype=torch.bfloat16)
+    a = (x, norm, w, 4, 12, 1e-5)
+    other = sb.downsample_plan(torch.randn((8, 144, 768), device=cuda, dtype=torch.bfloat16))
+    e, proj, enorm = _embed_operands(cuda, (1, 12, 12, 48), torch.bfloat16, 1)
+    before = (sb.downsample_launches, sb.patch_embed_launches)
+    with pytest.raises(ValueError, match="other shapes"):
+        sb.downsample_launch(*a, plan=other)
+    with pytest.raises(ValueError, match="other shapes"):
+        sb.downsample_launch(x.float(), norm, w.float(), 4, 12, 1e-5, plan=sb.downsample_plan(x))
+    with pytest.raises(ValueError, match="prologue_ready"):
+        sb.downsample_launch(*a, prologue_ready=True)
+    with pytest.raises(ValueError, match="scratch must be"):
+        sb.downsample_launch(*a, scratch=torch.empty((288, 2), device=cuda))
+    with pytest.raises(ValueError):
+        sb.downsample_plan(x, splits=9)
+    with pytest.raises(ValueError, match="other rows"):
+        sb.patch_embed_launch(e, proj, enorm, 12, 1e-5, sb.EmbedPlan(288, 5, 5))
+    with pytest.raises(ValueError, match="another route"):
+        sb.patch_embed_launch(e.float(), (proj[0].float(), proj[1]), enorm, 12, 1e-5,
+                              sb.EmbedPlan(144, 3, 3))
+    assert before == (sb.downsample_launches, sb.patch_embed_launches)

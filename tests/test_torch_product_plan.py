@@ -1,7 +1,8 @@
 """The launch plan of the backbone's shared bf16 product
-(`ops/linear_plan.py::linear_plan`, which the wrappers of B4, B5, B8, B9b and
-B10a / B10b hand to `csrc/fused_linear.cuh`) on the CPU: a pure function of
-the shapes and the card's SM count, so these run without a card."""
+(`ops/linear_plan.py::linear_plan`, which the wrappers of B4, B5, B9b and
+B10a / B10b hand to `csrc/fused_linear.cuh`; B8's plan is
+`tests/test_torch_stage_plan.py`'s) on the CPU: a pure function of the
+shapes and the card's SM count, so these run without a card."""
 import pathlib
 import re
 
