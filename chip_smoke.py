@@ -52,6 +52,18 @@ Phases, in order (any failure raises and exits non-zero before the result):
    finite gradient, and in every step each training kernel must have been
    launched exactly as often as the model has blocks (the counters are set
    to 0 before each step and read after it).
+   SCST (run "scst"): the same model and path, dropout off,
+   `train/train_step.py::make_scst_fused_step` with PlainRAdam, 4 images x 5
+   samples of up to 20 tokens (the sampler's caches fp32, `step_impl`
+   "pallas": K2), the reward the on-card CIDEr-D of
+   `train/device_cider.py` over a seeded synthetic corpus (V = 10000 words, 64
+   images x 5 random references), three steps. In every step: loss and
+   rewards finite, the rewards equal to `train/scst.py::CiderReward`'s (the
+   native C++ scorer, use_native="always") within 1e-4, the training kernels
+   launched exactly as in an XE step (the encoder ran once), K2 3 times per
+   sampling step taken, every kernel outside the run's paths not at all; every
+   parameter with a finite gradient; the on-card CIDEr-D of the batch's
+   references with a third of their words swapped against the host's.
 5. The runs held to the plain path: 2 images at fp32 through each run on the
    card and through the plain path on the CPU, same weights; then sampling
    and the ensemble, card against CPU with the same noise, and the two
@@ -73,7 +85,14 @@ Phases, in order (any failure raises and exits non-zero before the result):
    every gradient of the kernel path on the card against the plain path on
    the CPU; then once more with the CPU's ReLU signs imposed on the card's
    caption head, which holds every gradient to a quarter of the backbone's
-   tolerance.
+   tolerance. SCST held to the plain path: one shared-encoder step at fp32,
+   depths (2, 2, 2, 2), 2 images x 5 samples, the same Gumbel noise on both
+   sides and a reward that is an integer function of the tokens: the sampled
+   tokens and rewards equal, the loss and log-prob sum within 2e-4; every
+   gradient held under the XE check's ReLU-sign rule and tolerances: the card
+   under the CPU's ReLU signs within the imposed tolerance (5e-5), the
+   free-running card within the free one against the CPU under the card's
+   signs; the ReLU flips counted and bounded.
    The bf16 backbone at full depth: the features (2, 144, 1536) of the
    "fused" runs (default modes, and every stage on the halves) against the
    "pallas" run's, same weights and images; relative RMS and max printed, the
@@ -104,7 +123,10 @@ Phases, in order (any failure raises and exits non-zero before the result):
    end-to-end img/s at b8/beam 3/L20 and p50 latency at b1/beam 5/L74, bf16,
    on the default path; encode ms of the w8a8 model against the "fused"
    bf16 one in turns, its decode ms per step and img/s at b8; ms per XE step at b4 bf16 with its split into
-   forward, backward and optimizer, and the step's peak device memory.
+   forward, backward and optimizer, and the step's peak device memory; ms per
+   SCST step (b4 x 5 samples / L20, bf16) with its split into encoder forward,
+   sampling, reward, re-score with backward and optimizer, and its peak
+   device memory.
 
 The next-to-last line is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
@@ -134,10 +156,20 @@ RUNS = {
 ALL_RUNS = tuple(RUNS)
 WINDOW_RUNS = ("fused", "fused_halves")
 TRAIN = "train"  # the training run of phase 4: XE steps on the "fused" path
+SCST = "scst"  # the SCST run of phase 4: shared-encoder SCST steps on the "fused" path
 # quantized serving runs on the "fused" path: name -> (quantize_model mode, step_impl)
 QUANT_RUNS = {"w8a8": ("w8a8", "pallas"), "w8": ("w8", "pallas_fused")}
 Q_RUNS = tuple(QUANT_RUNS)
 B_TRAIN, L_TRAIN, TRAIN_STEPS, TRAIN_LR = 4, 20, 4, 2e-3
+# SCST: images, samples an image, tokens a sample, steps; the reward corpus's
+# images and references an image (random words of the V = 10000 vocabulary)
+B_SCST, SCST_SAMPLES, L_SCST, SCST_STEPS = 4, 5, 20, 3
+SCST_IMAGES, SCST_REFS = 64, 5
+# phase 5's fp32 gradients of the training kernel path against the CPU's plain
+# path, per parameter group: free-running, and with the CPU's ReLU signs
+# imposed on the card's caption head (Smoke.train_check says why)
+GRAD_FREE_TOLS = {"swin_transf.": 2e-4, "caption head": 1e-3}
+GRAD_SAME_TOLS = {"swin_transf.": 5e-5, "caption head": 5e-5}
 # published peaks of one H100 SXM (dense): device memory bytes/s; bf16 matrix
 # products on the tensor cores; fp32 outside them
 HBM_BYTES_S, BF16_FLOPS, FP32_FLOPS, INT8_OPS = 3.35e12, 989e12, 67e12, 1979e12
@@ -162,7 +194,7 @@ KERNELS = {
     "dyn_exp_step": dict(
         route="cuda", source=_PORT + "csrc/dyn_exp_step.cu",
         replaces=_TPU + "dyn_exp_step.py:226", counter=("dyn_exp_step", "launches"),
-        paths=("pallas", "fused_halves") + Q_RUNS, headline="B24 L20 pos7 bfloat16"),
+        paths=("pallas", "fused_halves") + Q_RUNS + (SCST,), headline="B24 L20 pos7 bfloat16"),
     "topk": dict(
         route="cuda", source=_PORT + "csrc/topk.cu",
         replaces=_TPU + "topk.py:78", counter=("topk", "launches"),
@@ -170,7 +202,7 @@ KERNELS = {
     "layernorm": dict(
         route="cuda", source=_PORT + "csrc/layernorm.cu",
         replaces=_TPU + "layernorm.py:36", counter=("layernorm", "launches"),
-        paths=ALL_RUNS + (TRAIN,) + Q_RUNS, headline="(18432, 192) bfloat16"),
+        paths=ALL_RUNS + (TRAIN,) + Q_RUNS + (SCST,), headline="(18432, 192) bfloat16"),
     "patch_embed": dict(
         route="cuda", source=_PORT + "csrc/stage_boundary.cu",
         replaces=_TPU + "stage_boundary.py:100",
@@ -195,7 +227,8 @@ KERNELS = {
         route="cuda", source=_PORT + "csrc/window_transition.cu",
         replaces=_TPU + "swin_block_fused.py:625",
         counter=("swin_block_fused", "transition_launches"),
-        paths=WINDOW_RUNS + (TRAIN,) + Q_RUNS, headline="stage0 x(128, 144, 192) 6to0 bfloat16"),
+        paths=WINDOW_RUNS + (TRAIN,) + Q_RUNS + (SCST,),
+        headline="stage0 x(128, 144, 192) 6to0 bfloat16"),
     "swin_block": dict(
         route="cuda", source=_PORT + "csrc/swin_block.cu",
         replaces=_TPU + "swin_block_fused.py:677",
@@ -210,27 +243,27 @@ KERNELS = {
         route="cuda", source=_PORT + "csrc/swin_block.cu",
         replaces=_TPU + "swin_block_fused.py:1285",
         counter=("swin_block_fused", "block_train_launches"),
-        paths=(TRAIN,), headline="stage0 x(128, 144, 192) mask bfloat16"),
+        paths=(TRAIN, SCST), headline="stage0 x(128, 144, 192) mask bfloat16"),
     "swin_attn_bwd": dict(
         route="cuda", source=_PORT + "csrc/swin_attn_bwd.cu",
         replaces=_TPU + "swin_block_fused.py:2063",
         counter=("swin_block_fused", "attn_bwd_launches"),
-        paths=(TRAIN,), headline="stage0 x(128, 144, 192) mask bfloat16"),
+        paths=(TRAIN, SCST), headline="stage0 x(128, 144, 192) mask bfloat16"),
     "swin_mlp_bwd": dict(
         route="cuda", source=_PORT + "csrc/swin_mlp_bwd.cu",
         replaces=_TPU + "swin_block_fused.py:1547",
         counter=("swin_block_fused", "mlp_bwd_launches"),
-        paths=(TRAIN,), headline="stage0 x(128, 144, 192) bfloat16"),
+        paths=(TRAIN, SCST), headline="stage0 x(128, 144, 192) bfloat16"),
     "swin_attn_half_train": dict(
         route="cuda", source=_PORT + "csrc/swin_attn_half.cu",
         replaces=_TPU + "swin_block_fused.py:2274",
         counter=("swin_block_fused", "attn_half_train_launches"),
-        paths=(TRAIN,), headline="stage2 x(8, 144, 768) mask bfloat16"),
+        paths=(TRAIN, SCST), headline="stage2 x(8, 144, 768) mask bfloat16"),
     "swin_mlp_half_train": dict(
         route="cuda", source=_PORT + "csrc/swin_mlp_half.cu",
         replaces=_TPU + "swin_block_fused.py:2396",
         counter=("swin_block_fused", "mlp_half_train_launches"),
-        paths=(TRAIN,), headline="stage2 x(8, 144, 768) bfloat16"),
+        paths=(TRAIN, SCST), headline="stage2 x(8, 144, 768) bfloat16"),
     "quant_matmul": dict(
         route="cuda", source=_PORT + "csrc/quant_matmul.cu",
         replaces=_TPU + "quant_matmul.py:48", counter=("quant_matmul", "launches"),
@@ -288,6 +321,7 @@ class Smoke:
         self.launches = {}  # run -> kernel -> launches in that main-path run
         self.serve = {}  # run -> bf16 Captioner at b8 / beam 3 / L20
         self.trainer = None  # (cfg, model, optimizer, step, batch, generator) of the training run
+        self.scst = None  # (model, step, batch, ref tables, generator) of the SCST run
 
     # -- helpers -------------------------------------------------------------
     def check(self, case) -> None:
@@ -1034,14 +1068,19 @@ class Smoke:
 
     def relu_signs(self, fn, impose=None):
         """fn() with `torch.relu` replaced for the call (only the caption head
-        calls it): returns fn's result and the pattern `x > 0` of every call,
-        in order, on the CPU. With `impose`, such a list, each call passes its
-        input where the pattern says so and 0 elsewhere, whatever the input's
-        own sign, and its gradient follows the pattern too."""
+        calls it): returns fn's result and the pattern `x > 0` of every call
+        made while gradients are recorded, in order, on the CPU. With
+        `impose`, such a list, each of those calls passes its input where the
+        pattern says so and 0 elsewhere, whatever the input's own sign, and
+        its gradient follows the pattern too. Calls under no_grad (the SCST
+        sampler's plain decode step on the CPU, which the card's K2 makes
+        without them) pass through."""
         torch = self.torch
         real, seen, given = torch.relu, [], iter(impose or ())
 
         def relu(x):
+            if not torch.is_grad_enabled():
+                return real(x)
             seen.append((x > 0).cpu())
             if impose is None:
                 return real(x)
@@ -1052,6 +1091,29 @@ class Smoke:
             return fn(), seen
         finally:
             torch.relu = real
+
+    @staticmethod
+    def grads(model):
+        return {name: p.grad for name, p in model.named_parameters()}
+
+    def grad_shares(self, grads, want, top, tols):
+        """Per parameter group ('swin_transf.', 'caption head') the worst of
+        `grads` against `want` (the CPU's; both by parameter name) as a share
+        of its tolerance: tol x its tensor's max + 0.1 tol x `top`, the
+        largest gradient of the model. Returns {group: (share, name)}."""
+        worst = {group: (0.0, "") for group in tols}
+        for name, g in grads.items():
+            group = "swin_transf." if name.startswith("swin_transf.") else "caption head"
+            w, tol = want[name], tols[group]
+            err = float((g.cpu() - w).abs().max())
+            share = err / (tol * float(w.abs().max()) + 0.1 * tol * top)
+            if not share <= worst[group][0]:  # also catches NaN
+                worst[group] = (share, name)
+        return worst
+
+    @staticmethod
+    def show_shares(tols, worst):
+        return "; ".join(f"{g} (tol {tols[g]:g}) {v:.3f} at {n}" for g, (v, n) in worst.items())
 
     def train_check(self):
         """Phase 5, training: fp32 loss and gradients of the kernel path on the
@@ -1069,7 +1131,7 @@ class Smoke:
         loss_c, signs_c = self.relu_signs(
             lambda: xe_loss(cpu_model, cfg, batch, drop_path_scales=scales))
         loss_c.backward()
-        want = {n: p.grad for n, p in cpu_model.named_parameters()}
+        want = self.grads(cpu_model)
         top = max(float(g.abs().max()) for g in want.values())
         loss_c = float(loss_c.detach())
         _, gpu_model = self.train_model(torch.float32, self.dev, depths, dropout=0.0)
@@ -1084,22 +1146,14 @@ class Smoke:
                 lambda: xe_loss(gpu_model, cfg, gpu_batch, drop_path_scales=gpu_scales), impose)
             loss.backward()
             torch.cuda.synchronize()
-            worst = {group: (0.0, "") for group in tols}
-            for name, p in gpu_model.named_parameters():
-                group = "swin_transf." if name.startswith("swin_transf.") else "caption head"
-                w, tol = want[name], tols[group]
-                err = float((p.grad.cpu() - w).abs().max())
-                share = err / (tol * float(w.abs().max()) + 0.1 * tol * top)
-                if not share <= worst[group][0]:  # also catches NaN
-                    worst[group] = (share, name)
-            return float(loss.detach()), signs, worst
+            return float(loss.detach()), signs, self.grad_shares(self.grads(gpu_model), want, top,
+                                                                 tols)
 
         def held(loss, worst):
             return abs(loss - loss_c) <= 2e-4 * abs(loss_c) and all(
                 v <= 1.0 for v, _ in worst.values())
 
-        def show(tols, worst):
-            return "; ".join(f"{g} (tol {tols[g]:g}) {v:.3f} at {n}" for g, (v, n) in worst.items())
+        show = self.show_shares
 
         # fp32 on both sides through 8 blocks and 6 caption layers, forward and
         # backward: the sums run in another order (chunks, then the chunks'
@@ -1116,8 +1170,7 @@ class Smoke:
         # are counted (3 of 5.6 million on an H100), and with the CPU's ReLU
         # patterns imposed on the card's head every gradient, the head's too,
         # is held to 5e-5.
-        free_tols = {"swin_transf.": 2e-4, "caption head": 1e-3}
-        same_tols = {"swin_transf.": 5e-5, "caption head": 5e-5}
+        free_tols, same_tols = GRAD_FREE_TOLS, GRAD_SAME_TOLS
         self.counters(reset=True)
         loss_g, signs_g, free = card(free_tols)
         counts = self.counters()
@@ -1164,6 +1217,261 @@ class Smoke:
             f"{whole:.2f} ms per step (CUDA events, 3 steps); forward {fwd:.2f} ms, backward "
             f"{bwd:.2f} ms, optimizer {opt:.2f} ms (medians of 3 steps {marks}); peak device "
             f"memory {peak:.0f} MiB of this step | {self.card}")
+
+    # -- SCST -------------------------------------------------------------------
+    def scst_corpus(self, cap):
+        """(vocab, references, DeviceCiderCorpus) of the SCST runs: a seeded
+        synthetic vocabulary of the captioner's V words (its special tokens at
+        their ids) and SCST_REFS random references of 8 to 16 words for each
+        of SCST_IMAGES images. No dataset is read."""
+        from on_device_image_captioning_torch.data.text import Vocab
+        from on_device_image_captioning_torch.train.device_cider import DeviceCiderCorpus
+
+        words = [f"w{i}" for i in range(cap.vocab_size)]
+        for token, idx in (("PAD", cap.pad_idx), ("SOS", cap.sos_idx), ("EOS", cap.eos_idx),
+                           ("UNK", cap.unk_idx)):
+            words[idx] = token
+        vocab = Vocab({w: i for i, w in enumerate(words)})
+        plain = [w for w in words if w.startswith("w")]
+        rng = np.random.default_rng(SEED + 11)
+        refs = [[" ".join(rng.choice(plain, int(rng.integers(8, 17)))) for _ in range(SCST_REFS)]
+                for _ in range(SCST_IMAGES)]
+        return vocab, refs, DeviceCiderCorpus(refs, vocab)
+
+    def scst_path(self):
+        """Phase 4, SCST: shared-encoder SCST steps at full width and depth on
+        the card, the reward on the card; each step's launches, rewards and
+        gradients checked."""
+        torch = self.torch
+        from on_device_image_captioning_torch.train.radam import PlainRAdam
+        from on_device_image_captioning_torch.train.scst import CiderReward
+        from on_device_image_captioning_torch.train.train_step import make_scst_fused_step
+
+        cfg, model = self.train_model(torch.bfloat16, self.dev)
+        cap = cfg.captioner
+        vocab, refs, corpus = self.scst_corpus(cap)
+        host = CiderReward(refs, use_native="always")  # a failed g++ build raises
+        reward_fn = corpus.make_reward_fn(self.dev)
+        optimizer = PlainRAdam(model.parameters(), TRAIN_LR)
+        step = make_scst_fused_step(model, cfg, optimizer, SCST_SAMPLES, L_SCST, cap.sos_idx,
+                                    cap.eos_idx, reward_fn)
+        idx = np.arange(B_SCST)
+        tables = corpus.batch(idx)
+        batch = {"enc_input": torch.from_numpy(self.images(B_SCST, SEED + 11)).to(self.dev)}
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        per_step = []
+        for i in range(SCST_STEPS):
+            self.counters(reset=True)
+            out = step(batch, tables, gen)
+            torch.cuda.synchronize()
+            counts = self.counters()
+            sampled = out["sampled"]
+            steps = int(sampled.lengths.max())  # the sampler stops when every row has an EOS
+            got = {k: counts[k] for k in TRAIN_LAUNCHES}
+            if got != TRAIN_LAUNCHES:  # twice these if the encoder ran twice
+                raise AssertionError(f"training launches {got} != {TRAIN_LAUNCHES} in SCST "
+                                     f"step {i}")
+            if counts["dyn_exp_step"] != N_DEC * steps:
+                raise AssertionError(f"K2 launched {counts['dyn_exp_step']} times for {steps} "
+                                     f"sampling steps of {N_DEC} layers in SCST step {i}")
+            for name, k in KERNELS.items():
+                if (counts[name] > 0) != (SCST in k["paths"]):
+                    raise AssertionError(
+                        f"kernel {name}: {counts[name]} launches in an SCST step, which "
+                        f"{'runs' if SCST in k['paths'] else 'does not run'} it")
+            rewards = out["rewards"].cpu().numpy()
+            want = host(sampled.tokens, sampled.lengths, idx, vocab)
+            err = float(np.abs(rewards - want).max())
+            if not (np.isfinite(float(out["loss"])) and np.isfinite(rewards).all()):
+                raise AssertionError(f"SCST step {i}: loss or rewards not finite")
+            if not np.allclose(rewards, want, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"SCST step {i}: on-card CIDEr-D {rewards} departs from the "
+                                     f"host's {want}")
+            per_step.append(dict(loss=round(float(out["loss"]), 5),
+                                 reward=round(float(out["reward"]), 5),
+                                 nonzero_rewards=int((rewards > 0).sum()), sampling_steps=steps,
+                                 k2=counts["dyn_exp_step"], reward_err=err))
+        self.launches[SCST] = counts
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        backbone = max(float(p.grad.abs().max()) for n, p in model.named_parameters()
+                       if n.startswith("swin_transf.") and p.grad is not None)
+        # random weights score near 0 against random references; the
+        # references themselves, every third word swapped for a random one
+        # (and the last dropped from every other), give partial matches of
+        # every n-gram order
+        rng = np.random.default_rng(SEED + 12)
+        ref_tokens = np.full((B_SCST, SCST_REFS, L_SCST + 1), cap.pad_idx, np.int32)
+        ref_tokens[:, :, 0] = cap.sos_idx
+        ref_lengths = np.zeros((B_SCST, SCST_REFS), np.int32)
+        for i in idx:
+            for j, ref in enumerate(refs[i]):
+                ids = [vocab.word2idx[w] for w in ref.split()][:len(ref.split()) - j % 2]
+                ids[2::3] = rng.integers(4, cap.vocab_size, len(ids[2::3])).tolist()
+                ids = [t if t not in (cap.eos_idx, cap.pad_idx) else t + 100 for t in ids]
+                ids.append(cap.eos_idx)
+                ref_tokens[i, j, 1:1 + len(ids)] = ids
+                ref_lengths[i, j] = len(ids)
+        with torch.no_grad():
+            self_dev = reward_fn(torch.from_numpy(ref_tokens).to(self.dev),
+                                 torch.from_numpy(ref_lengths).to(self.dev), tables).cpu().numpy()
+        self_host = host(ref_tokens, ref_lengths, idx, vocab)
+        log(f"phase 4 SCST, run {SCST!r}: make_scst_fused_step on Swin-L/384 depths "
+            f"{cfg.swin.depths} + d512 captioner, V={cap.vocab_size}, attention_impl='fused', "
+            f"bf16 over fp32 masters, b{B_SCST} x {SCST_SAMPLES} samples / L{L_SCST} (fp32 "
+            f"sampler caches, step_impl='pallas'), dropout off, PlainRAdam lr {TRAIN_LR}, reward: "
+            f"on-card CIDEr-D over {SCST_IMAGES} images x {SCST_REFS} random references; per "
+            f"step {per_step}; launches in the last step {counts}; "
+            f"{sum(1 for _ in model.parameters())} parameters, {len(bad)} without a finite "
+            f"gradient; the backbone's largest gradient in the last step {backbone:.3e}")
+        log(f"  on-card CIDEr-D of the references, a third of their words swapped: "
+            f"{np.round(self_dev, 4).tolist()}, "
+            f"max abs difference from CiderReward (native C++, use_native='always') "
+            f"{float(np.abs(self_dev - self_host).max()):.3e} (tol 1e-4 + 1e-4 relative)")
+        if bad:
+            raise AssertionError(f"parameters without a finite gradient: {bad[:5]}")
+        if not (np.allclose(self_dev, self_host, rtol=1e-4, atol=1e-4) and (self_host > 0).all()):
+            raise AssertionError("on-card CIDEr-D of the altered references departs from the "
+                                 "host's")
+        self.scst = (model, step, batch, tables, gen)
+
+    def scst_check(self):
+        """Phase 5, SCST: fp32 loss and gradients of one shared-encoder SCST
+        step, the kernel path on the card against the plain path on the CPU,
+        depths (2, 2, 2, 2), 2 images, the same Gumbel noise and the same
+        rewards on both sides; the ReLU-sign rule of `train_check`."""
+        torch = self.torch
+        from on_device_image_captioning_torch.train.losses import mean_baseline
+        from on_device_image_captioning_torch.train.train_step import make_scst_fused_step
+
+        depths = (2, 2, 2, 2)
+        cfg, cpu_model = self.train_model(torch.float32, "cpu", depths, dropout=0.0)
+        _, gpu_model = self.train_model(torch.float32, self.dev, depths, dropout=0.0)
+        cap = cfg.captioner
+        images = torch.from_numpy(self.images(2, SEED + 13))
+        noise = self.gumbel(SEED + 13, [(2 * SCST_SAMPLES, cap.vocab_size)] * L_SCST)
+
+        def reward_fn(tokens, lengths, tables):
+            """An integer function of the tokens: equal on both sides for equal
+            tokens, and spread over the samples (random weights against random
+            references score 0 almost everywhere, which leaves no gradient)."""
+            t = tokens[:, :, 1:].long()
+            return ((t * torch.arange(1, t.shape[-1] + 1, device=t.device)).sum(-1) % 7).float()
+
+        def run(model, dev, impose=None):
+            step = make_scst_fused_step(model, cfg, torch.optim.SGD(model.parameters(), lr=0.0),
+                                        SCST_SAMPLES, L_SCST, cap.sos_idx, cap.eos_idx, reward_fn)
+            out, signs = self.relu_signs(
+                lambda: step({"enc_input": images.to(dev)}, None, noise=noise), impose)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            return out, signs
+
+        out_c, signs_c = run(cpu_model, "cpu")
+        want = self.grads(cpu_model)
+        top = max(float(g.abs().max()) for g in want.values())
+        rewards = out_c["rewards"]
+        terms = (rewards - mean_baseline(rewards)) * out_c["sampled"].logprobs.sum(-1)
+        scale = float(terms.abs().mean())  # the loss is a mean of terms of either sign
+        self.counters(reset=True)
+        out_g, signs_g = run(gpu_model, self.dev)
+        counts = self.counters()
+        free_grads = {n: g.cpu() for n, g in self.grads(gpu_model).items()}
+        free = self.grad_shares(free_grads, want, top, GRAD_FREE_TOLS)
+        flips = sum(int((a != b).sum()) for a, b in zip(signs_g, signs_c))
+        # both ways round: the card under the CPU's ReLU signs, and the CPU
+        # under the card's (the free-running card's gradients)
+        out_s, _ = run(gpu_model, self.dev, impose=signs_c)
+        same = self.grad_shares(self.grads(gpu_model), want, top, GRAD_SAME_TOLS)
+        out_x, _ = run(cpu_model, "cpu", impose=signs_g)
+        mirror = self.grad_shares(free_grads, self.grads(cpu_model), top, GRAD_FREE_TOLS)
+        steps = int(out_c["sampled"].lengths.max())
+
+        def same_tokens(out):
+            return torch.equal(out["sampled"].tokens.cpu(), out_c["sampled"].tokens)
+
+        def held(out):
+            return (same_tokens(out)
+                    and torch.equal(out["rewards"].cpu(), rewards)
+                    and abs(float(out["loss"]) - float(out_c["loss"])) <= 2e-4 * scale
+                    and abs(float(out["logprob_sum"]) - float(out_c["logprob_sum"]))
+                    <= 2e-4 * abs(float(out_c["logprob_sum"])))
+
+        # The gradients are held under the ReLU-sign rule of `train_check`,
+        # with its two tolerances: the card under the CPU's ReLU patterns
+        # against the CPU within the imposed one (5e-5), and the free-running
+        # card within the free one (2e-4 backbone, 1e-3 caption head), but
+        # against the CPU under the card's patterns. Against the free CPU, a
+        # flipped ReLU (its input within rounding of 0) moves one term of
+        # each gradient it feeds outright, as in the XE check; but the SCST
+        # gradient is a sum of advantage-weighted terms of both signs (an
+        # image's advantages sum to 0), so one term weighs much more against
+        # the tensor's max than under XE (an H100 run: 10 flips of 7.2
+        # million inputs took the free gradients to 43 times the free
+        # tolerance, while the card under the CPU's patterns stayed within
+        # 0.37 of 5e-5). So that comparison is printed, and the flips are
+        # bounded.
+        n_relu = sum(a.numel() for a in signs_c)
+        show = self.show_shares
+        log(f"phase 5 SCST fp32, depths {depths}, 2 images x {SCST_SAMPLES} samples / "
+            f"L{L_SCST}, the same Gumbel noise and rewards, card kernels vs CPU plain path: "
+            f"sampled tokens equal: {same_tokens(out_g)} "
+            f"({steps} sampling steps); loss {float(out_g['loss']):.6f} vs "
+            f"{float(out_c['loss']):.6f} (tol 2e-4 x the mean |term| {scale:.4e}); log-prob "
+            f"sum {float(out_g['logprob_sum']):.5f} vs {float(out_c['logprob_sum']):.5f} (tol "
+            f"2e-4 relative); gradients of {len(want)} parameters against tol x their "
+            f"tensor's max + 0.1 tol x the largest gradient ({top:.3e}), free-running (printed, "
+            f"not held: flips), worst share of that: {show(GRAD_FREE_TOLS, free)}; launches "
+            f"{({k: counts[k] for k in (*TRAIN_LAUNCHES, 'dyn_exp_step')})}")
+        log(f"  {flips} of {n_relu} ReLU inputs in {len(signs_c)} calls have another sign on the "
+            f"card than on the CPU (bound 1e-5 of them); with the CPU's signs imposed on the "
+            f"card (held): tokens equal {same_tokens(out_s)}, "
+            f"loss {float(out_s['loss']):.6f}, worst share: {show(GRAD_SAME_TOLS, same)}; the "
+            f"free-running card against the CPU under the card's signs (held): loss "
+            f"{float(out_x['loss']):.6f}, worst share: {show(GRAD_FREE_TOLS, mirror)}")
+        if (len(signs_g) != len(signs_c) or flips > 1e-5 * n_relu or not held(out_g)
+                or not held(out_s) or not held(out_x)
+                or not all(v <= 1.0 for v, _ in (*same.values(), *mirror.values()))):
+            raise AssertionError("the SCST kernel path and the plain path disagree at fp32")
+        if counts["swin_block_train"] != 4 or counts["dyn_exp_step"] != N_DEC * steps:
+            raise AssertionError("the fp32 SCST check did not go through the kernels")
+        del gpu_model
+        torch.cuda.empty_cache()
+
+    def scst_timing(self):
+        """Phase 6, SCST: ms per shared-encoder SCST step and its split (CUDA
+        events at the step's part boundaries), peak memory."""
+        torch = self.torch
+        model, step, batch, tables, gen = self.scst
+        parts = ("encoder", "sampling", "reward", "rescore", "optimizer")
+        resident = torch.cuda.memory_allocated() / 2**20  # every earlier run's tensors too
+        torch.cuda.reset_peak_memory_stats()
+        splits, walls, steps = [], [], []
+        for _ in range(3):
+            events = []
+
+            def mark(part):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mark("start")
+            out = step(batch, tables, gen, mark=mark)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            splits.append([events[i].elapsed_time(events[i + 1]) for i in range(len(parts))])
+            steps.append(int(out["sampled"].lengths.max()))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        med = {p: statistics.median(s[i] for s in splits) for i, p in enumerate(parts)}
+        log(f"  SCST step b{B_SCST} x {SCST_SAMPLES} samples / L{L_SCST} bf16, Swin-L/384 + d512: "
+            f"{statistics.median(walls):.2f} ms per step (host clock around the synchronized "
+            f"step, median of 3: {[round(w, 2) for w in walls]}); CUDA events, medians of 3: "
+            + ", ".join(f"{p} {med[p]:.2f} ms" for p in parts)
+            + f" (sum {sum(med.values()):.2f} ms; sampling steps {steps}); peak device memory "
+            f"{peak:.0f} MiB, of which {resident:.0f} MiB were allocated before the step | "
+            f"{self.card}")
 
     def bf16_features(self, imgs):
         """The bf16 backbone at full depth: the features (2, 144, 1536) of the
@@ -1566,9 +1874,11 @@ def main(names) -> int:
     smoke.main_path()
     smoke.quant_path()
     smoke.train_path()
+    smoke.scst_path()
     smoke.self_check()
     smoke.quant_check()
     smoke.train_check()
+    smoke.scst_check()
     smoke.kernel_timing()
     smoke.product_timing()
     smoke.a8_product_timing()
@@ -1578,6 +1888,7 @@ def main(names) -> int:
     smoke.topk_cluster_timing()
     smoke.path_timing()
     smoke.train_timing()
+    smoke.scst_timing()
     kernels = []
     for name, k in KERNELS.items():
         by_path = {r: smoke.launches[r][name] for r in smoke.launches}

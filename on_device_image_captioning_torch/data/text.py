@@ -1,9 +1,11 @@
-"""Vocabulary: token ids to a display caption (the part of the JAX package's
-`data/text.py` that the demo needs; tokenizing and vocabulary building come
-with the training slice)."""
+"""Vocabulary and caption cleaning (the part of the JAX package's
+`data/text.py` that the demo and the SCST rewards need: token ids to a display
+caption, and the reference's caption cleaning; vocabulary building comes with
+the data loaders)."""
 from __future__ import annotations
 
 import json
+import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence
 
@@ -11,6 +13,23 @@ PAD_TOKEN = "PAD"
 SOS_TOKEN = "SOS"
 EOS_TOKEN = "EOS"
 UNK_TOKEN = "UNK"
+
+_PUNCTUATIONS = {
+    "''", "'", "``", "`", ".", "?", "!", ",", ":", "-", "--", "...", ";",
+}
+
+
+def clean_caption(text: str) -> str:
+    """lowercase, strip trailing space, space out non-alphanumerics, drop
+    punctuation tokens (reference utils/language_utils.py:16-57)."""
+    text = text.lower().rstrip()
+    text = re.sub(r"([^\w0-9])", r" \1 ", text)
+    words = [w for w in text.split(" ") if w and w not in _PUNCTUATIONS]
+    return " ".join(words)
+
+
+def tokenize(text: str) -> List[str]:
+    return [w for w in clean_caption(text).split(" ") if w]
 
 
 @dataclass

@@ -110,3 +110,23 @@ class ExpansionNetV2(nn.Module):
         if apply_log_softmax:
             y = torch.log_softmax(y.float(), dim=-1)
         return y
+
+    def forward(
+        self,
+        features: torch.Tensor,
+        dec_input: torch.Tensor,
+        enc_num_pads: Optional[torch.Tensor] = None,
+        dec_num_pads: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        apply_log_softmax: bool = False,
+        dtype: Optional[torch.dtype] = None,
+    ) -> torch.Tensor:
+        """Full teacher-forced forward over features (the JAX package's
+        `captioner.forward`, reference models/captioning_model.py:34-37):
+        features (B, S_enc, img_feature_dim) and a token prefix (B, T) ->
+        logits (B, T, vocab). The encoder's dropouts are drawn from
+        `generator` first, then the decoder's (off without one)."""
+        cross = self.forward_enc(features, enc_num_pads, dtype, train, generator)
+        return self.forward_dec(cross, dec_input, dec_num_pads, enc_num_pads, apply_log_softmax,
+                                dtype, train, generator)

@@ -133,6 +133,10 @@ STEP_SHAPES = [
     (5, 1, 74, (0, 7, 36, 73), None), (1, 1, 74, (0, 73), 2101), (40, 8, 20, (0, 7, 19), 2140),
     (12, 4, 20, (7,), 2112), (12, 4, 74, (0, 73), 2174),
 ]
+# the SCST sampler's (train/train_step.py::make_scst_fused_step): 4 images x 5
+# samples, fp32 caches of 20 + 1 positions (the sampler's caches are fp32
+# whatever the model's compute dtype)
+SCST_STEP = (20, 4, 21, (0, 7, 20), 2221)
 
 
 def _step_operands(b, L, E, d, dt, g, dev, first):
@@ -163,32 +167,34 @@ def _step_checks(first_name):
 
 
 def dyn_exp_step_cases(dev) -> Iterator[Case]:
-    """K2 at the STEP_SHAPES (E=16, d=512), fp32 and bf16 caches. Checks the
-    output and all six destination caches."""
+    """K2 at the STEP_SHAPES (E=16, d=512), fp32 and bf16 caches, and at the
+    SCST sampler's own shape (SCST_STEP). Checks the output and all six
+    destination caches."""
     E, d = 16, 512
     checks = _step_checks("out")
-    for dt in (torch.float32, torch.bfloat16):
+    shapes = [(dt, "", shape) for dt in (torch.float32, torch.bfloat16) for shape in STEP_SHAPES]
+    shapes.append((torch.float32, "b4 sampling ", SCST_STEP))
+    for dt, prefix, (b, _, L, positions, seed) in shapes:
         tol = TOL[dt]
-        for b, _, L, positions, seed in STEP_SHAPES:
-            g = torch.Generator().manual_seed(200 + L if seed is None else seed)
-            src, reorder, q_i, bias_i, rows, sel, embed = _step_operands(
-                b, L, E, d, dt, g, dev, first=5)
-            dst = [torch.empty_like(t) for t in src]
-            for pos in positions:
-                a = (pos, reorder, q_i, bias_i, *rows, sel, embed, src)
+        g = torch.Generator().manual_seed(200 + L if seed is None else seed)
+        src, reorder, q_i, bias_i, rows, sel, embed = _step_operands(
+            b, L, E, d, dt, g, dev, first=5)
+        dst = [torch.empty_like(t) for t in src]
+        for pos in positions:
+            a = (pos, reorder, q_i, bias_i, *rows, sel, embed, src)
 
-                def run_kernel(a=a, dst=dst):
-                    return k2.dyn_exp_step(*a, dst), dst
+            def run_kernel(a=a, dst=dst):
+                return k2.dyn_exp_step(*a, dst), dst
 
-                yield Case(
-                    "dyn_exp_step", f"B{b} L{L} pos{pos} {_dtype_name(dt)}",
-                    run_kernel, lambda a=a: k2.dyn_exp_step_reference(*a),
-                    lambda got, want, tol=tol: checks(got, want, tol), args=a,
-                    # the step returns every position of the six caches
-                    nbytes=2 * _nbytes(*src) + _nbytes(reorder, q_i, bias_i, *rows, sel, embed)
-                    + b * d * 4,
-                    flops=10 * b * (pos + 1) * E * d, matmul=True,
-                )
+            yield Case(
+                "dyn_exp_step", f"{prefix}B{b} L{L} pos{pos} {_dtype_name(dt)}",
+                run_kernel, lambda a=a: k2.dyn_exp_step_reference(*a),
+                lambda got, want, tol=tol: checks(got, want, tol), args=a,
+                # the step returns every position of the six caches
+                nbytes=2 * _nbytes(*src) + _nbytes(reorder, q_i, bias_i, *rows, sel, embed)
+                + b * d * 4,
+                flops=10 * b * (pos + 1) * E * d, matmul=True,
+            )
 
 
 def dyn_exp_cross_step_cases(dev) -> Iterator[Case]:
@@ -293,12 +299,14 @@ def _layernorm_case(label, x, w, bias) -> Case:
 
 
 # the main path's own LayerNorm calls: (label, rows, C, dtype, seed). The
-# decode's (fp32 stream: decode/cache.py) at b8 x beam 3 and b1 x beam 5;
+# decode's (fp32 stream: decode/cache.py) at b8 x beam 3 and b1 x beam 5, and
+# the SCST sampler's at b4 x 5 samples;
 # the b8 caption encoder's reduction (models/captioner.py, the bf16 stream);
 # the "pallas" backbone's stage 3 and stage 0 at b8; one width of no whole
 # 16-byte chunks (the any-width kernel).
 MAIN_PATH_NORMS = [
     ("b8 decode ", 24, 512, torch.float32, 451), ("b1 decode ", 5, 512, torch.float32, 452),
+    ("b4 sampling ", 20, 512, torch.float32, 457),
     ("b8 encoder ", 1152, 512, torch.bfloat16, 453),
     ("b8 stage3 ", 1152, 1536, torch.bfloat16, 454),
     ("b8 stage0 ", 73728, 192, torch.bfloat16, 455),

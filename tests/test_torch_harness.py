@@ -202,10 +202,12 @@ def test_init_weights_seeded_distributions():
 
 def test_port_imports_neither_jax_nor_triton():
     """Importing every module of the port (the package is walked, the
-    `train` and `deploy` subpackages included), running both backbone paths,
-    taking an XE training step on each and captioning with the w8a8-quantized
-    model leaves jax, triton and every module of the JAX package out of
-    sys.modules, and on the CPU no kernel launch counter moves."""
+    `train`, `evalcap` and `deploy` subpackages included), running both
+    backbone paths, taking an XE step and a shared-encoder SCST step (its
+    on-card CIDEr-D on the CPU) on each and captioning with the
+    w8a8-quantized model leaves jax, triton and every module of the JAX
+    package out of sys.modules, and on the CPU no kernel launch counter
+    moves."""
     code = textwrap.dedent(
         """
         import dataclasses, importlib, pkgutil, sys
@@ -218,12 +220,15 @@ def test_port_imports_neither_jax_nor_triton():
                      "decode.sampling", "deploy.quantization", "ops.quant_matmul",
                      "ops.stage_boundary",
                      "ops.swin_block_fused", "ops.window_layout", "utils.image",
-                     "train.losses", "train.radam", "train.schedules", "train.train_step"):
+                     "train.losses", "train.radam", "train.schedules", "train.train_step",
+                     "evalcap.cider", "evalcap.cider_native", "train.scst",
+                     "train.device_cider"):
             assert port.__name__ + "." + leaf in mods, leaf
         from on_device_image_captioning_torch import api, config
         from on_device_image_captioning_torch.deploy import quantization
         from on_device_image_captioning_torch.models import end_to_end
-        from on_device_image_captioning_torch.train import radam, train_step
+        from on_device_image_captioning_torch.data.text import Vocab
+        from on_device_image_captioning_torch.train import device_cider, radam, scst, train_step
         from on_device_image_captioning_torch.ops import (
             dyn_exp_step, layernorm, quant_matmul, stage_boundary, swin_block_fused, topk,
             window_attention)
@@ -245,6 +250,18 @@ def test_port_imports_neither_jax_nor_triton():
             batch = {"enc_input": torch.from_numpy(imgs),
                      "captions": torch.tensor([[2, 5, 6, 3, 0]])}
             assert torch.isfinite(step(batch, torch.Generator().manual_seed(0))["loss"])
+            vocab = Vocab({w: i for i, w in enumerate(
+                ["PAD", "UNK", "SOS", "EOS"] + [f"w{i}" for i in range(1020)])})
+            refs = [["w5 w6 w7", "w5 w9"]]
+            corpus = device_cider.DeviceCiderCorpus(refs, vocab)
+            scst_step = train_step.make_scst_fused_step(
+                model, cfg, radam.PlainRAdam(model.parameters(), 1e-3), 2, 6, 2, 3,
+                corpus.make_reward_fn("cpu"))
+            out = scst_step({"enc_input": torch.from_numpy(imgs)}, corpus.batch([0]),
+                            torch.Generator().manual_seed(0))
+            host = scst.CiderReward(refs, use_native="never")(
+                out["sampled"].tokens, out["sampled"].lengths, [0], vocab)
+            assert np.allclose(out["rewards"].numpy(), host, rtol=1e-4, atol=1e-4)
             quantization.quantize_model(model, "w8a8")
             api.Captioner(model, cfg, {"beam_size": 2, "beam_max_seq_len": 6}, device="cpu")(imgs)
         counts = [m.launches for m in (dyn_exp_step, layernorm, topk, window_attention)]
@@ -268,6 +285,29 @@ def test_port_imports_neither_jax_nor_triton():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("clean")
+
+
+def test_native_cider_writes_nothing_under_native(tmp_path, monkeypatch):
+    """The port's native CIDEr scorer builds the repo's `native/cider.cc`
+    into its own build directory and leaves `native/` as it found it (the
+    JAX package's binding builds next to the source)."""
+    from on_device_image_captioning_torch.evalcap import cider_native
+
+    native = REPO / "native"
+
+    def listing():
+        return sorted((p.name, p.stat().st_size, p.stat().st_mtime_ns) for p in native.iterdir())
+
+    before = listing()
+    monkeypatch.setattr(cider_native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cider_native, "_lib", None)
+    assert cider_native.NativeCiderCorpus.available()
+    built = sorted(p.name for p in (tmp_path / "build").iterdir())
+    assert built == [cider_native.library_path().name], built
+    scores = cider_native.NativeCiderCorpus([["a b c EOS"], ["d e EOS"]]).score_hypotheses(
+        ["a b EOS"])
+    assert scores.shape == (1,) and scores[0] > 0
+    assert listing() == before
 
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
