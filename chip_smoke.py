@@ -64,6 +64,24 @@ Phases, in order (any failure raises and exits non-zero before the result):
    sampling step taken, every kernel outside the run's paths not at all; every
    parameter with a finite gradient; the on-card CIDEr-D of the batch's
    references with a third of their words swapped against the host's.
+   Evaluation (runs "eval", "eval_w8a8", "features", "eval_features"; no
+   image or HDF5 file is read: the images are seeded uint8 arrays handed in
+   through `load_images`, the stores kept in memory): a synthetic test split
+   of 12 images with 5 references of random words of a V = 10000 vocabulary.
+   "eval": `cli/evaluate.py::evaluate_split` on the bf16 model of run
+   "fused" with the "pallas" step, batches of 8 (the second padded), beam 3
+   / L20, all five metrics (native METEOR and SPICE): every image predicted,
+   the predictions equal to `api.Captioner.beam_search`'s on the same padded
+   batches, every score finite, the launches per batch equal to Captioner's
+   and to the serve runs' counts for the path. "eval_w8a8": the w8a8 model
+   of run "w8a8", one batch of 8, its launches equal to that serve run's.
+   "features": the extractor of `cli/generate_features.py` with the bf16
+   "pallas" backbone of run "pallas" into float32 and float16 stores: the
+   float32 store equal to the run's encoder features, the float16 one within
+   F16_FEATURES_TOL.
+   "eval_features": `evaluate_split` features in over the float32 store on
+   the caption head of the same weights (fp32 caches: K2's fp32 form). In
+   every run each kernel outside the run's paths is launched not at all.
 5. The runs held to the plain path: 2 images at fp32 through each run on the
    card and through the plain path on the CPU, same weights; then sampling
    and the ensemble, card against CPU with the same noise, and the two
@@ -93,6 +111,12 @@ Phases, in order (any failure raises and exits non-zero before the result):
    under the CPU's ReLU signs within the imposed tolerance (5e-5), the
    free-running card within the free one against the CPU under the card's
    signs; the ReLU flips counted and bounded.
+   Evaluation held to the plain path: 2 images through the features-in
+   evaluation at fp32 (the caption head of the fp32 model's weights, two
+   images' features of run "features"'s store) on the card and on the CPU:
+   tokens equal (the near-tie rule), beam log-probs within 1e-4;
+   `compute_evaluation_loss` on 2 images end to end at fp32, the "fused" card
+   model against the CPU's plain path, within 1e-4 relative.
    The bf16 backbone at full depth: the features (2, 144, 1536) of the
    "fused" runs (default modes, and every stage on the halves) against the
    "pallas" run's, same weights and images; relative RMS and max printed, the
@@ -123,8 +147,11 @@ Phases, in order (any failure raises and exits non-zero before the result):
    end-to-end img/s at b8/beam 3/L20 and p50 latency at b1/beam 5/L74, bf16,
    on the default path; encode ms of the w8a8 model against the "fused"
    bf16 one in turns, its decode ms per step and img/s at b8; ms per XE step at b4 bf16 with its split into
-   forward, backward and optimizer, and the step's peak device memory; ms per
-   SCST step (b4 x 5 samples / L20, bf16) with its split into encoder forward,
+   forward, backward and optimizer, and the step's peak device memory; img/s
+   of the evaluation loops ("eval", "eval_features": `evaluate_split` against
+   `api.Captioner.beam_search` on the same batches, in turns; the scoring
+   timed apart) and of `generate_features` into float32 and float16 stores in
+   turns; ms per SCST step (b4 x 5 samples / L20, bf16) with its split into encoder forward,
    sampling, reward, re-score with backward and optimizer, and its peak
    device memory.
 
@@ -165,6 +192,20 @@ B_TRAIN, L_TRAIN, TRAIN_STEPS, TRAIN_LR = 4, 20, 4, 2e-3
 # images and references an image (random words of the V = 10000 vocabulary)
 B_SCST, SCST_SAMPLES, L_SCST, SCST_STEPS = 4, 5, 20, 3
 SCST_IMAGES, SCST_REFS = 64, 5
+# evaluation runs of phase 4 (`cli/evaluate.py::evaluate_split` and the
+# feature extractor of `cli/generate_features.py`): a synthetic test split of
+# N_EVAL seeded images with EVAL_REFS random references each, in batches of
+# B_SERVE (the last one padded), beam 3 / L20. "eval": the bf16 "fused" model
+# of run "fused" on the "pallas" step; "eval_w8a8": the w8a8 model of run
+# "w8a8", one batch; "features": the bf16 "pallas" backbone of run "pallas"
+# into float32 and float16 stores; "eval_features": the caption head of the
+# same weights over the float32 store (fp32 caches). Launch counts per batch.
+EVAL, EVAL_A8, FEATURES, EVAL_FEATURES = "eval", "eval_w8a8", "features", "eval_features"
+N_EVAL, EVAL_REFS = 12, 5
+EVAL_METRICS = ("bleu", "meteor", "rouge", "cider", "spice")
+# the float16 store against the float32 one, as tests/test_cli_integration.py
+# holds them on the CPU
+F16_FEATURES_TOL = 2e-2
 # phase 5's fp32 gradients of the training kernel path against the CPU's plain
 # path, per parameter group: free-running, and with the CPU's ReLU signs
 # imposed on the card's caption head (Smoke.train_check says why)
@@ -190,50 +231,56 @@ KERNELS = {
     "window_attention": dict(
         route="cuda", source=_PORT + "csrc/window_attention.cu",
         replaces=_TPU + "window_attention.py:55", counter=("window_attention", "launches"),
-        paths=ALL_RUNS + Q_RUNS, headline="stage0 qkv(128, 144, 576) H6 mask bfloat16"),
+        paths=ALL_RUNS + Q_RUNS + (EVAL, EVAL_A8, FEATURES),
+        headline="stage0 qkv(128, 144, 576) H6 mask bfloat16"),
     "dyn_exp_step": dict(
         route="cuda", source=_PORT + "csrc/dyn_exp_step.cu",
         replaces=_TPU + "dyn_exp_step.py:226", counter=("dyn_exp_step", "launches"),
-        paths=("pallas", "fused_halves") + Q_RUNS + (SCST,), headline="B24 L20 pos7 bfloat16"),
+        paths=("pallas", "fused_halves") + Q_RUNS + (SCST, EVAL, EVAL_A8, EVAL_FEATURES),
+        headline="B24 L20 pos7 bfloat16"),
     "topk": dict(
         route="cuda", source=_PORT + "csrc/topk.cu",
         replaces=_TPU + "topk.py:78", counter=("topk", "launches"),
-        paths=ALL_RUNS + Q_RUNS, headline="R24 V10000 k3 float32"),
+        paths=ALL_RUNS + Q_RUNS + (EVAL, EVAL_A8, EVAL_FEATURES),
+        headline="R24 V10000 k3 float32"),
     "layernorm": dict(
         route="cuda", source=_PORT + "csrc/layernorm.cu",
         replaces=_TPU + "layernorm.py:36", counter=("layernorm", "launches"),
-        paths=ALL_RUNS + (TRAIN,) + Q_RUNS + (SCST,), headline="(18432, 192) bfloat16"),
+        paths=ALL_RUNS + (TRAIN,) + Q_RUNS + (SCST, EVAL, EVAL_A8, FEATURES, EVAL_FEATURES),
+        headline="(18432, 192) bfloat16"),
     "patch_embed": dict(
         route="cuda", source=_PORT + "csrc/stage_boundary.cu",
         replaces=_TPU + "stage_boundary.py:100",
         counter=("stage_boundary", "patch_embed_launches"),
-        paths=WINDOW_RUNS, headline="x(2, 96, 96, 48) C192 bfloat16"),
+        paths=WINDOW_RUNS + (EVAL,), headline="x(2, 96, 96, 48) C192 bfloat16"),
     "downsample": dict(
         route="cuda", source=_PORT + "csrc/stage_boundary.cu",
         replaces=_TPU + "stage_boundary.py:179",
         counter=("stage_boundary", "downsample_launches"),
-        paths=WINDOW_RUNS, headline="stage0 x(128, 144, 192) bfloat16"),
+        paths=WINDOW_RUNS + (EVAL,), headline="stage0 x(128, 144, 192) bfloat16"),
     "swin_attn_half": dict(
         route="cuda", source=_PORT + "csrc/swin_attn_half.cu",
         replaces=_TPU + "swin_block_fused.py:872",
         counter=("swin_block_fused", "attn_half_launches"),
-        paths=WINDOW_RUNS + Q_RUNS, headline="stage2 x(8, 144, 768) mask trans0to6 bfloat16"),
+        paths=WINDOW_RUNS + Q_RUNS + (EVAL, EVAL_A8),
+        headline="stage2 x(8, 144, 768) mask trans0to6 bfloat16"),
     "swin_mlp_half": dict(
         route="cuda", source=_PORT + "csrc/swin_mlp_half.cu",
         replaces=_TPU + "swin_block_fused.py:1113",
         counter=("swin_block_fused", "mlp_half_launches"),
-        paths=WINDOW_RUNS + ("w8",), headline="stage2 x(8, 144, 768) bfloat16"),
+        paths=WINDOW_RUNS + ("w8", EVAL), headline="stage2 x(8, 144, 768) bfloat16"),
     "window_transition": dict(
         route="cuda", source=_PORT + "csrc/window_transition.cu",
         replaces=_TPU + "swin_block_fused.py:625",
         counter=("swin_block_fused", "transition_launches"),
-        paths=WINDOW_RUNS + (TRAIN,) + Q_RUNS + (SCST,),
+        paths=WINDOW_RUNS + (TRAIN,) + Q_RUNS + (SCST, EVAL, EVAL_A8),
         headline="stage0 x(128, 144, 192) 6to0 bfloat16"),
     "swin_block": dict(
         route="cuda", source=_PORT + "csrc/swin_block.cu",
         replaces=_TPU + "swin_block_fused.py:677",
         counter=("swin_block_fused", "block_launches"),
-        paths=("fused", "w8"), headline="stage0 x(128, 144, 192) mask trans0to6 bfloat16"),
+        paths=("fused", "w8", EVAL),
+        headline="stage0 x(128, 144, 192) mask trans0to6 bfloat16"),
     "dyn_exp_cross_step": dict(
         route="cuda", source=_PORT + "csrc/dyn_exp_step.cu",
         replaces=_TPU + "dyn_exp_step.py:502",
@@ -267,16 +314,16 @@ KERNELS = {
     "quant_matmul": dict(
         route="cuda", source=_PORT + "csrc/quant_matmul.cu",
         replaces=_TPU + "quant_matmul.py:48", counter=("quant_matmul", "launches"),
-        paths=("w8a8",), headline="stage3 fc1 x(288, 1536) N6144 float32"),
+        paths=("w8a8", EVAL_A8), headline="stage3 fc1 x(288, 1536) N6144 float32"),
     "quantize_act": dict(
         route="cuda", source=_PORT + "csrc/quant_matmul.cu",
         replaces=_TPU + "quant_matmul.py:48", counter=("quant_matmul", "quantize_launches"),
-        paths=("w8a8",), headline="x(288, 1536) float32 dynamic"),
+        paths=("w8a8", EVAL_A8), headline="x(288, 1536) float32 dynamic"),
     "swin_mlp_half_a8": dict(
         route="cuda", source=_PORT + "csrc/swin_mlp_half_a8.cu",
         replaces=_TPU + "swin_block_fused.py:1076",
         counter=("swin_block_fused", "mlp_half_a8_launches"),
-        paths=("w8a8",), headline="stage2 x(8, 144, 768) bfloat16"),
+        paths=("w8a8", EVAL_A8), headline="stage2 x(8, 144, 768) bfloat16"),
 }
 # launches of the training kernels in one XE step of Swin-L (depths 2, 2, 18,
 # 2): the whole-block forward at stages 0 and 1, the two half forwards at
@@ -302,6 +349,26 @@ DECODE_LAUNCHES = {
 }
 
 
+class MemoryStore:
+    """A feature store kept in memory: `write` as `data/features_io.py::
+    FeatureStore.write` does, `read_batch` as its `read_batch` (float32,
+    right-padded on the token dimension)."""
+
+    def __init__(self):
+        self.data = {}
+
+    def write(self, img_id, features):
+        self.data[img_id] = np.asarray(features)
+
+    def read_batch(self, img_ids):
+        feats = [self.data[i].astype(np.float32) for i in img_ids]
+        n = max(f.shape[0] for f in feats)
+        out = np.zeros((len(feats), n, feats[0].shape[-1]), np.float32)
+        for i, f in enumerate(feats):
+            out[i, :f.shape[0]] = f
+        return out, [n - f.shape[0] for f in feats]
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -321,6 +388,8 @@ class Smoke:
         self.launches = {}  # run -> kernel -> launches in that main-path run
         self.serve = {}  # run -> bf16 Captioner at b8 / beam 3 / L20
         self.trainer = None  # (cfg, model, optimizer, step, batch, generator) of the training run
+        self.feature_store = None  # run "features"'s float32 store (phase 4), read by phase 5
+        self.evals = None  # what phase 6 times of the evaluation runs
         self.scst = None  # (model, step, batch, ref tables, generator) of the SCST run
 
     # -- helpers -------------------------------------------------------------
@@ -802,6 +871,7 @@ class Smoke:
             self.compare_tokens(f"card ({run!r}) vs CPU", gpu_caps[run], caps_c, beam_margin)
             if run == "fused":
                 fused = (gpu_cfg, gpu_model, gpu)
+                self.eval_check(cpu_model, gpu_model, gpu_cfg, imgs)
             else:
                 del gpu, gpu_model
                 torch.cuda.empty_cache()
@@ -1219,20 +1289,26 @@ class Smoke:
             f"memory {peak:.0f} MiB of this step | {self.card}")
 
     # -- SCST -------------------------------------------------------------------
-    def scst_corpus(self, cap):
-        """(vocab, references, DeviceCiderCorpus) of the SCST runs: a seeded
-        synthetic vocabulary of the captioner's V words (its special tokens at
-        their ids) and SCST_REFS random references of 8 to 16 words for each
-        of SCST_IMAGES images. No dataset is read."""
+    def synthetic_vocab(self, cap):
+        """A synthetic vocabulary of the captioner's V words ("w<i>"), its
+        special tokens at their ids. No dataset is read."""
         from on_device_image_captioning_torch.data.text import Vocab
-        from on_device_image_captioning_torch.train.device_cider import DeviceCiderCorpus
 
         words = [f"w{i}" for i in range(cap.vocab_size)]
         for token, idx in (("PAD", cap.pad_idx), ("SOS", cap.sos_idx), ("EOS", cap.eos_idx),
                            ("UNK", cap.unk_idx)):
             words[idx] = token
-        vocab = Vocab({w: i for i, w in enumerate(words)})
-        plain = [w for w in words if w.startswith("w")]
+        return Vocab({w: i for i, w in enumerate(words)})
+
+    def scst_corpus(self, cap):
+        """(vocab, references, DeviceCiderCorpus) of the SCST runs: a seeded
+        synthetic vocabulary of the captioner's V words (its special tokens at
+        their ids) and SCST_REFS random references of 8 to 16 words for each
+        of SCST_IMAGES images. No dataset is read."""
+        from on_device_image_captioning_torch.train.device_cider import DeviceCiderCorpus
+
+        vocab = self.synthetic_vocab(cap)
+        plain = [w for w in vocab.idx2word if w.startswith("w")]
         rng = np.random.default_rng(SEED + 11)
         refs = [[" ".join(rng.choice(plain, int(rng.integers(8, 17)))) for _ in range(SCST_REFS)]
                 for _ in range(SCST_IMAGES)]
@@ -1472,6 +1548,308 @@ class Smoke:
             + f" (sum {sum(med.values()):.2f} ms; sampling steps {steps}); peak device memory "
             f"{peak:.0f} MiB, of which {resident:.0f} MiB were allocated before the step | "
             f"{self.card}")
+
+    # -- evaluation ---------------------------------------------------------------
+    def eval_split(self, cap, n=N_EVAL, seed=SEED + 20, images=None):
+        """(dataset, load_images) of the evaluation runs: a test split of n
+        records with EVAL_REFS references of 8 to 16 random words of the
+        synthetic vocabulary each, and a `load_images(paths, size)` that hands
+        out `images` (seeded uint8 arrays when None) in place of image files."""
+        from on_device_image_captioning_torch.data.datasets import CaptionDataset
+
+        vocab = self.synthetic_vocab(cap)
+        plain = [w for w in vocab.idx2word if w.startswith("w")]
+        rng = np.random.default_rng(seed)
+        records = [{"img_id": i, "img_path": f"synthetic/{i}.jpg",
+                    "captions": [" ".join(rng.choice(plain, int(rng.integers(8, 17))))
+                                 for _ in range(EVAL_REFS)]} for i in range(n)]
+        if images is None:
+            images = self.images(n, seed)
+        images = dict(zip((r["img_path"] for r in records), images))
+
+        def load_images(paths, size):
+            out = np.stack([images[p] for p in paths])
+            if out.shape[1:3] != (size, size):
+                raise AssertionError(f"images of {size} asked for; the synthetic ones are "
+                                     f"{out.shape[1]}")
+            return out
+
+        return CaptionDataset(splits={"test": records}, vocab=vocab, max_seq_len=L_SERVE), \
+            load_images
+
+    def padded(self, rows, batch=B_SERVE):
+        """The batches `evaluate_split` forms: `batch` rows each, the last one
+        padded by repeating its last row."""
+        out = []
+        for start in range(0, len(rows), batch):
+            chunk = rows[start:start + batch]
+            pad = batch - len(chunk)
+            out.append(np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)]) if pad else chunk)
+        return out
+
+    def check_paths(self, run, counts):
+        for name, k in KERNELS.items():
+            if (counts[name] > 0) != (run in k["paths"]):
+                raise AssertionError(
+                    f"kernel {name}: {counts[name]} launches in run {run!r}, which "
+                    f"{'runs' if run in k['paths'] else 'does not run'} it")
+
+    def reference_decode(self, captioner, dataset, batches, pads=None):
+        """`api.Captioner.beam_search` over the padded batches: (the
+        predictions `evaluate_split` must give, the launches of each batch)."""
+        torch = self.torch
+        records, vocab = dataset.records("test"), dataset.vocab
+        want, per_batch = {}, []
+        for i, x in enumerate(batches):
+            self.counters(reset=True)
+            caps, _ = captioner.beam_search(x, None if pads is None else pads[i])
+            per_batch.append(self.counters())
+            for r, row in zip(records[i * B_SERVE:(i + 1) * B_SERVE], caps):
+                want[r["img_id"]] = vocab.description(row[0]).lower()
+        torch.cuda.synchronize()
+        if any(b != per_batch[0] for b in per_batch):
+            raise AssertionError(f"api.Captioner's batches launch differently: {per_batch}")
+        return want, per_batch
+
+    def run_eval(self, run, model, cfg, dataset, load_images, step_impl, **kw):
+        """`evaluate_split` of every metric, counted: (scores, predictions,
+        launches)."""
+        torch = self.torch
+        from on_device_image_captioning_torch.cli.evaluate import evaluate_split
+
+        self.counters(reset=True)
+        scores, preds = evaluate_split(
+            model, cfg, dataset, "test", BEAM_SERVE, B_SERVE, L_SERVE, verbose=False,
+            metrics=EVAL_METRICS, step_impl=step_impl, load_images=load_images, **kw)
+        torch.cuda.synchronize()
+        counts = self.counters()
+        if set(preds) != {r["img_id"] for r in dataset.records("test")}:
+            raise AssertionError(f"run {run!r}: an image without a prediction")
+        bad = {k: v for k, v in scores.items() if not np.isfinite(v)}
+        if len(scores) != 8 or bad:
+            raise AssertionError(f"run {run!r}: scores {scores}")
+        return scores, preds, counts
+
+    def eval_path(self):
+        """Phase 4, evaluation: `cli/evaluate.py::evaluate_split` end to end
+        (runs "eval" and "eval_w8a8"), the feature extractor of
+        `cli/generate_features.py` ("features") and the features-in
+        evaluation over its store ("eval_features"), on phase 4's seeded
+        models. Predictions equal `api.Captioner`'s on the same padded
+        batches; launches per batch equal the serve runs' for the same path.
+        Phase 6 times the loops (`eval_timing`)."""
+        import dataclasses
+
+        torch = self.torch
+        from on_device_image_captioning_torch.api import Captioner
+        from on_device_image_captioning_torch.cli.generate_features import (
+            extract_features, generate_features,
+        )
+        from on_device_image_captioning_torch.models.captioner import ExpansionNetV2
+        from on_device_image_captioning_torch.utils.image import normalize_on_device
+
+        args = {"beam_size": BEAM_SERVE, "beam_max_seq_len": L_SERVE}
+        serve = self.serve["fused"]
+        cfg, cap = serve.cfg, serve.cap_cfg
+        dataset, load_images = self.eval_split(cap)
+        records = dataset.records("test")
+        imgs = load_images([r["img_path"] for r in records], cfg.swin.img_size)
+        batches = self.padded(imgs)
+
+        # run "eval": the "fused" model of run "fused" on the "pallas" step
+        reference = Captioner(serve.model, cfg, args, device=self.dev, step_impl="pallas")
+        want, per_batch = self.reference_decode(reference, dataset, batches)
+        scores, preds, counts = self.run_eval(EVAL, serve.model, cfg, dataset, load_images,
+                                              "pallas")
+        self.launches[EVAL] = per_batch[0]
+        serve_counts = {**ENCODE_LAUNCHES["fused"], **DECODE_LAUNCHES["pallas"]}
+        log(f"phase 4 evaluation, run {EVAL!r}: evaluate_split over a synthetic test split of "
+            f"{N_EVAL} images x {EVAL_REFS} references (V={cap.vocab_size}), batches of "
+            f"{B_SERVE} (the last padded), beam {BEAM_SERVE} / L{L_SERVE} bf16, "
+            f"attention_impl='fused', stage modes {serve.model.swin_transf.stage_modes}, "
+            f"step_impl='pallas', metrics {EVAL_METRICS} (native METEOR and SPICE): scores "
+            f"{ {k: round(v, 6) for k, v in scores.items()} }; predictions equal to "
+            f"api.Captioner.beam_search's on the same padded batches: "
+            f"{sum(preds[i] == want[i] for i in want)}/{len(want)}; launches per batch "
+            f"{per_batch[0]}")
+        if preds != want:
+            raise AssertionError("run 'eval': predictions differ from api.Captioner's")
+        if counts != {k: len(batches) * v for k, v in per_batch[0].items()}:
+            raise AssertionError(f"run 'eval': launches {counts} != {len(batches)} x {per_batch[0]}")
+        if {k: per_batch[0][k] for k in serve_counts} != serve_counts:
+            raise AssertionError(f"run 'eval': launches per batch {per_batch[0]} against the serve "
+                                 f"runs' {serve_counts}")
+        self.check_paths(EVAL, per_batch[0])
+
+        # run "eval_w8a8": the w8a8 model of run "w8a8", one batch of 8
+        qserve = self.serve["w8a8"]
+        one = dataclasses.replace(dataset, splits={"test": records[:B_SERVE]})
+        want_q, _ = self.reference_decode(qserve, one, batches[:1])
+        scores_q, preds_q, counts_q = self.run_eval(EVAL_A8, qserve.model, qserve.cfg, one,
+                                                    load_images, "pallas")
+        self.launches[EVAL_A8] = counts_q
+        log(f"phase 4 evaluation, run {EVAL_A8!r}: the w8a8 model of run 'w8a8', one batch of "
+            f"{B_SERVE}: scores { {k: round(v, 6) for k, v in scores_q.items()} }; predictions "
+            f"equal to api.Captioner's: {sum(preds_q[i] == want_q[i] for i in want_q)}/"
+            f"{len(want_q)}; launches {counts_q} (the 'w8a8' serve run's: "
+            f"{counts_q == self.launches['w8a8']})")
+        if preds_q != want_q or counts_q != self.launches["w8a8"]:
+            raise AssertionError("run 'eval_w8a8' departs from the 'w8a8' serve run")
+        self.check_paths(EVAL_A8, counts_q)
+
+        # run "features": the bf16 "pallas" backbone of run "pallas" into stores
+        pserve = self.serve["pallas"]
+        backbone = pserve.model.swin_transf
+        want_f = []
+        with torch.inference_mode():
+            for x in batches:
+                self.counters(reset=True)
+                want_f.append(backbone(normalize_on_device(torch.from_numpy(x).to(self.dev)),
+                                       pserve.cfg.compute_dtype).float().cpu().numpy())
+                one_batch = self.counters()
+        self.counters(reset=True)
+        extract_features(backbone, batches[0], torch.bfloat16, np.float32)
+        torch.cuda.synchronize()
+        per_extract = self.counters()
+        if per_extract != one_batch:
+            raise AssertionError(f"extract_features launches {per_extract} != the 'pallas' "
+                                 f"backbone's {one_batch}")
+        want_f = np.concatenate(want_f)[:N_EVAL]
+        stores = {}
+        for dtype in (np.float32, np.float16):
+            store = MemoryStore()
+            self.counters(reset=True)
+            n = generate_features(backbone, records, store, B_SERVE, torch.bfloat16, dtype,
+                                  load_images, verbose=False)
+            torch.cuda.synchronize()
+            counts_f = self.counters()
+            if n != N_EVAL or counts_f != {k: len(batches) * v for k, v in one_batch.items()}:
+                raise AssertionError(f"run 'features' ({np.dtype(dtype).name} store): {n} images, "
+                                     f"launches {counts_f}, want {len(batches)} x {one_batch}")
+            stores[np.dtype(dtype).name] = store
+        self.launches[FEATURES] = one_batch
+        self.check_paths(FEATURES, one_batch)
+        got32 = np.stack([stores["float32"].data[r["img_id"]] for r in records])
+        got16 = np.stack([stores["float16"].data[r["img_id"]] for r in records])
+        err16 = float(np.abs(got16.astype(np.float32) - want_f).max())
+        log(f"phase 4 features, run {FEATURES!r}: generate_features over the {N_EVAL} images, "
+            f"the bf16 'pallas' backbone of run 'pallas', batches of {B_SERVE}: float32 store "
+            f"{got32.shape} {got32.dtype} equal to the run's encoder features: "
+            f"{np.array_equal(got32, want_f)}; float16 store {got16.dtype}, max abs difference "
+            f"{err16:.3e} (tol {F16_FEATURES_TOL:g} + {F16_FEATURES_TOL:g} relative); launches "
+            f"per batch {one_batch}")
+        if not np.array_equal(got32, want_f):
+            raise AssertionError("run 'features': the float32 store departs from the encoder's")
+        if got16.dtype != np.float16 or not np.allclose(
+                got16.astype(np.float32), want_f, rtol=F16_FEATURES_TOL, atol=F16_FEATURES_TOL):
+            raise AssertionError("run 'features': the float16 store departs from the encoder's")
+        self.feature_store = stores["float32"]
+
+        # run "eval_features": the caption head of the same weights over the store
+        head = ExpansionNetV2(pserve.cap_cfg)
+        head.load_state_dict({k: v for k, v in pserve.model.state_dict().items()
+                              if not k.startswith("swin_transf.")}, strict=True)
+        head.to(self.dev).eval()
+        feats, pads = stores["float32"].read_batch([r["img_id"] for r in records])
+        feats = self.padded(feats)
+        pads = [torch.from_numpy(p) for p in self.padded(np.asarray(pads, np.int32))]
+        head_ref = Captioner(head, pserve.cap_cfg, args, device=self.dev, step_impl="pallas")
+        want_h, per_batch_h = self.reference_decode(head_ref, dataset, feats, pads)
+        scores_h, preds_h, counts_h = self.run_eval(
+            EVAL_FEATURES, head, pserve.cap_cfg, dataset, load_images, "pallas",
+            features_path="in memory", feature_store=stores["float32"])
+        self.launches[EVAL_FEATURES] = per_batch_h[0]
+        log(f"phase 4 evaluation, run {EVAL_FEATURES!r}: evaluate_split features in over the "
+            f"float32 store, the caption head of run 'pallas''s weights, fp32 caches, "
+            f"step_impl='pallas': scores { {k: round(v, 6) for k, v in scores_h.items()} }; "
+            f"predictions equal to api.Captioner's: "
+            f"{sum(preds_h[i] == want_h[i] for i in want_h)}/{len(want_h)}; launches per batch "
+            f"{per_batch_h[0]}")
+        if preds_h != want_h or counts_h != {k: len(feats) * v for k, v in per_batch_h[0].items()}:
+            raise AssertionError("run 'eval_features' departs from api.Captioner's decode")
+        if per_batch_h[0]["dyn_exp_step"] != N_DEC * (L_SERVE - 1):
+            raise AssertionError(f"run 'eval_features': K2 {per_batch_h[0]['dyn_exp_step']} times "
+                                 f"a batch, want {N_DEC * (L_SERVE - 1)}")
+        self.check_paths(EVAL_FEATURES, per_batch_h[0])
+        self.evals = dict(dataset=dataset, load_images=load_images, batches=batches,
+                          reference=reference, head=head, head_ref=head_ref, feats=feats,
+                          pads=pads)
+
+    def eval_check(self, cpu_model, gpu_model, cfg, imgs):
+        """Phase 5, evaluation at fp32 on the card against the plain path on the
+        CPU: 2 images through the features-in evaluation (the caption head of
+        `cpu_model`'s weights, the first two images' features of phase 4's
+        float32 store) with tokens equal and beam log-probs within the decode
+        tolerance; then `compute_evaluation_loss` end to end on the phase's 2
+        images within 1e-4 relative."""
+        torch = self.torch
+        from on_device_image_captioning_torch.api import Captioner
+        from on_device_image_captioning_torch.cli.evaluate import (
+            compute_evaluation_loss, evaluate_split,
+        )
+        from on_device_image_captioning_torch.decode import beam_search as bs
+        from on_device_image_captioning_torch.models.captioner import ExpansionNetV2
+
+        cap = cfg.captioner
+        dataset, _ = self.eval_split(cap, n=2, seed=SEED + 21)
+        records = dataset.records("test")
+        store = MemoryStore()
+        for r, i in zip(records, (0, 1)):
+            store.data[r["img_id"]] = self.feature_store.data[i]
+        head_c = ExpansionNetV2(cap)
+        head_c.load_state_dict({k: v for k, v in cpu_model.state_dict().items()
+                                if not k.startswith("swin_transf.")}, strict=True)
+        head_c.eval()
+        head_g = ExpansionNetV2(cap)
+        head_g.load_state_dict(head_c.state_dict(), strict=True)
+        head_g.to(self.dev).eval()
+        args = {"beam_size": BEAM_SERVE, "beam_max_seq_len": L_SERVE}
+        feats, pads = store.read_batch([r["img_id"] for r in records])
+        pads = torch.tensor(pads, dtype=torch.int32)
+        out = {}
+        for name, head, dev in (("cpu", head_c, "cpu"), ("card", head_g, self.dev)):
+            c = Captioner(head, cap, args, device=dev, step_impl="pallas")
+            res = c.decode(c.forward_enc(feats, pads), pads)
+            _, preds = evaluate_split(head, cap, dataset, "test", BEAM_SERVE, 2, L_SERVE,
+                                      features_path="in memory", verbose=False, metrics=("bleu",),
+                                      step_impl="pallas", feature_store=store)
+            out[name] = (res, preds)
+        caps_c, lps_c = bs.captions_from_result(out["cpu"][0])
+        caps_g, lps_g = bs.captions_from_result(out["card"][0])
+        with torch.inference_mode():
+            enc_c = head_c.forward_enc(torch.from_numpy(feats), pads)
+
+        def margin(i, j, t, a, b):
+            with torch.inference_mode():
+                prefix = torch.tensor([b[:t]], dtype=torch.int64)
+                lp = head_c.forward_dec(enc_c[i:i + 1], prefix, None, pads[i:i + 1],
+                                        apply_log_softmax=True)
+            return abs(float(lp[0, t - 1, a[t]] - lp[0, t - 1, b[t]]))
+
+        lp_err = max((float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                      for ra, rb, ca, cb in zip(lps_g, lps_c, caps_g, caps_c)
+                      for a, b, x, y in zip(ra, rb, ca, cb) if x == y), default=0.0)
+        log(f"phase 5 features-in evaluation fp32, 2 images, card kernels vs CPU plain path, same "
+            f"features: predictions equal {out['card'][1] == out['cpu'][1]}; beam log-probs "
+            f"max_abs {lp_err:.3e} where the tokens agree (tol atol 1e-4)")
+        self.compare_tokens("features-in evaluation, card vs CPU", caps_g, caps_c, margin)
+        if caps_g == caps_c and out["card"][1] != out["cpu"][1]:
+            raise AssertionError("features-in evaluation: equal tokens, other predictions")
+        if not lp_err <= 1e-4:
+            raise AssertionError("features-in evaluation: beam log-probs outside tolerance")
+
+        # the eval loss end to end at fp32
+        e2e, load_images = self.eval_split(cap, n=2, seed=SEED + 22, images=imgs)
+        loss_c = compute_evaluation_loss(cpu_model, cfg, e2e, "test", 2, load_images=load_images)
+        loss_g = compute_evaluation_loss(gpu_model, cfg, e2e, "test", 2, load_images=load_images)
+        rel = abs(loss_g - loss_c) / abs(loss_c)
+        log(f"phase 5 compute_evaluation_loss end to end fp32, 2 images (first references of "
+            f"{min(len(r['captions'][0].split()) for r in e2e.records('test'))} words and more): "
+            f"card {loss_g:.7f} vs CPU {loss_c:.7f}, relative difference {rel:.3e} (tol 1e-4)")
+        if not (np.isfinite(loss_c) and rel <= 1e-4):
+            raise AssertionError("compute_evaluation_loss: the card departs from the CPU")
+        del head_g
+        torch.cuda.empty_cache()
 
     def bf16_features(self, imgs):
         """The bf16 backbone at full depth: the features (2, 144, 1536) of the
@@ -1760,6 +2138,77 @@ class Smoke:
                 f"{halves[0]:.4f} + {halves[1]:.4f} = {sum(halves):.4f} "
                 f"({'faster' if block < sum(halves) else 'slower'}) | {self.card}")
 
+    def eval_timing(self):
+        """Phase 6, evaluation: img/s of `evaluate_split`'s loop (prefetch,
+        copies and drain included; scored on no metric, the scoring timed
+        apart) against `api.Captioner.beam_search` on the same padded
+        batches, in turns (C E E C, three times; host clock, medians), end to
+        end ("eval") and features in ("eval_features"); img/s of
+        `generate_features` into float32 and float16 stores in turns."""
+        torch = self.torch
+        from on_device_image_captioning_torch.cli.evaluate import evaluate_split
+        from on_device_image_captioning_torch.cli.generate_features import generate_features
+        from on_device_image_captioning_torch.evalcap.harness import evaluate_captions
+
+        e = self.evals
+        dataset, load_images = e["dataset"], e["load_images"]
+        records = dataset.records("test")
+
+        def wall(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, out
+
+        def in_turns(one, other):
+            got = {"C": [], "E": []}
+            for side in "CEEC" * 3:
+                got[side].append(wall(one if side == "C" else other)[0])
+            return got
+
+        serve = self.serve["fused"]
+        head = e["head"]
+        loops = {
+            EVAL: (lambda: [e["reference"].beam_search(x) for x in e["batches"]],
+                   lambda: evaluate_split(serve.model, serve.cfg, dataset, "test", BEAM_SERVE,
+                                          B_SERVE, L_SERVE, verbose=False, metrics=(),
+                                          step_impl="pallas", load_images=load_images)),
+            EVAL_FEATURES: (lambda: [e["head_ref"].beam_search(x, p)
+                                     for x, p in zip(e["feats"], e["pads"])],
+                            lambda: evaluate_split(head, head.cap_cfg, dataset, "test",
+                                                   BEAM_SERVE, B_SERVE, L_SERVE,
+                                                   features_path="in memory", verbose=False,
+                                                   metrics=(), step_impl="pallas",
+                                                   feature_store=self.feature_store)),
+        }
+        log(f"phase 6 evaluation loops, {N_EVAL} images in {len(e['batches'])} padded batches of "
+            f"{B_SERVE}, beam {BEAM_SERVE} / L{L_SERVE}, host clock ({self.card})")
+        for run, (captioner, loop) in loops.items():
+            got = in_turns(captioner, loop)
+            c, ev = statistics.median(got["C"]), statistics.median(got["E"])
+            log(f"  run {run!r}: evaluate_split {N_EVAL / ev:.3f} img/s (median of "
+                f"{len(got['E'])}: {[round(t, 4) for t in got['E']]} s) against "
+                f"api.Captioner.beam_search {N_EVAL / c:.3f} img/s "
+                f"({[round(t, 4) for t in got['C']]} s), turns C E E C x 3 | {self.card}")
+        _, (_, preds) = wall(loops[EVAL][1])
+        refs = {r["img_id"]: r["captions"] for r in records}
+        score_s = [wall(lambda: evaluate_captions(preds, refs, metrics=EVAL_METRICS))[0]
+                   for _ in range(3)]
+        log(f"  the scoring of {N_EVAL} images x {EVAL_REFS} references, all five metrics on the "
+            f"host: {statistics.median(score_s):.4f} s (median of 3: "
+            f"{[round(t, 4) for t in score_s]})")
+        backbone = self.serve["pallas"].model.swin_transf
+        rates = {"float32": [], "float16": []}
+        for name in ("float32", "float16", "float16", "float32") * 2:
+            t, n = wall(lambda: generate_features(backbone, records, MemoryStore(), B_SERVE,
+                                                  torch.bfloat16, np.dtype(name), load_images,
+                                                  verbose=False))
+            rates[name].append(n / t)
+        for name, r in rates.items():
+            log(f"  run {FEATURES!r}, {name} store: {statistics.median(r):.3f} img/s (median of "
+                f"{len(r)} in turns: {[round(x, 2) for x in r]}) | {self.card}")
+
     def path_timing(self):
         torch = self.torch
         from on_device_image_captioning_torch.api import Captioner
@@ -1873,6 +2322,7 @@ def main(names) -> int:
     smoke.kernels()
     smoke.main_path()
     smoke.quant_path()
+    smoke.eval_path()
     smoke.train_path()
     smoke.scst_path()
     smoke.self_check()
@@ -1887,6 +2337,7 @@ def main(names) -> int:
     smoke.backward_launches()
     smoke.topk_cluster_timing()
     smoke.path_timing()
+    smoke.eval_timing()
     smoke.train_timing()
     smoke.scst_timing()
     kernels = []

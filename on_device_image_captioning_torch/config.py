@@ -8,6 +8,7 @@ patch embed on and runs the half-block and stage-boundary kernels. The JAX
 package's "xla" and "auto" have no counterpart: the port has no kernel-free
 configuration on the card. Left out on purpose: `DecodeConfig.chunk_schedule`
 and `resolve_kernel_impls` (the port decodes with one cache at `max_seq_len`).
+`remove_layers` is the JAX package's, for the layer-removal ablations.
 """
 from __future__ import annotations
 
@@ -183,3 +184,21 @@ def end_expansionnet_v2_coco(
         captioner=expansionnet_v2_coco(drop),
         compute_dtype=compute_dtype,
     )
+
+
+def remove_layers(cfg: ModelConfig, param_config: int) -> ModelConfig:
+    """Layer-removal ablations (reference: train.py:374-379).
+
+    param_config: 0 = baseline, 1 = remove one encoder layer, 2 = remove one encoder
+    and one decoder layer.
+    """
+    if param_config == 0:
+        return cfg
+    cap = cfg.captioner
+    if param_config == 1:
+        cap = dataclasses.replace(cap, N_enc=cap.N_enc - 1)
+    elif param_config == 2:
+        cap = dataclasses.replace(cap, N_enc=cap.N_enc - 1, N_dec=cap.N_dec - 1)
+    else:
+        raise ValueError(f"param_config must be 0/1/2, got {param_config}")
+    return dataclasses.replace(cfg, captioner=cap)

@@ -1,3 +1,3 @@
-"""Caption metrics the training path needs: CIDEr-D for the SCST rewards
-(counterpart of the JAX package's `evalcap/`; the rest of its metrics come
-with the evaluation entry point)."""
+"""Caption metrics: BLEU 1-4, METEOR, ROUGE-L, CIDEr(-D) and SPICE behind the
+COCO harness (`harness.py`), and the CIDEr-D of the SCST rewards (counterpart
+of the JAX package's `evalcap/`)."""

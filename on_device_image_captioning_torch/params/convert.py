@@ -141,10 +141,10 @@ def state_dict_from_jax(params_np: Mapping, cfg: ModelConfig) -> Dict[str, torch
     }
 
 
-def load_reference_state_dict(model: nn.Module, sd: Mapping) -> None:
-    """Load a reference checkpoint's state_dict (or a full training checkpoint
-    with a 'model_state_dict' key) strictly into `model`, quantized linears
-    included."""
+def clean_reference_state_dict(sd: Mapping) -> Dict:
+    """A reference checkpoint's state_dict (or a full training checkpoint with
+    a 'model_state_dict' key) without the DDP `module.` prefix and the
+    non-parameter buffers (`attn_mask`, `relative_position_index`)."""
     if "model_state_dict" in sd:
         sd = sd["model_state_dict"]
     clean = {}
@@ -153,4 +153,11 @@ def load_reference_state_dict(model: nn.Module, sd: Mapping) -> None:
         if k.endswith("attn_mask") or k.endswith("relative_position_index"):
             continue
         clean[k] = v
-    load_quantized_state_dict(model, clean)
+    return clean
+
+
+def load_reference_state_dict(model: nn.Module, sd: Mapping) -> None:
+    """Load a reference checkpoint's state_dict (or a full training checkpoint
+    with a 'model_state_dict' key) strictly into `model`, quantized linears
+    included."""
+    load_quantized_state_dict(model, clean_reference_state_dict(sd))
