@@ -82,6 +82,23 @@ Phases, in order (any failure raises and exits non-zero before the result):
    "eval_features": `evaluate_split` features in over the float32 store on
    the caption head of the same weights (fp32 caches: K2's fp32 form). In
    every run each kernel outside the run's paths is launched not at all.
+   The training CLI (run "train_cli"): `cli/train.py` as users run it, at
+   full width (Swin-L/384 + d512, V = 10000 through a --vocab_path JSON,
+   bf16, "fused", b4) on 8 seeded 384^2 JPEGs written with PIL into a
+   temporary directory (6 train, 2 val; 5 random references each): an XE
+   epoch with a checkpoint; a resume to two epochs with --prefetch 2 (its
+   first batch the loader's 8th, the optimizer's count restored); from that
+   checkpoint (a phase flip) an SCST epoch with the on-card reward and one
+   with the host reward, --prefetch 2, the eval hook on val at beam 3 in
+   each; one XE iteration with --distributed (NCCL at world size 1) and one
+   with --remat, each against the same iteration without (the loss, the
+   weights and both Adam moments bit-equal); the evaluate CLI on the last native checkpoint, its
+   captions equal to `api.Captioner`'s on the same weights. Every CLI
+   iteration launches the training kernels exactly as run "train" does
+   (TRAIN_LAUNCHES; the SCST steps too, the encoder once) and, in XE, no
+   kernel outside the run's paths. Prints the CLI's s/it at --prefetch 0
+   and 2 and the peak device memory of one iteration with and without
+   --remat.
 5. The runs held to the plain path: 2 images at fp32 through each run on the
    card and through the plain path on the CPU, same weights; then sampling
    and the ensemble, card against CPU with the same noise, and the two
@@ -183,6 +200,7 @@ RUNS = {
 ALL_RUNS = tuple(RUNS)
 WINDOW_RUNS = ("fused", "fused_halves")
 TRAIN = "train"  # the training run of phase 4: XE steps on the "fused" path
+TRAIN_CLI = "train_cli"  # phase 4: cli/train.py as users run it (XE, resume, SCST, DDP)
 SCST = "scst"  # the SCST run of phase 4: shared-encoder SCST steps on the "fused" path
 # quantized serving runs on the "fused" path: name -> (quantize_model mode, step_impl)
 QUANT_RUNS = {"w8a8": ("w8a8", "pallas"), "w8": ("w8", "pallas_fused")}
@@ -192,6 +210,13 @@ B_TRAIN, L_TRAIN, TRAIN_STEPS, TRAIN_LR = 4, 20, 4, 2e-3
 # images and references an image (random words of the V = 10000 vocabulary)
 B_SCST, SCST_SAMPLES, L_SCST, SCST_STEPS = 4, 5, 20, 3
 SCST_IMAGES, SCST_REFS = 64, 5
+# run "train_cli": a corpus of CLI_TRAIN + CLI_VAL seeded JPEGs of 384^2 with
+# CLI_REFS random references each (b4: 7 XE batches an epoch, one SCST
+# batch), the learning rate after a one-iteration warmup; the data-parallel
+# (world size 1, NCCL) and --remat iterations against the plain one run the
+# same arithmetic on the same kernels: loss, weights and both Adam moments
+# are held bit-equal
+CLI_TRAIN, CLI_VAL, CLI_REFS, CLI_LR = 6, 2, 5, 1e-4
 # evaluation runs of phase 4 (`cli/evaluate.py::evaluate_split` and the
 # feature extractor of `cli/generate_features.py`): a synthetic test split of
 # N_EVAL seeded images with EVAL_REFS random references each, in batches of
@@ -246,7 +271,8 @@ KERNELS = {
     "layernorm": dict(
         route="cuda", source=_PORT + "csrc/layernorm.cu",
         replaces=_TPU + "layernorm.py:36", counter=("layernorm", "launches"),
-        paths=ALL_RUNS + (TRAIN,) + Q_RUNS + (SCST, EVAL, EVAL_A8, FEATURES, EVAL_FEATURES),
+        paths=ALL_RUNS + (TRAIN, TRAIN_CLI) + Q_RUNS + (SCST, EVAL, EVAL_A8, FEATURES,
+                                                     EVAL_FEATURES),
         headline="(18432, 192) bfloat16"),
     "patch_embed": dict(
         route="cuda", source=_PORT + "csrc/stage_boundary.cu",
@@ -273,7 +299,7 @@ KERNELS = {
         route="cuda", source=_PORT + "csrc/window_transition.cu",
         replaces=_TPU + "swin_block_fused.py:625",
         counter=("swin_block_fused", "transition_launches"),
-        paths=WINDOW_RUNS + (TRAIN,) + Q_RUNS + (SCST, EVAL, EVAL_A8),
+        paths=WINDOW_RUNS + (TRAIN, TRAIN_CLI) + Q_RUNS + (SCST, EVAL, EVAL_A8),
         headline="stage0 x(128, 144, 192) 6to0 bfloat16"),
     "swin_block": dict(
         route="cuda", source=_PORT + "csrc/swin_block.cu",
@@ -290,27 +316,27 @@ KERNELS = {
         route="cuda", source=_PORT + "csrc/swin_block.cu",
         replaces=_TPU + "swin_block_fused.py:1285",
         counter=("swin_block_fused", "block_train_launches"),
-        paths=(TRAIN, SCST), headline="stage0 x(128, 144, 192) mask bfloat16"),
+        paths=(TRAIN, SCST, TRAIN_CLI), headline="stage0 x(128, 144, 192) mask bfloat16"),
     "swin_attn_bwd": dict(
         route="cuda", source=_PORT + "csrc/swin_attn_bwd.cu",
         replaces=_TPU + "swin_block_fused.py:2063",
         counter=("swin_block_fused", "attn_bwd_launches"),
-        paths=(TRAIN, SCST), headline="stage0 x(128, 144, 192) mask bfloat16"),
+        paths=(TRAIN, SCST, TRAIN_CLI), headline="stage0 x(128, 144, 192) mask bfloat16"),
     "swin_mlp_bwd": dict(
         route="cuda", source=_PORT + "csrc/swin_mlp_bwd.cu",
         replaces=_TPU + "swin_block_fused.py:1547",
         counter=("swin_block_fused", "mlp_bwd_launches"),
-        paths=(TRAIN, SCST), headline="stage0 x(128, 144, 192) bfloat16"),
+        paths=(TRAIN, SCST, TRAIN_CLI), headline="stage0 x(128, 144, 192) bfloat16"),
     "swin_attn_half_train": dict(
         route="cuda", source=_PORT + "csrc/swin_attn_half.cu",
         replaces=_TPU + "swin_block_fused.py:2274",
         counter=("swin_block_fused", "attn_half_train_launches"),
-        paths=(TRAIN, SCST), headline="stage2 x(8, 144, 768) mask bfloat16"),
+        paths=(TRAIN, SCST, TRAIN_CLI), headline="stage2 x(8, 144, 768) mask bfloat16"),
     "swin_mlp_half_train": dict(
         route="cuda", source=_PORT + "csrc/swin_mlp_half.cu",
         replaces=_TPU + "swin_block_fused.py:2396",
         counter=("swin_block_fused", "mlp_half_train_launches"),
-        paths=(TRAIN, SCST), headline="stage2 x(8, 144, 768) bfloat16"),
+        paths=(TRAIN, SCST, TRAIN_CLI), headline="stage2 x(8, 144, 768) bfloat16"),
     "quant_matmul": dict(
         route="cuda", source=_PORT + "csrc/quant_matmul.cu",
         replaces=_TPU + "quant_matmul.py:48", counter=("quant_matmul", "launches"),
@@ -1411,6 +1437,301 @@ class Smoke:
                                  "host's")
         self.scst = (model, step, batch, tables, gen)
 
+    def train_cli_path(self):
+        """Phase 4, run "train_cli": `cli/train.py` as a user runs it, on the
+        card at full width (Swin-L/384 + d512, V = 10000 by a --vocab_path
+        JSON, bf16, "fused", b4), over a corpus in a temporary directory: 8
+        seeded 384 x 384 JPEGs written with PIL (6 train, 2 val), 5 random
+        references each; no HDF5 file. In order: an XE epoch (7 iterations,
+        a checkpoint); a second call with --num_epochs 2 that resumes (its
+        first batch the loader's 8th, the optimizer's count restored) with
+        --prefetch 2; from that checkpoint (a phase flip) an SCST epoch with
+        the on-card reward, then one with the host reward, each with
+        --prefetch 2 and the eval hook on val at beam 3; one XE iteration
+        with --distributed (NCCL, world size 1) and one with --remat, each
+        bit-equal to the same iteration without; the evaluate CLI on the last
+        native checkpoint against `api.Captioner` on the same weights. Every
+        CLI step's launches are counted: each XE iteration's training
+        kernels as run "train"'s (TRAIN_LAUNCHES), and the SCST steps' too
+        (the encoder once). Prints s/it at --prefetch 0 and 2 and the peak
+        device memory with and without --remat."""
+        import shutil
+        import tempfile
+
+        root = tempfile.mkdtemp(prefix="train_cli_")
+        try:
+            self._train_cli(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    def _train_cli(self, root):
+        import contextlib
+        import dataclasses
+        import gc
+        import os
+        import socket
+
+        from PIL import Image
+
+        torch = self.torch
+        from on_device_image_captioning_torch.api import Captioner
+        from on_device_image_captioning_torch.cli import evaluate as eval_cli
+        from on_device_image_captioning_torch.cli import train as cli
+        from on_device_image_captioning_torch.config import end_expansionnet_v2_coco
+        from on_device_image_captioning_torch.data import loader as loader_mod
+        from on_device_image_captioning_torch.data.datasets import load_coco_karpathy
+        from on_device_image_captioning_torch.models.end_to_end import EndExpansionNetV2
+        from on_device_image_captioning_torch.train import train_step
+        from on_device_image_captioning_torch.utils import checkpointing as ckpt
+        from on_device_image_captioning_torch.utils.image import preprocess_batch
+
+        cfg = end_expansionnet_v2_coco(compute_dtype=torch.bfloat16)
+        cfg = dataclasses.replace(
+            cfg, swin=dataclasses.replace(cfg.swin, attention_impl="fused"),
+            captioner=dataclasses.replace(cfg.captioner, max_seq_len=L_TRAIN))
+        vocab = self.synthetic_vocab(cfg.captioner)
+        vocab_path, ann = os.path.join(root, "vocab.json"), os.path.join(root, "ann.json")
+        vocab.to_json(vocab_path)
+        plain = [w for w in vocab.idx2word if w.startswith("w")]
+        rng = np.random.default_rng(SEED + 30)
+        os.makedirs(os.path.join(root, "v", "img"))
+        items = []
+        for i, img in enumerate(self.images(CLI_TRAIN + CLI_VAL, SEED + 30)):
+            Image.fromarray(img).save(os.path.join(root, "v", "img", f"i{i}.jpg"), quality=95)
+            items.append({"cocoid": i, "filepath": "v", "filename": f"i{i}.jpg",
+                          "split": "train" if i < CLI_TRAIN else "val",
+                          "sentences": [{"raw": " ".join(rng.choice(plain, int(rng.integers(8, 17))))}
+                                        for _ in range(CLI_REFS)]})
+        with open(ann, "w") as f:
+            json.dump({"images": items}, f)
+        common = ["--annotations", ann, "--images_path", root, "--vocab_path", vocab_path,
+                  "--is_end_to_end", "--bf16", "--swin_attention_impl", "fused",
+                  "--batch_size", str(B_TRAIN), "--max_seq_len", str(L_TRAIN), "--seed", str(SEED),
+                  "--sched_type", "custom_warmup_anneal", "--warmup_iters", "1",
+                  "--lr", str(CLI_LR), "--print_every_iter", "1", "--device", "cuda"]
+
+        # spies: the steps the CLI builds count each call's launches; the
+        # loader notes each batch it hands out; the eval hook its scores
+        steps = []
+
+        def counted(make, kind):
+            def build(*args, **kwargs):
+                step = make(*args, **kwargs)
+
+                def run(*a, **k):
+                    self.counters(reset=True)
+                    out = step(*a, **k)
+                    steps.append((kind, self.counters()))
+                    return out
+                return run
+            return build
+
+        batches, evals = [], []
+        next_batch = loader_mod.ShardedCaptionLoader.get_next_batch
+        evaluate_split = eval_cli.evaluate_split
+
+        def noted(loader, max_seq_len=None):
+            batch = next_batch(loader, max_seq_len)
+            batches.append(list(batch["img_idxs"]))
+            return batch
+
+        def scored(*args, **kwargs):
+            out = evaluate_split(*args, **kwargs)
+            evals.append(out)
+            return out
+
+        def run(save, *extra):
+            """cli.main on the common flags; (seconds, peak device MiB above
+            what was allocated before, the jsonl rows)."""
+            jsonl = f"{save}.{len(os.listdir(root))}.jsonl"  # a log of its own
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            rc = cli.main([*common, "--save_path", save + "/", "--metrics_jsonl", jsonl, *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - before) / 2**20
+            if rc != 0:
+                raise AssertionError(f"cli.train.main returned {rc}")
+            gc.collect()
+            rows = [json.loads(line) for line in open(jsonl)] if os.path.exists(jsonl) else []
+            return seconds, peak, rows
+
+        patches = [(train_step, "make_xe_step", counted(train_step.make_xe_step, "xe")),
+                   (train_step, "make_scst_step", counted(train_step.make_scst_step, "scst")),
+                   (train_step, "make_scst_fused_step",
+                    counted(train_step.make_scst_fused_step, "scst_fused")),
+                   (loader_mod.ShardedCaptionLoader, "get_next_batch", noted),
+                   (eval_cli, "evaluate_split", scored)]
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        for obj, name, value in patches:
+            setattr(obj, name, value)
+        try:
+            xe = os.path.join(root, "xe")
+            # 1. an XE epoch, a checkpoint at its end
+            s_xe, peak_xe, rows_xe = run(xe, "--num_epochs", "1")
+            if len(rows_xe) != 7 or len(steps) != 7 or not all(
+                    np.isfinite(r["loss"]) for r in rows_xe):
+                raise AssertionError(f"XE epoch: {len(steps)} steps, losses {rows_xe}")
+            first, info = ckpt.load_most_recent(xe)
+            if (info, first["step"], first["opt_state"]["count"]) != ("xe", 7, 7):
+                raise AssertionError(f"XE checkpoint: {info}, step {first['step']}, count "
+                                     f"{first['opt_state']['count']}")
+            del first
+            # 2. resume to two epochs, with prefetch
+            batches.clear()
+            s_resume, _, rows_resume = run(xe, "--num_epochs", "2", "--prefetch", "2")
+            dataset = load_coco_karpathy(ann, root, vocab=vocab)
+            loader = loader_mod.ShardedCaptionLoader(
+                dataset, [SEED + e for e in range(2)], batch_size=B_TRAIN)
+            eighth = [next_batch(loader)["img_idxs"] for _ in range(8)][-1]
+            resumed, _ = ckpt.load_most_recent(xe)
+            if batches[0] != list(eighth) or len(rows_resume) != 7:
+                raise AssertionError(f"resume: first batch {batches[0]}, the loader's 8th "
+                                     f"{eighth}; {len(rows_resume)} iterations")
+            if (resumed["step"], resumed["opt_state"]["count"]) != (14, 14):
+                raise AssertionError(f"resume: step {resumed['step']}, optimizer count "
+                                     f"{resumed['opt_state']['count']} (14 each if restored)")
+            xe_counts = [c for kind, c in steps if kind == "xe"]
+            for i, counts in enumerate(xe_counts):
+                got = {k: counts[k] for k in TRAIN_LAUNCHES}
+                if got != TRAIN_LAUNCHES:
+                    raise AssertionError(f"CLI XE iteration {i}: training launches {got} != "
+                                         f"{TRAIN_LAUNCHES}")
+                self.check_paths(TRAIN_CLI, counts)
+            self.launches[TRAIN_CLI] = xe_counts[-1]
+
+            # 3. one XE iteration three ways from the same state: the cursor
+            # one batch before the end of epoch 2
+            resumed["step"] = 13
+            resumed["data_loader_state"]["batch_it"] = 6
+            one = {}
+            for name in ("plain", "ddp", "remat"):
+                ckpt.save_checkpoint(os.path.join(root, name), resumed["params"],
+                                     resumed["opt_state"], 13, resumed["data_loader_state"], "xe",
+                                     epoch_it=1, batch_it=6, batch_size=B_TRAIN)
+            del resumed
+            s_plain, peak_plain, rows_plain = run(os.path.join(root, "plain"), "--num_epochs", "2")
+            s_remat, peak_remat, rows_remat = run(os.path.join(root, "remat"), "--num_epochs", "2",
+                                                  "--remat")
+            sock = socket.socket()
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+            sock.close()
+            env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+                   "MASTER_PORT": str(port)}
+            os.environ.update(env)
+            try:
+                _, _, rows_ddp = run(os.path.join(root, "ddp"), "--num_epochs", "2",
+                                     "--distributed")
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+            for name in ("plain", "ddp", "remat"):
+                one[name], _ = ckpt.load_most_recent(os.path.join(root, name))
+                if one[name]["step"] != 14:
+                    raise AssertionError(f"{name}: step {one[name]['step']}, not one iteration")
+            for kind, counts in steps[-3:]:
+                if kind != "xe" or {k: counts[k] for k in TRAIN_LAUNCHES} != TRAIN_LAUNCHES:
+                    raise AssertionError(f"single iterations: {kind} {counts}")
+            compared, rows_one = {}, {"ddp": rows_ddp, "remat": rows_remat}
+            for name in ("ddp", "remat"):
+                loss = (rows_plain[0]["loss"], rows_one[name][0]["loss"])
+                dw = max(float((one[name]["params"][k] - v).abs().max())
+                         for k, v in one["plain"]["params"].items())
+                diff = max(float((a[m] - b[m]).abs().max())
+                           for a, b in zip(one[name]["opt_state"]["optimizer"]["state"].values(),
+                                           one["plain"]["opt_state"]["optimizer"]["state"].values())
+                           for m in ("exp_avg", "exp_avg_sq"))
+                compared[name] = (loss, dw, diff)
+                if loss[0] != loss[1] or dw != 0 or diff != 0:
+                    raise AssertionError(
+                        f"{name} iteration against the plain one (bit-equal expected): loss "
+                        f"{loss}, weights max abs difference {dw:.3e}, Adam moments {diff:.3e}")
+            del one
+            gc.collect()
+
+            # 4. SCST from the XE checkpoint (a phase flip), on-card reward, then
+            # the host reward; the eval hook on val at beam 3 in each
+            scst = ["--reinforce", "--num_samples", str(N_SAMPLES), "--scst_max_len",
+                    str(L_TRAIN), "--prefetch", "2", "--eval_every_iter", "1",
+                    "--eval_beam_sizes", "3", "--eval_parallel_batch_size", str(CLI_VAL)]
+            n_steps = len(steps)
+            _, _, rows_dev = run(xe, *scst, "--device_reward", "--num_epochs", "1")
+            _, _, rows_host = run(xe, *scst, "--num_epochs", "2")
+            kinds = [kind for kind, _ in steps[n_steps:]]
+            if kinds != ["scst_fused", "scst"] or len(evals) != 2:
+                raise AssertionError(f"SCST epochs: steps {kinds}, {len(evals)} evaluations")
+            for kind, counts in steps[n_steps:]:
+                if {k: counts[k] for k in TRAIN_LAUNCHES} != TRAIN_LAUNCHES:
+                    raise AssertionError(f"CLI {kind} step: training launches {counts}")
+            hook = [scores for scores, _ in evals]
+            for scores, preds in evals:
+                if len(preds) != CLI_VAL or not all(np.isfinite(v) for v in scores.values()):
+                    raise AssertionError(f"eval hook: {scores}, {len(preds)} predictions")
+            rewards = [rows_dev[0]["reward"], rows_host[0]["reward"]]
+            final, info = ckpt.load_most_recent(xe)
+            if (info, final["step"]) != ("rf", 2) or not all(np.isfinite(rewards)):
+                raise AssertionError(f"SCST: checkpoint {info} step {final['step']}, rewards "
+                                     f"{rewards}")
+
+            # 5. the evaluate CLI on the native checkpoint against Captioner
+            path = [os.path.join(xe, f) for f in os.listdir(xe) if ckpt._NAME.match(f)][0]
+            dump = os.path.join(root, "preds.json")
+            with contextlib.redirect_stdout(open(os.devnull, "w")):
+                rc = eval_cli.main(["--annotations", ann, "--images_path", root,
+                                    "--vocab_path", vocab_path, "--load_path", path,
+                                    "--split", "val", "--beam_sizes", "3", "--batch_size",
+                                    str(CLI_VAL), "--max_seq_len", str(L_TRAIN), "--bf16",
+                                    "--metrics", "bleu", "cider", "--dump_predictions", dump,
+                                    "--device", "cuda"])
+            if rc != 0:
+                raise AssertionError(f"cli.evaluate.main returned {rc}")
+            with open(dump) as f:
+                got = json.load(f)["3"]
+            model = EndExpansionNetV2(cfg)
+            model.load_state_dict(final["params"])
+            del final
+            val = dataset.records("val")
+            caps, _ = Captioner(model, cfg, {"beam_size": 3, "beam_max_seq_len": L_TRAIN})(
+                preprocess_batch([r["img_path"] for r in val], cfg.swin.img_size))
+            want = {str(r["img_id"]): vocab.description(row[0]).lower()
+                    for r, row in zip(val, caps)}
+            del model
+            if got != want:
+                raise AssertionError(f"evaluate CLI {got} != Captioner {want}")
+        finally:
+            for obj, name, value in saved:
+                setattr(obj, name, value)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        log(f"phase 4 training CLI, run {TRAIN_CLI!r}: cli.train.main on Swin-L/384 + d512, "
+            f"V={cfg.captioner.vocab_size} (--vocab_path), bf16, 'fused', b{B_TRAIN}, "
+            f"{CLI_TRAIN} train / {CLI_VAL} val JPEGs of 384^2 x {CLI_REFS} references: XE epoch "
+            f"losses {[round(r['loss'], 4) for r in rows_xe]}; resumed at iteration 8 (first "
+            f"batch {batches[0]} = the loader's 8th), optimizer count 14 after it, losses "
+            f"{[round(r['loss'], 4) for r in rows_resume]}; SCST rewards (on-card, host) "
+            f"{[round(r, 5) for r in rewards]}, eval hook scores {hook}; "
+            f"launches per XE iteration {self.launches[TRAIN_CLI]}")
+        for name, (loss, dw, diff) in compared.items():
+            what = ("--distributed (NCCL, world size 1)" if name == "ddp" else "--remat")
+            log(f"  one XE iteration with {what} against without: loss {loss[1]} vs {loss[0]}, "
+                f"weights max abs difference {dw:.3e}, Adam moments (exp_avg, exp_avg_sq) max "
+                f"abs difference {diff:.3e} (both held to 0)")
+        log(f"  evaluate CLI on the native checkpoint: captions equal to api.Captioner's on "
+            f"the same weights ({len(got)} of {len(want)})")
+        log(f"  CLI XE s/it at b{B_TRAIN} (StepTimer, iterations after the first two): "
+            f"--prefetch 0 {rows_xe[-1]['sec_per_iter']:.4f} (epoch 1), --prefetch 2 "
+            f"{rows_resume[-1]['sec_per_iter']:.4f} (epoch 2, resumed); calls {s_xe:.1f} s and "
+            f"{s_resume:.1f} s in all | {self.card}")
+        log(f"  CLI XE peak device memory above what was allocated before the call, one "
+            f"iteration from a checkpoint: {peak_plain:.0f} MiB, with --remat {peak_remat:.0f} MiB "
+            f"(the XE epoch's call: {peak_xe:.0f} MiB; calls {s_plain:.1f} s and {s_remat:.1f} s) "
+            f"| {self.card}")
+
     def scst_check(self):
         """Phase 5, SCST: fp32 loss and gradients of one shared-encoder SCST
         step, the kernel path on the card against the plain path on the CPU,
@@ -2325,6 +2646,7 @@ def main(names) -> int:
     smoke.eval_path()
     smoke.train_path()
     smoke.scst_path()
+    smoke.train_cli_path()
     smoke.self_check()
     smoke.quant_check()
     smoke.train_check()

@@ -2,7 +2,8 @@
 the JAX package's `cli/demo.py`, reference demo.py).
 
 Loads the Swin-L/384 end-to-end model from a reference `.pth` checkpoint
-(its parameter names are this package's), decodes and resizes the images on
+(its parameter names are this package's) or a native one
+(`utils/checkpointing.py`, which `cli/train.py` writes), decodes and resizes the images on
 the host, and runs beam search on the chosen device:
 
     python -m on_device_image_captioning_torch.cli.demo --device cuda \
@@ -39,6 +40,26 @@ def build_vocab(args):
             toks = pickle.load(f)
         return Vocab(word2idx=toks["word2idx_dict"])
     raise ValueError("--vocab_path must be a .json vocab or the demo pickle")
+
+
+def load_raw(path: str):
+    """The state_dict at `path` as it was stored (the JAX package's
+    `load_params` decides the same way): a path ending in `.pth` is a
+    reference file, read whole; any other path is a native checkpoint
+    (`utils/checkpointing.py`), whose "params" are used."""
+    from ..utils.checkpointing import load_checkpoint
+
+    if path.endswith(".pth"):
+        return torch.load(path, map_location="cpu", weights_only=False)
+    return load_checkpoint(path)["params"]
+
+
+def load_params(path: str):
+    """The state_dict at `path` (`load_raw`) in the reference's names,
+    cleaned of the DDP `module.` prefix and the non-parameter buffers."""
+    from ..params.convert import clean_reference_state_dict
+
+    return clean_reference_state_dict(load_raw(path))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -92,8 +113,7 @@ def main(argv=None):
         ),
     )
     model = EndExpansionNetV2(cfg)
-    sd = torch.load(args.load_path, map_location="cpu", weights_only=False)
-    load_reference_state_dict(model, sd)
+    load_reference_state_dict(model, load_params(args.load_path))
     print("Model loaded ...", flush=True)
 
     captioner = Captioner(

@@ -7,8 +7,9 @@ and score it with the metric suite, per beam size.
         --vocab_path vocab.json --load_path rf_model.pth --split test \
         --beam_sizes 3 5 [--features_path features.hdf5] [--dump_predictions p.json]
 
-Checkpoints are `.pth` state_dicts in the reference's parameter names: the
-end-to-end model, or the caption head alone with `--features_path`. Several
+Checkpoints are `.pth` state_dicts in the reference's parameter names, or
+native checkpoints (`utils/checkpointing.py`, which `cli/train.py` writes):
+the end-to-end model, or the caption head alone with `--features_path`. Several
 `--load_path`s decode as an ensemble. They load in this order: the
 state_dict, the layer-removal surgery of `--param_config` on a full-stack
 checkpoint (`params/surgery.py`), `--quantize`, and the inference layout of
@@ -232,16 +233,17 @@ def compute_evaluation_loss(
 
 
 def load_state_dicts(args):
-    """The `--load_path` state_dicts, cleaned of the reference's DDP prefix and
-    buffers; a full-stack one gets the layer-removal surgery of
+    """The `--load_path` state_dicts (`cli/demo.py::load_params`: a `.pth`
+    cleaned of the reference's DDP prefix and buffers, or a native
+    checkpoint's params); a full-stack one gets the layer-removal surgery of
     `--param_config` (reference train.py:305-342); one already saved in
     reduced form passes through untouched."""
     from ..params import surgery
-    from ..params.convert import clean_reference_state_dict
+    from .demo import load_params
 
     sds = []
     for path in args.load_path:
-        sd = clean_reference_state_dict(torch.load(path, map_location="cpu", weights_only=False))
+        sd = load_params(path)
         if args.param_config and surgery.stack_depth(sd, "encoders") == args.N_enc:
             sd = surgery.remove_layer(sd, args.param_config)
         sds.append(sd)
@@ -258,7 +260,8 @@ def main(argv=None):
                              "features-in model instead of end-to-end")
     parser.add_argument("--vocab_path", type=str, default=None)
     parser.add_argument("--load_path", type=str, nargs="+", required=True,
-                        help="one .pth state_dict, or several for ensemble decoding")
+                        help="one checkpoint (.pth state_dict or native), or several "
+                             "for ensemble decoding")
     parser.add_argument("--split", default="test", choices=["val", "test"])
     parser.add_argument("--beam_sizes", type=int, nargs="+", default=[3])
     parser.add_argument("--metrics", type=str, nargs="+",

@@ -7,9 +7,10 @@ backbone over every image of a dataset on the card and write a
         --dataset coco --annotations dataset_coco.json --images_path ... \
         --backbone_checkpoint swin.pth --output features.hdf5 [--feature_dtype float16]
 
-`--backbone_checkpoint` takes a `.pth`: the end-to-end model's state_dict, a
-Swin-official file ({'model': ...}), or the backbone's own state_dict; without
-one the backbone gets seeded random weights. The backbone runs its config's
+`--backbone_checkpoint` takes a `.pth` (the end-to-end model's state_dict, a
+Swin-official file ({'model': ...}) or the backbone's own state_dict) or a
+native checkpoint of either model (`utils/checkpointing.py`); without one
+the backbone gets seeded random weights. The backbone runs its config's
 default path ("pallas"). `--device cuda` is the default and raises without a
 card.
 
@@ -110,8 +111,8 @@ def main(argv=None):
     parser.add_argument("--images_path", type=str, default="")
     parser.add_argument("--vocab_path", type=str, default=None)
     parser.add_argument("--backbone_checkpoint", type=str, default=None,
-                        help=".pth (full model, Swin-official, or backbone-only); "
-                             "seeded random weights when omitted")
+                        help=".pth (full model, Swin-official, or backbone-only) or a "
+                             "native checkpoint; seeded random weights when omitted")
     parser.add_argument("--output", type=str, required=True)
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--splits", nargs="+", default=["train", "val", "test"])
@@ -180,12 +181,14 @@ def _random_backbone(swin_cfg):
 def _load_backbone(path: str, swin_cfg):
     """A `SwinTransformer` from a full end-to-end state_dict, a Swin-official
     file ({'model': ...}, reference data_generator.py:76-83; its classifier
-    head and buffers are not read) or the backbone's own state_dict."""
+    head and buffers are not read) or the backbone's own state_dict, each as
+    a `.pth` or (but the Swin-official file) a native checkpoint."""
     from ..models.swin import SwinTransformer
     from ..params.convert import clean_reference_state_dict
+    from .demo import load_raw
 
     model = SwinTransformer(swin_cfg)
-    sd = torch.load(path, map_location="cpu", weights_only=False)
+    sd = load_raw(path)
     if "model" in sd:  # Swin-official pretraining format
         own = model.state_dict()
         sd = {k: v for k, v in sd["model"].items() if k in own}

@@ -7,6 +7,9 @@ with it for a visual check.
         --load_path rf_model.pth --vocab_path vocab.json --output q_model.pth \
         --scheme w8a8 --halves encoder decoder [--image_paths demo.jpg] [--device cuda]
 
+`--load_path` takes a reference `.pth` or a native checkpoint
+(`cli/demo.py::load_params`).
+
 `--device cuda` is the default and raises without a CUDA card; quantization
 itself runs where the checkpoint is loaded (the CPU), the demo captions on the
 device. The saved file loads back with `params/convert.py::
@@ -56,7 +59,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    from .demo import build_vocab, resolve_device
+    from .demo import build_vocab, load_params, resolve_device
 
     device = resolve_device(args.device)
     from ..api import Captioner
@@ -76,8 +79,7 @@ def main(argv=None):
         ),
     )
     model = EndExpansionNetV2(cfg)
-    load_reference_state_dict(model, torch.load(args.load_path, map_location="cpu",
-                                                weights_only=False))
+    load_reference_state_dict(model, load_params(args.load_path))
     before, after = quantize_halves(model, args.scheme, args.halves)
     print(size_line(args.scheme, args.halves, before, after), flush=True)
     torch.save(model.state_dict(), args.output)

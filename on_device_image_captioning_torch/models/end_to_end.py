@@ -31,23 +31,25 @@ class EndExpansionNetV2(ExpansionNetV2):
         self.swin_transf.prepare_inference(self.cfg.compute_dtype)
 
     def forward_enc(self, images: torch.Tensor, train: bool = False, generator=None,
-                    drop_path_scales=None) -> torch.Tensor:
+                    drop_path_scales=None, remat: bool = False) -> torch.Tensor:
         """Normalized images NHWC (B, H, W, 3) -> encoder output
         (B, (H/32)^2, d_model). The end-to-end path has no encoder pads.
-        train, generator, drop_path_scales: see `SwinTransformer.forward`."""
+        train, generator, drop_path_scales, remat: see
+        `SwinTransformer.forward`."""
         dtype = self.cfg.compute_dtype
-        feats = self.swin_transf(images, dtype, train, generator, drop_path_scales)
+        feats = self.swin_transf(images, dtype, train, generator, drop_path_scales, remat)
         return super().forward_enc(feats, None, dtype, train, generator)
 
     def forward(self, images: torch.Tensor, dec_input: torch.Tensor,
                 dec_num_pads: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None, drop_path_scales=None,
-                apply_log_softmax: bool = False) -> torch.Tensor:
+                apply_log_softmax: bool = False, remat: bool = False) -> torch.Tensor:
         """Teacher-forced forward (the JAX package's `end_to_end.forward`):
         normalized images and a token prefix (B, T) -> logits (B, T, vocab).
         With train=True it is differentiable, and dropout and stochastic depth
-        are drawn from `generator` (off without one)."""
-        cross = self.forward_enc(images, train, generator, drop_path_scales)
+        are drawn from `generator` (off without one); remat: see
+        `SwinTransformer.forward`."""
+        cross = self.forward_enc(images, train, generator, drop_path_scales, remat)
         return self.forward_dec(
             cross, dec_input, dec_num_pads, None, apply_log_softmax, self.cfg.compute_dtype,
             train, generator)

@@ -416,6 +416,31 @@ class PatchMerging(nn.Module):
         return _norm_operands(self.norm), _linear_operands(self.reduction, dtype)[0]
 
 
+def _remat_block(blk, x, dtype, m1, m2, generator) -> torch.Tensor:
+    """`blk.forward_train` under activation checkpointing. The dropout masks
+    come from an explicit generator, which `preserve_rng_state` does not
+    cover: its state before the forward is kept and put back for the
+    recompute, so the recompute draws the forward's masks, and the state
+    the forward left is put back after it, so later draws do not move."""
+    from torch.utils.checkpoint import checkpoint
+
+    before = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(x, m1, m2):
+        if not calls or before is None:
+            calls.append(None)
+            return blk.forward_train(x, dtype, m1, m2, generator)
+        after = generator.get_state()
+        generator.set_state(before)
+        try:
+            return blk.forward_train(x, dtype, m1, m2, generator)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, x, m1, m2, use_reentrant=False)
+
+
 class BasicLayer(nn.Module):
     def __init__(self, cfg: SwinConfig, stage: int):
         super().__init__()
@@ -585,7 +610,8 @@ class SwinTransformer(nn.Module):
         xw = window_transition_train(xw, res, window, shift, 0)
         return window_reverse(xw, window, res, res).reshape(b, l, c)
 
-    def _forward_train(self, images, dtype, generator, drop_path_scales) -> torch.Tensor:
+    def _forward_train(self, images, dtype, generator, drop_path_scales,
+                       remat=False) -> torch.Tensor:
         cfg = self.cfg
         b = images.shape[0]
         total = sum(cfg.depths)
@@ -610,8 +636,11 @@ class SwinTransformer(nn.Module):
             if kernels and layer.blocks[0].res > layer.blocks[0].window:
                 x = self._run_stage_windows_train(layer, x, scales, dtype)
             else:
+                # remat only here: the training kernels recompute in their own
+                # backwards (the JAX package's `_fused_train_active` gate)
                 for blk, (m1, m2) in zip(layer.blocks, scales):
-                    x = blk.forward_train(x, dtype, m1, m2, generator)
+                    x = (_remat_block(blk, x, dtype, m1, m2, generator) if remat
+                         else blk.forward_train(x, dtype, m1, m2, generator))
             if layer.downsample is not None:
                 x = layer.downsample(x, dtype)
         return layernorm(self.norm, x, cfg.ln_eps)
@@ -620,13 +649,18 @@ class SwinTransformer(nn.Module):
         self, images: torch.Tensor, dtype=None, train: bool = False,
         generator: Optional[torch.Generator] = None,
         drop_path_scales: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+        remat: bool = False,
     ) -> torch.Tensor:
         """train=True is the differentiable training forward: dropout and
         stochastic depth are drawn from `generator` (none without one), or the
         per-block (m1, m2) scales, each (B,) fp32, are handed in through
-        `drop_path_scales` (one pair per block, in network order)."""
+        `drop_path_scales` (one pair per block, in network order). remat=True
+        keeps only each plain block's input and recomputes the block in the
+        backward (`torch.utils.checkpoint`; the JAX package's `jax.checkpoint`
+        of the blocks off the training kernels), with the same dropout
+        masks."""
         if train:
-            return self._forward_train(images, dtype, generator, drop_path_scales)
+            return self._forward_train(images, dtype, generator, drop_path_scales, remat)
         if self.cfg.attention_impl == "fused":
             if self._quantized_boundaries():
                 return self._forward_stagewise(images, dtype)

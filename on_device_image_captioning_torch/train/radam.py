@@ -8,7 +8,9 @@ Semantics kept, step for step:
   momentum step, False (`RAdam`, the reference's default) takes no step;
 - weight decay is `p -= wd * lr * p` inside the gated branches;
 - `lr` is a float or a schedule step -> lr (`train/schedules.py`), read at
-  the count of steps taken before this one.
+  the count of steps taken before this one. The count travels with
+  `state_dict()`, so a resumed optimizer continues its schedule and its
+  rectification where it stopped.
 
 Moments are kept in each parameter's dtype (fp32 master weights).
 """
@@ -31,6 +33,16 @@ class RAdam(torch.optim.Optimizer):
                         weight_decay=weight_decay, degenerated_to_sgd=degenerated_to_sgd)
         super().__init__(params, defaults)
         self.count = 0  # steps taken
+
+    def state_dict(self) -> dict:
+        """The base class's state plus the count of steps taken, which the
+        schedule and the bias corrections read (the JAX state's `count`)."""
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count", 0))
+        super().load_state_dict(state_dict)
 
     @torch.no_grad()
     def step(self, closure=None):
