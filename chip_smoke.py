@@ -16,7 +16,9 @@ Phases, in order (any failure raises and exits non-zero before the result):
 3. Each kernel against its plain PyTorch version on the card, at main-path
    shapes, in fp32 and bf16, with the tolerance printed beside each check
    (B6 in bf16: with one bf16 ulp of each of its output's two addends, and
-   the count of elements that needed it).
+   the count of elements that needed it). Every inference kernel is a
+   `torch.library` op of the namespace `odic`: `torch.library.opcheck` of
+   each on CUDA inputs (ops/_cases.py::opcheck_calls) must pass.
 4. Main path at full width, once per run of RUNS: the `attention_impl`
    "pallas" backbone; the "fused" backbone with its default stage modes (the
    whole-block kernel at stages 0 and 1) and the "pallas_fused" decode step;
@@ -64,6 +66,22 @@ Phases, in order (any failure raises and exits non-zero before the result):
    sampling step taken, every kernel outside the run's paths not at all; every
    parameter with a finite gradient; the on-card CIDEr-D of the batch's
    references with a third of their words swapped against the host's.
+   Exported engines (runs "export", "export_pallas", "export_w8a8",
+   "export_greedy"; `deploy/aot.py`, full width): run "fused"'s bf16 model
+   (form D, full depth), and at Swin depths (2, 2, 2, 2) the "pallas" and
+   "w8a8" forms and form D's greedy (beam 1), at b8 / beam 3 / L20, each
+   exported with bf16 weights, saved, loaded back and run on the serve
+   images: tokens and lengths equal, token for token, to eager
+   `api.Captioner`'s on the same weights rounded through bf16, and the
+   launches equal to that eager run's. Run "export" prints
+   the export seconds, the artifact's bytes beside 2 bytes a parameter and
+   the walls per batch of engine and eager (medians of 5, in turns).
+   Pruning (run "prune"): run "fused"'s full-width weights pruned by 0.33
+   twice on the host (`deploy/pruning.py`), `save_sparse`, then
+   `cli/evaluate.py --load_pruned` on the card over run "eval"'s split
+   written as JPEGs (L74): predictions equal to `evaluate_split`'s over the
+   same pruned weights in memory; the GLOBAL sparsity and the npz's bytes
+   printed.
    Evaluation (runs "eval", "eval_w8a8", "features", "eval_features"; no
    image or HDF5 file is read: the images are seeded uint8 arrays handed in
    through `load_images`, the stores kept in memory): a synthetic test split
@@ -351,6 +369,24 @@ KERNELS = {
         counter=("swin_block_fused", "mlp_half_a8_launches"),
         paths=("w8a8", EVAL_A8), headline="stage2 x(8, 144, 768) bfloat16"),
 }
+# exported engines of phase 4 (`deploy/aot.py`): run -> (the serve run whose
+# bf16 model it exports, greedy, Swin depths: None = the serve run's own
+# model at full depth; else a model of that run's form and width at these
+# depths, to keep the script's time); each engine's launches equal the eager
+# Captioner's on the same model (random weights emit no EOS, so the eager
+# decode runs every step too)
+SHALLOW = (2, 2, 2, 2)
+EXPORT_RUNS = {"export": ("fused", False, None), "export_pallas": ("pallas", False, SHALLOW),
+               "export_w8a8": ("w8a8", False, SHALLOW), "export_greedy": ("fused", True, SHALLOW)}
+EXPORT_REPEATS = 5  # engine and eager walls of run "export": medians of this many, in turns
+# run "prune": the "fused" run's weights pruned twice by PRUNE_AMOUNT, then the
+# evaluate CLI (--load_pruned) over run "eval"'s split written as JPEGs, at
+# the model's max_seq_len, against evaluate_split over the same weights: the
+# kernels of run "eval"
+PRUNE, PRUNE_AMOUNT, PRUNE_ROUNDS = "prune", 0.33, 2
+for _k in KERNELS.values():
+    _k["paths"] += tuple(r for r, (src, *_) in EXPORT_RUNS.items() if src in _k["paths"])
+    _k["paths"] += (PRUNE,) if EVAL in _k["paths"] else ()
 # launches of the training kernels in one XE step of Swin-L (depths 2, 2, 18,
 # 2): the whole-block forward at stages 0 and 1, the two half forwards at
 # stage 2, both backwards once per block of stages 0-2, and a transition
@@ -579,8 +615,9 @@ class Smoke:
         torch.cuda.synchronize()
 
     # -- models ------------------------------------------------------------------
-    def model(self, dtype, device, run="pallas", seed=SEED):
-        """(cfg, model, step_impl) of a main-path run, seeded random weights."""
+    def model(self, dtype, device, run="pallas", seed=SEED, depths=None):
+        """(cfg, model, step_impl) of a main-path run, seeded random weights
+        (Swin-L's depths unless `depths` cuts them)."""
         import dataclasses
 
         torch = self.torch
@@ -591,13 +628,14 @@ class Smoke:
 
         path, halves, step_impl = RUNS[run]
         cfg = end_expansionnet_v2_coco(compute_dtype=dtype)
-        cfg = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, attention_impl=path))
+        cfg = dataclasses.replace(cfg, swin=dataclasses.replace(
+            cfg.swin, attention_impl=path, depths=depths or cfg.swin.depths))
         modes = {i: "halves" for i in range(cfg.swin.num_layers)} if halves else None
         model = EndExpansionNetV2(cfg, modes)
         init_weights(model, torch.Generator().manual_seed(seed))
         return cfg, model.to(device), step_impl
 
-    def quant_model(self, dtype, device, mode, seed=SEED):
+    def quant_model(self, dtype, device, mode, seed=SEED, depths=None):
         """(cfg, model) of a quantized run: the "fused" model of run "fused"
         with every linear quantized (`quantize_model`), built on the CPU and
         then moved, so the card and the CPU hold the same int8 weights."""
@@ -605,7 +643,7 @@ class Smoke:
             quantize_model, quantized_size_bytes,
         )
 
-        cfg, model, _ = self.model(dtype, "cpu", "fused", seed)
+        cfg, model, _ = self.model(dtype, "cpu", "fused", seed, depths)
         before = quantized_size_bytes(model)
         quantize_model(model, mode)
         return cfg, model.to(device), (before, quantized_size_bytes(model))
@@ -824,6 +862,225 @@ class Smoke:
             raise AssertionError("the ensemble run did not drive both models' kernels")
         del second, model2
         torch.cuda.empty_cache()
+
+    def export_path(self):
+        """Phase 4, the exported engines (runs of EXPORT_RUNS): a serve run's
+        bf16 model (or one of its form at cut depths) through
+        `deploy/aot.py::export_artifact` (bf16 weights), saved, loaded back
+        with `load_artifact` and run on the serve images; its tokens and
+        lengths equal, token for token, eager `api.Captioner`'s on the same
+        model with its weights rounded through bf16 (what the artifact
+        ships), and so do its launches. Run "export": export seconds,
+        artifact bytes beside two bytes a parameter, and the walls per batch
+        of engine and eager."""
+        import copy
+        import os
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        from on_device_image_captioning_torch.api import Captioner
+        from on_device_image_captioning_torch.config import DecodeConfig
+        from on_device_image_captioning_torch.deploy import aot
+
+        imgs = self.images(B_SERVE, SEED)
+        x = torch.from_numpy(imgs).to(self.dev)
+        for run, (src, greedy, depths) in EXPORT_RUNS.items():
+            serve = self.serve[src]
+            if depths is not None:  # the source run's form and width, cut in depth
+                if src in QUANT_RUNS:
+                    cfg, model, _ = self.quant_model(torch.bfloat16, self.dev,
+                                                     QUANT_RUNS[src][0], depths=depths)
+                else:
+                    cfg, model, _ = self.model(torch.bfloat16, self.dev, src, depths=depths)
+                serve = Captioner(model, cfg, {}, step_impl=serve.step_impl)
+            cfg, cap = serve.cfg, serve.cap_cfg
+            beam = 1 if greedy else BEAM_SERVE
+            dcfg = DecodeConfig(beam_size=BEAM_SERVE, how_many_outputs=1, max_seq_len=L_SERVE,
+                                sos_idx=cap.sos_idx, eos_idx=cap.eos_idx)
+            root = tempfile.mkdtemp(prefix="engine_")
+            try:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                aot.export_artifact(root, serve.model, cfg, dcfg, B_SERVE, greedy=greedy,
+                                    step_impl=serve.step_impl)
+                export_s = time.perf_counter() - start
+                size = os.path.getsize(os.path.join(root, aot.GRAPH))
+                weights = aot.weight_bytes(root)
+                manifest = aot.load_manifest(root)
+                call, params = aot.load_artifact(root)
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            n_params = sum(t.numel() for t in serve.model.state_dict().values()
+                           if isinstance(t, torch.Tensor) and t.is_floating_point())
+            self.counters(reset=True)
+            toks, lens = call(params, x)
+            torch.cuda.synchronize()
+            self.launches[run] = self.counters()
+            ref_model = aot.round_to_shipped(copy.deepcopy(serve.model), cfg)
+            ref = Captioner(ref_model, cfg, {"beam_size": beam, "beam_max_seq_len": L_SERVE},
+                            step_impl=serve.step_impl)
+            self.counters(reset=True)
+            caps, _ = ref.beam_search(imgs)
+            torch.cuda.synchronize()
+            eager = self.counters()
+            got = [toks[i, :int(lens[i])].tolist() for i in range(B_SERVE)]
+            want = [c[0] for c in caps]
+            if got != want or [len(c) for c in want] != lens.tolist():
+                raise AssertionError(f"run {run!r}: the loaded engine's captions {got} differ "
+                                     f"from eager Captioner's {want}")
+            self.check_paths(run, self.launches[run])
+            if self.launches[run] != eager:
+                raise AssertionError(f"run {run!r}: launches {self.launches[run]} != eager "
+                                     f"Captioner's {eager}")
+            log(f"phase 4 exported engine, run {run!r}: run {src!r}'s form "
+                f"(attention_impl={cfg.swin.attention_impl!r}, step_impl={serve.step_impl!r}), "
+                f"Swin depths {cfg.swin.depths}, b{B_SERVE}/beam {beam}/L{L_SERVE}, manifest "
+                f"{manifest}; exported, saved and "
+                f"loaded in {export_s:.1f} s; graph.pt2 {size} bytes, of which weights and "
+                f"constants {weights} (2 bytes x {n_params} floating parameters = "
+                f"{2 * n_params}); tokens and lengths equal to eager Captioner's on the same "
+                f"bf16-rounded weights ({B_SERVE} captions, lengths {lens.tolist()}); launches "
+                f"equal to eager Captioner's: {eager}")
+            if run == "export":
+                walls = {"engine": [], "eager": []}
+                for _ in range(EXPORT_REPEATS):
+                    for what, fn in (("engine", lambda: call(params, x)),
+                                     ("eager", lambda: ref.decode(ref.forward_enc(x)))):
+                        torch.cuda.synchronize()
+                        start = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        walls[what].append(1e3 * (time.perf_counter() - start))
+                med = {k: statistics.median(v) for k, v in walls.items()}
+                log(f"  run {run!r}: wall per batch of b{B_SERVE} (host clock, medians of "
+                    f"{EXPORT_REPEATS}, in turns): engine {med['engine']:.3f} ms, eager "
+                    f"Captioner {med['eager']:.3f} ms (runs: engine "
+                    f"{[round(v, 3) for v in walls['engine']]}, eager "
+                    f"{[round(v, 3) for v in walls['eager']]}) | {self.card}")
+            del call, params, ref, ref_model, serve
+            torch.cuda.empty_cache()
+
+    def prune_path(self):
+        """Phase 4, run "prune": the "fused" run's full-width weights pruned
+        by PRUNE_AMOUNT PRUNE_ROUNDS times on the host (`deploy/pruning.py`),
+        `save_sparse`, then `cli/evaluate.py --load_pruned` on the card over
+        run "eval"'s synthetic split written as JPEGs (bf16, "fused", the
+        "pallas" step, beam 3, batches of 8, at the model's max_seq_len); its
+        predictions must equal `evaluate_split`'s over the same pruned
+        weights in memory. Prints the GLOBAL sparsity and the npz's size."""
+        import contextlib
+        import os
+        import shutil
+        import tempfile
+
+        from PIL import Image
+
+        torch = self.torch
+        from on_device_image_captioning_torch.cli import evaluate as eval_cli
+        from on_device_image_captioning_torch.data.datasets import load_coco_karpathy
+        from on_device_image_captioning_torch.deploy import pruning
+        from on_device_image_captioning_torch.models.end_to_end import EndExpansionNetV2
+        from on_device_image_captioning_torch.params.convert import w_leaf_names
+
+        serve = self.serve["fused"]
+        cfg, cap = serve.cfg, serve.cap_cfg
+        sd = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+              for k, v in serve.model.state_dict().items()}
+        names = w_leaf_names(serve.model)
+        start = time.perf_counter()
+        for _ in range(PRUNE_ROUNDS):
+            sd = pruning.global_l1_prune(sd, names, PRUNE_AMOUNT)
+        prune_s = time.perf_counter() - start
+        report = pruning.sparsity_report(sd)
+        dataset, load_images = self.eval_split(cap)
+        root = tempfile.mkdtemp(prefix="prune_")
+        try:
+            npz = os.path.join(root, "pruned.npz")
+            start = time.perf_counter()
+            pruning.save_sparse(npz, sd)
+            save_s = time.perf_counter() - start
+            vocab_path, ann = os.path.join(root, "vocab.json"), os.path.join(root, "ann.json")
+            dataset.vocab.to_json(vocab_path)
+            os.makedirs(os.path.join(root, "v", "img"))  # <images_path>/<filepath>/img/<file>
+            items = []
+            for r in dataset.records("test"):
+                name = f"i{r['img_id']}.jpg"
+                img = load_images([r["img_path"]], cfg.swin.img_size)[0]
+                Image.fromarray(img).save(os.path.join(root, "v", "img", name), quality=95)
+                items.append({"cocoid": r["img_id"], "filepath": "v", "filename": name,
+                              "split": "test", "sentences": [{"raw": c} for c in r["captions"]]})
+            with open(ann, "w") as f:
+                json.dump({"images": items}, f)
+            dump = os.path.join(root, "preds.json")
+            self.counters(reset=True)
+            start = time.perf_counter()
+            with contextlib.redirect_stdout(open(os.devnull, "w")):
+                rc = eval_cli.main(["--annotations", ann, "--images_path", root,
+                                    "--vocab_path", vocab_path, "--load_path", npz, "--load_pruned",
+                                    "--split", "test", "--beam_sizes", str(BEAM_SERVE),
+                                    "--batch_size", str(B_SERVE),
+                                    "--max_seq_len", str(cap.max_seq_len), "--bf16",
+                                    "--metrics", "bleu", "cider", "--dump_predictions", dump,
+                                    "--device", "cuda"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - start
+            self.launches[PRUNE] = self.counters()
+            if rc != 0:
+                raise AssertionError(f"cli.evaluate.main --load_pruned returned {rc}")
+            with open(dump) as f:
+                got = json.load(f)[str(BEAM_SERVE)]
+            files = load_coco_karpathy(ann, root, vocab=dataset.vocab)
+            model = EndExpansionNetV2(cfg)
+            model.load_state_dict(sd)
+            model.to(self.dev).eval().prepare_inference()
+            _, want = eval_cli.evaluate_split(
+                model, cfg, files, "test", BEAM_SERVE, B_SERVE, cap.max_seq_len, verbose=False,
+                metrics=("bleu", "cider"))
+            npz_bytes = os.path.getsize(npz)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        want = {str(k): v for k, v in want.items()}
+        if got != want:
+            raise AssertionError(f"run {PRUNE!r}: the CLI's predictions {got} differ from "
+                                 f"evaluate_split's {want}")
+        self.check_paths(PRUNE, self.launches[PRUNE])
+        dense = sum(t.numel() * t.element_size() for t in sd.values()
+                    if isinstance(t, torch.Tensor))
+        log(f"phase 4 pruning, run {PRUNE!r}: {PRUNE_ROUNDS} rounds of global L1 at "
+            f"{PRUNE_AMOUNT} over {len(names)} weights of run 'fused''s model on the host "
+            f"({prune_s:.1f} s); GLOBAL sparsity {report['GLOBAL']:.4f}; save_sparse "
+            f"{npz_bytes} bytes ({save_s:.1f} s) against {dense} dense; cli.evaluate "
+            f"--load_pruned over {len(got)} images (bf16, 'fused', 'pallas' step, beam "
+            f"{BEAM_SERVE}, L{cap.max_seq_len}) in {cli_s:.1f} s: predictions equal "
+            f"evaluate_split's over the same weights in memory; launches {self.launches[PRUNE]}")
+        del model
+        torch.cuda.empty_cache()
+
+    def opcheck_ops(self):
+        """Phase 3: `torch.library.opcheck` of every `odic` op on CUDA inputs
+        (`ops/_cases.py::opcheck_calls`: the first case of each inference
+        kernel, B13's products alone, the shared product), each op once."""
+        torch = self.torch
+        from on_device_image_captioning_torch.ops import _build, _cases
+
+        checked = {}
+        for label, fn in _cases.opcheck_calls(self.dev):
+            for op, args, kwargs in _cases.op_calls(fn):
+                name = op.__name__.split(".")[0]
+                if name in checked:
+                    continue
+                results = torch.library.opcheck(op, args, kwargs)
+                if set(results.values()) != {"SUCCESS"}:
+                    raise AssertionError(f"opcheck of odic::{name} ({label}): {results}")
+                checked[name] = label
+        torch.cuda.synchronize()
+        if set(checked) != set(_build.OPS):
+            raise AssertionError(f"opcheck reached {sorted(checked)}, not every op of "
+                                 f"{sorted(_build.OPS)}")
+        log(f"phase 3 torch.library.opcheck on CUDA tensors: all {len(checked)} odic ops pass "
+            f"(schema, autograd registration, fake tensors, AOT dispatch): "
+            + "; ".join(f"{k} at {v}" for k, v in checked.items()))
 
     # -- phase 5 ---------------------------------------------------------------
     def compare_tokens(self, what, got, want, margin_of, near_tie=1e-4):
@@ -2641,9 +2898,12 @@ def main(names) -> int:
         log(f"checked and timed {names} only: no result")
         return 0
     smoke.kernels()
+    smoke.opcheck_ops()
     smoke.main_path()
     smoke.quant_path()
+    smoke.export_path()
     smoke.eval_path()
+    smoke.prune_path()
     smoke.train_path()
     smoke.scst_path()
     smoke.train_cli_path()

@@ -8,12 +8,13 @@ and score it with the metric suite, per beam size.
         --beam_sizes 3 5 [--features_path features.hdf5] [--dump_predictions p.json]
 
 Checkpoints are `.pth` state_dicts in the reference's parameter names, or
-native checkpoints (`utils/checkpointing.py`, which `cli/train.py` writes):
-the end-to-end model, or the caption head alone with `--features_path`. Several
-`--load_path`s decode as an ensemble. They load in this order: the
-state_dict, the layer-removal surgery of `--param_config` on a full-stack
-checkpoint (`params/surgery.py`), `--quantize`, and the inference layout of
-an end-to-end model. `--device cuda` is the default and raises without a
+native checkpoints (`utils/checkpointing.py`, which `cli/train.py` writes),
+or with `--load_pruned` sparse npz files (`deploy/pruning.py::save_sparse`,
+densified over a model of the configured shape): the end-to-end model, or
+the caption head alone with `--features_path`. Several `--load_path`s decode
+as an ensemble. They load in this order: the state_dict, the layer-removal
+surgery of `--param_config` on a full-stack checkpoint (`params/surgery.py`),
+`--quantize`, and the inference layout of an end-to-end model. `--device cuda` is the default and raises without a
 card. `--swin_attention_impl` picks the backbone path ("fused", the default,
 is the window-resident one) and `--step_impl` the decode step, the choices
 the JAX CLI's "auto" makes on its accelerator. The scorers run on the host;
@@ -232,15 +233,22 @@ def compute_evaluation_loss(
     return total / max(count, 1)
 
 
-def load_state_dicts(args):
+def load_state_dicts(args, template=None):
     """The `--load_path` state_dicts (`cli/demo.py::load_params`: a `.pth`
     cleaned of the reference's DDP prefix and buffers, or a native
     checkpoint's params); a full-stack one gets the layer-removal surgery of
     `--param_config` (reference train.py:305-342); one already saved in
-    reduced form passes through untouched."""
+    reduced form passes through untouched. With `--load_pruned` each path is
+    a sparse npz (`deploy/pruning.py::save_sparse`), densified over the
+    state_dict `template` of a model of the configured shape (no surgery:
+    the template has it)."""
     from ..params import surgery
     from .demo import load_params
 
+    if args.load_pruned:
+        from ..deploy.pruning import load_sparse
+
+        return [load_sparse(path, template) for path in args.load_path]
     sds = []
     for path in args.load_path:
         sd = load_params(path)
@@ -292,6 +300,9 @@ def main(argv=None):
     parser.add_argument("--swin_window_size", type=int, default=12)
     parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--quantize", choices=["none", "w8", "w8a8"], default="none")
+    parser.add_argument("--load_pruned", action="store_true",
+                        help="--load_path names sparse .npz files written by "
+                             "deploy/pruning.py::save_sparse (reference test.py:455-459)")
     parser.add_argument("--eval_loss", action="store_true")
     parser.add_argument("--dump_predictions", type=str, default=None,
                         help="write decoded captions as JSON "
@@ -346,7 +357,11 @@ def main(argv=None):
         model_cls = EndExpansionNetV2
 
     models = []
-    for sd in load_state_dicts(args):
+    template = None
+    if args.load_pruned:
+        with torch.device("meta"):  # names and dtypes only
+            template = model_cls(cfg).state_dict()
+    for sd in load_state_dicts(args, template):
         model = load_quantized_state_dict(model_cls(cfg), sd)
         if args.quantize != "none":
             quantize_model(model, args.quantize)

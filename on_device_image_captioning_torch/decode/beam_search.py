@@ -16,8 +16,11 @@ Semantics replicate the reference loop (models/captioning_model.py:220-427):
 
 One cache of `max_seq_len` positions is used throughout. The vocab-wide
 candidate top-k is kernel K3 (ops/topk.py); the beam-pool and final top-k run
-over narrow rows and use the plain, tie-exact version. The early exit syncs
-with the host once per step.
+over narrow rows and use the plain, tie-exact version, whose NaN rule runs on
+the device. A step (`_beam_step`) does not sync with the host; two loops
+run it: `ensemble_beam_search` with the early exit, which syncs with the host
+once per step, and `fixed_beam_search` for a fixed number of steps, the form
+`torch.export` traces (`deploy/aot.py`).
 
 Noise. JAX and PyTorch draw different numbers from the same seed, so the
 sampling mode takes either a `torch.Generator` on the tensors' device or the
@@ -81,6 +84,131 @@ def _candidates(log_probs: torch.Tensor, k: int, draw):
     return torch.gather(log_probs, 1, idx.long()), idx
 
 
+@dataclasses.dataclass
+class _Beams:
+    """The beams between two steps: everything `_beam_step` reads and writes."""
+    tokens: torch.Tensor  # (B, K, L) int32
+    logprobs: torch.Tensor  # (B, K, L) fp32
+    cumul: torch.Tensor  # (B, K) fp32 cumulative log-probs
+    num_elem: torch.Tensor  # (B, K) int32 tokens up to and including the first EOS
+    finished: torch.Tensor  # (B, K) bool: the prefix holds EOS
+    reorder: torch.Tensor  # (B * K,) int32: the cache row each beam continues
+    img_base: torch.Tensor  # (B, 1) int32: the first beam row of each image
+
+
+def _start(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads, step_impl, generator,
+           noise, dec_step=dc.dec_step):
+    """The decoder states and step 1, which expands SOS into beam_size beams.
+    Returns (step, draw, beams): step(tokens, pos, reorder, group) -> the
+    models' log-probs of the next token through `dec_step`, draw the noise
+    source (None for "max")."""
+    if decode_cfg.sample_or_max not in ("max", "sample"):
+        raise ValueError(f"sample_or_max {decode_cfg.sample_or_max!r}")
+    k = decode_cfg.beam_size
+    L = decode_cfg.max_seq_len
+    b = enc_outputs[0].shape[0]
+    dev = enc_outputs[0].device
+    draw = None
+    if decode_cfg.sample_or_max == "sample":
+        draw = gumbel_source(dev, generator, noise)
+    cache_dtype = dtype if dtype is not None else torch.float32
+    states = [
+        dc.init_state(m, cfg, e, L, cache_dtype, enc_num_pads)
+        for m, e in zip(models, enc_outputs)
+    ]
+
+    def step(tokens, pos, reorder=None, group=1):
+        logps = []
+        for i, m in enumerate(models):
+            lp, states[i] = dec_step(
+                m, cfg, states[i], tokens, pos, dtype, reorder, group, step_impl)
+            logps.append(lp)
+        if len(logps) == 1:
+            return logps[0]
+        return torch.log(torch.exp(torch.stack(logps, dim=0)).mean(dim=0))
+
+    logp0 = step(torch.full((b,), decode_cfg.sos_idx, dtype=torch.int32, device=dev), 0)
+    first_vals, first_idx = _candidates(logp0, k, draw)  # (B, K)
+    tokens = torch.zeros((b, k, L), dtype=torch.int32, device=dev)
+    tokens[:, :, 0] = decode_cfg.sos_idx
+    tokens[:, :, 1] = first_idx
+    logprobs = torch.zeros((b, k, L), dtype=torch.float32, device=dev)
+    logprobs[:, :, 1] = first_vals.float()
+    beams = _Beams(
+        tokens=tokens, logprobs=logprobs, cumul=first_vals.float(),
+        num_elem=torch.full((b, k), 2, dtype=torch.int32, device=dev),
+        finished=torch.zeros((b, k), dtype=torch.bool, device=dev),
+        # the first beam step reads the per-image caches: row (i, j) <- image i
+        reorder=torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(k),
+        img_base=torch.arange(b, dtype=torch.int32, device=dev)[:, None] * k,
+    )
+    return step, draw, beams
+
+
+def _beam_step(step, beams: _Beams, t: int, eos: int, draw) -> _Beams:
+    """Beam step t: candidates of every beam, the frozen ones for finished
+    beams, the beam pool re-ranked, the picks written at position t. No sync
+    with the host. Once every beam is finished a step is the identity on the
+    beams: the frozen candidates are 0 and -999, `cumul` is already sorted
+    (so every beam picks itself), and neither `num_elem` nor `cumul` moves."""
+    b, k, L = beams.tokens.shape
+    last = beams.tokens[:, :, t - 1].reshape(b * k)
+    logp = step(last, t - 1, beams.reorder, k)
+    cand_vals, cand_idx = _candidates(logp, k, draw)
+    cand_vals = cand_vals.float().reshape(b, k, k)
+    cand_idx = cand_idx.reshape(b, k, k)
+
+    # freeze finished beams
+    frozen = beams.finished[:, :, None]
+    cand_vals = torch.cat(
+        [
+            torch.where(frozen, 0.0, cand_vals[:, :, :1]),
+            torch.where(frozen, -999.0, cand_vals[:, :, 1:]),
+        ],
+        dim=-1,
+    )
+    comparison = (beams.cumul[:, :, None] + cand_vals).reshape(b, k * k)
+    top_vals, topi = topk_reference(comparison, k)
+    which_seq = (topi // k).long()
+    which_word = (topi % k).long()
+
+    tokens = torch.gather(beams.tokens, 1, which_seq[:, :, None].expand(b, k, L))
+    logprobs = torch.gather(beams.logprobs, 1, which_seq[:, :, None].expand(b, k, L))
+    sel_word = torch.gather(
+        torch.gather(cand_idx, 1, which_seq[:, :, None].expand(b, k, k)), 2,
+        which_word[:, :, None],
+    )[:, :, 0]
+    sel_val = torch.gather(
+        torch.gather(cand_vals, 1, which_seq[:, :, None].expand(b, k, k)), 2,
+        which_word[:, :, None],
+    )[:, :, 0]
+    tokens[:, :, t] = sel_word
+    logprobs[:, :, t] = sel_val
+
+    was_finished = torch.gather(beams.finished, 1, which_seq)
+    return _Beams(
+        tokens=tokens, logprobs=logprobs, cumul=top_vals,
+        num_elem=torch.gather(beams.num_elem, 1, which_seq) + (~was_finished).int(),
+        finished=was_finished | (sel_word == eos),
+        reorder=(beams.img_base + which_seq).reshape(b * k).int(),
+        img_base=beams.img_base,
+    )
+
+
+def _ranked(beams: _Beams, how_many_outputs: int) -> BeamResult:
+    """The final ranking: length-normalized cumulative log-prob, best first."""
+    b, k, L = beams.tokens.shape
+    norm = beams.cumul / beams.num_elem.float()
+    _, order = topk_reference(norm, k)
+    order = order[:, :how_many_outputs].long()
+    n = order.shape[1]
+    return BeamResult(
+        tokens=torch.gather(beams.tokens, 1, order[:, :, None].expand(b, n, L)),
+        logprobs=torch.gather(beams.logprobs, 1, order[:, :, None].expand(b, n, L)),
+        lengths=torch.gather(beams.num_elem, 1, order),
+    )
+
+
 @torch.no_grad()
 def beam_search(
     model: ExpansionNetV2,
@@ -117,100 +245,38 @@ def ensemble_beam_search(
     are the log of the mean of the models' probabilities (reference
     models/ensemble_captioning_model.py:55-84). `enc_outputs` holds one
     encoder output per model, each encoded with that model's weights. One
-    model is plain beam search."""
-    if decode_cfg.sample_or_max not in ("max", "sample"):
-        raise ValueError(f"sample_or_max {decode_cfg.sample_or_max!r}")
-    k = decode_cfg.beam_size
-    L = decode_cfg.max_seq_len
-    sos, eos = decode_cfg.sos_idx, decode_cfg.eos_idx
-    b = enc_outputs[0].shape[0]
-    dev = enc_outputs[0].device
-    draw = None
-    if decode_cfg.sample_or_max == "sample":
-        draw = gumbel_source(dev, generator, noise)
-    cache_dtype = dtype if dtype is not None else torch.float32
-    states = [
-        dc.init_state(m, cfg, e, L, cache_dtype, enc_num_pads)
-        for m, e in zip(models, enc_outputs)
-    ]
-
-    def step(tokens, pos, reorder=None, group=1):
-        logps = []
-        for i, m in enumerate(models):
-            lp, states[i] = dc.dec_step(
-                m, cfg, states[i], tokens, pos, dtype, reorder, group, step_impl)
-            logps.append(lp)
-        if len(logps) == 1:
-            return logps[0]
-        return torch.log(torch.exp(torch.stack(logps, dim=0)).mean(dim=0))
-
-    # ---- step 1: expand SOS into beam_size beams ----
-    logp0 = step(torch.full((b,), sos, dtype=torch.int32, device=dev), 0)
-    first_vals, first_idx = _candidates(logp0, k, draw)  # (B, K)
-    tokens = torch.zeros((b, k, L), dtype=torch.int32, device=dev)
-    tokens[:, :, 0] = sos
-    tokens[:, :, 1] = first_idx
-    logprobs = torch.zeros((b, k, L), dtype=torch.float32, device=dev)
-    logprobs[:, :, 1] = first_vals.float()
-    cumul = first_vals.float()
-    num_elem = torch.full((b, k), 2, dtype=torch.int32, device=dev)
-    finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
-    # the first beam step reads the per-image caches: row (i, j) <- image i
-    reorder = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(k)
-    img_base = torch.arange(b, dtype=torch.int32, device=dev)[:, None] * k
-
+    model is plain beam search. The loop stops when no beam grew in the
+    previous step: the one sync with the host a step."""
+    step, draw, beams = _start(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads,
+                               step_impl, generator, noise)
     t = 2
-    while t < L and bool((num_elem == t).any()):
-        last = tokens[:, :, t - 1].reshape(b * k)
-        logp = step(last, t - 1, reorder, k)
-        cand_vals, cand_idx = _candidates(logp, k, draw)
-        cand_vals = cand_vals.float().reshape(b, k, k)
-        cand_idx = cand_idx.reshape(b, k, k)
-
-        # freeze finished beams
-        frozen = finished[:, :, None]
-        cand_vals = torch.cat(
-            [
-                torch.where(frozen, 0.0, cand_vals[:, :, :1]),
-                torch.where(frozen, -999.0, cand_vals[:, :, 1:]),
-            ],
-            dim=-1,
-        )
-        comparison = (cumul[:, :, None] + cand_vals).reshape(b, k * k)
-        top_vals, topi = topk_reference(comparison, k)
-        which_seq = (topi // k).long()
-        which_word = (topi % k).long()
-
-        tokens = torch.gather(tokens, 1, which_seq[:, :, None].expand(b, k, L))
-        logprobs = torch.gather(logprobs, 1, which_seq[:, :, None].expand(b, k, L))
-        sel_word = torch.gather(
-            torch.gather(cand_idx, 1, which_seq[:, :, None].expand(b, k, k)), 2,
-            which_word[:, :, None],
-        )[:, :, 0]
-        sel_val = torch.gather(
-            torch.gather(cand_vals, 1, which_seq[:, :, None].expand(b, k, k)), 2,
-            which_word[:, :, None],
-        )[:, :, 0]
-        tokens[:, :, t] = sel_word
-        logprobs[:, :, t] = sel_val
-
-        was_finished = torch.gather(finished, 1, which_seq)
-        num_elem = torch.gather(num_elem, 1, which_seq) + (~was_finished).int()
-        finished = was_finished | (sel_word == eos)
-        cumul = top_vals
-        reorder = (img_base + which_seq).reshape(b * k).int()
+    while t < decode_cfg.max_seq_len and bool((beams.num_elem == t).any()):
+        beams = _beam_step(step, beams, t, decode_cfg.eos_idx, draw)
         t += 1
+    return _ranked(beams, decode_cfg.how_many_outputs)
 
-    # ---- final ranking: length-normalized cumulative log-prob ----
-    norm = cumul / num_elem.float()
-    _, order = topk_reference(norm, k)
-    order = order[:, : decode_cfg.how_many_outputs].long()
-    n = order.shape[1]
-    return BeamResult(
-        tokens=torch.gather(tokens, 1, order[:, :, None].expand(b, n, L)),
-        logprobs=torch.gather(logprobs, 1, order[:, :, None].expand(b, n, L)),
-        lengths=torch.gather(num_elem, 1, order),
-    )
+
+def fixed_beam_search(
+    model: ExpansionNetV2,
+    cfg: CaptionerConfig,
+    enc_output: torch.Tensor,
+    decode_cfg: DecodeConfig,
+    dtype: Optional[torch.dtype] = None,
+    step_impl: str = "pallas",
+) -> BeamResult:
+    """Beam search with a fixed number of steps: `_beam_step` for t = 2 ...
+    L-1 with no exit test, so that the whole decode is one traceable graph
+    (`deploy/aot.py`; the reference's unrolled decoder, with beams). The
+    steps after every beam finished are the identity on the beams, so
+    captions (tokens up to `lengths`), lengths and log-probs up to the length
+    equal `beam_search`'s; tokens past a caption's length are not part of the
+    result in either. Runs under the caller's grad mode (no switch inside:
+    it would split a traced graph)."""
+    step, draw, beams = _start([model], cfg, [enc_output], decode_cfg, dtype, None, step_impl,
+                               None, None, dc.dec_step_unguarded)
+    for t in range(2, decode_cfg.max_seq_len):
+        beams = _beam_step(step, beams, t, decode_cfg.eos_idx, draw)
+    return _ranked(beams, decode_cfg.how_many_outputs)
 
 
 def captions_from_result(res: BeamResult) -> Tuple[List, List]:

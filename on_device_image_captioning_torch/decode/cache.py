@@ -124,22 +124,27 @@ def _cross_operands(layer, dtype):
     out_linear as (in, out) matrices in the compute dtype with fp32 biases.
     Laid out once per layer, dtype and state of the parameters (their storage
     and version counters, so that new or moved weights are laid out anew), and
-    kept on the layer."""
+    kept on the layer; under `torch.export` laid out in the graph instead."""
     rd = dtype if dtype is not None else torch.float32
     mha = layer.mha
+
+    def lay_out():
+        return (
+            (layer.norm_2.weight.detach().float(), layer.norm_2.bias.detach().float()),
+            mha.Wq.weight.detach().to(rd).t().contiguous(), mha.Wq.bias.detach().float(),
+            mha.out_linear.weight.detach().to(rd).t().contiguous(),
+            mha.out_linear.bias.detach().float(),
+        )
+
+    if torch.compiler.is_compiling():  # traced (`deploy/aot.py`): laid out in the graph
+        return lay_out()
     params = (layer.norm_2.weight, layer.norm_2.bias, mha.Wq.weight, mha.Wq.bias,
               mha.out_linear.weight, mha.out_linear.bias)
     # (an inference tensor keeps no version counter and cannot change in place)
     key = (rd, *((t.data_ptr(), 0 if t.is_inference() else t._version) for t in params))
     cached = getattr(layer, "_cross_operands", None)
     if cached is None or cached[0] != key:
-        ops = (
-            (layer.norm_2.weight.detach().float(), layer.norm_2.bias.detach().float()),
-            mha.Wq.weight.detach().to(rd).t().contiguous(), mha.Wq.bias.detach().float(),
-            mha.out_linear.weight.detach().to(rd).t().contiguous(),
-            mha.out_linear.bias.detach().float(),
-        )
-        cached = (key, ops)
+        cached = (key, lay_out())
         layer._cross_operands = cached
     return cached[1]
 
@@ -186,8 +191,7 @@ def _cross_attention_step(
     return linear(mha.out_linear, out.reshape(rows, d), dtype)
 
 
-@torch.no_grad()
-def dec_step(
+def dec_step_unguarded(
     model: ExpansionNetV2,
     cfg: CaptionerConfig,
     state: DecState,
@@ -207,7 +211,10 @@ def dec_step(
     "pallas_fused" (all of it in one kernel call per layer; a layer whose Wq
     is quantized takes the "pallas" step, as in the JAX package). Returns
     (log_probs (R, vocab) fp32, new state). Matches
-    forward_dec(..., apply_log_softmax=True)[:, pos]."""
+    forward_dec(..., apply_log_softmax=True)[:, pos]. Runs under the
+    caller's grad mode (`dec_step` turns gradients off; a traced caller,
+    `deploy/aot.py`, exports under no_grad, and a grad-mode switch inside
+    the trace would split its graph)."""
     if step_impl not in STEP_IMPLS:
         raise ValueError(f"step_impl {step_impl!r}; expected one of {STEP_IMPLS}")
     rows = tokens.shape[0]
@@ -249,3 +256,19 @@ def dec_step(
         enc_mask=state.enc_mask,
     )
     return log_probs, new_state
+
+
+@torch.no_grad()
+def dec_step(
+    model: ExpansionNetV2,
+    cfg: CaptionerConfig,
+    state: DecState,
+    tokens: torch.Tensor,
+    pos: int,
+    dtype: Optional[torch.dtype] = None,
+    reorder: Optional[torch.Tensor] = None,
+    group: int = 1,
+    step_impl: str = "pallas",
+) -> Tuple[torch.Tensor, DecState]:
+    """`dec_step_unguarded` (see there) with gradients off."""
+    return dec_step_unguarded(model, cfg, state, tokens, pos, dtype, reorder, group, step_impl)

@@ -1,12 +1,19 @@
-"""Build and load the port's hand-written kernels at their first launch.
+"""Build, load and register the port's hand-written kernels.
 
 CUDA sources under `csrc/` are compiled by `nvcc` into shared libraries with a
 plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
 takes seconds). The build directory lives inside the package and is listed in
 `.gitignore`; nothing prebuilt is committed.
 
-Nothing here runs at import time: `load_cuda_library` is called by a
-wrapper right before its first launch on a CUDA tensor.
+Every inference kernel is a `torch.library` op of the namespace `odic`
+(`define_op`), defined in its own `ops/` module beside its wrapper: the op's
+CPU kernel is the plain version, its CUDA kernel the launch, and a fake
+implementation gives the output shapes, so that `torch.export` traces
+through it. The dispatcher picks the kernel by the tensors' device; a tensor
+on any other device gets its error.
+
+Nothing is built at import time: registering an op is cheap, and
+`load_cuda_library` is called by a CUDA kernel right before its first launch.
 """
 from __future__ import annotations
 
@@ -32,6 +39,24 @@ NVCC_FLAGS = (
 
 # seconds spent compiling, by kernel source name (read by chip_smoke.py)
 build_seconds: dict = {}
+
+NAMESPACE = "odic"
+LIBRARY = torch.library.Library(NAMESPACE, "DEF")
+# op name -> (its CPU kernel, its CUDA kernel), as `define_op` registered them
+OPS: dict = {}
+
+
+def define_op(name: str, schema: str, cpu, cuda, fake):
+    """Define `odic::<name><schema>` with the plain version `cpu` as its CPU
+    kernel, the launch `cuda` as its CUDA kernel and `fake` (output shapes and
+    dtypes only; it never queries the card) for tracing. Returns the op's
+    overload, which the wrapper calls."""
+    LIBRARY.define(name + schema)
+    OPS[name] = (cpu, cuda)
+    LIBRARY.impl(name, cpu, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=LIBRARY)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
 def _nvcc() -> str:

@@ -994,6 +994,64 @@ CASES = {
 }
 
 
+def op_calls(fn) -> List[tuple]:
+    """The `odic` op calls fn makes, in order, as (op, args, kwargs), each
+    also run: what `torch.library.opcheck` is given."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "odic":
+                calls.append((func, args, kwargs or {}))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return calls
+
+
+def opcheck_calls(dev) -> Iterator[Tuple[str, Callable[[], object]]]:
+    """(label, call) reaching every `odic` op at the main path's shapes: the
+    first case of each inference kernel whose inputs hold no NaN (opcheck
+    compares outputs with NaN as unequal), both of B13's products alone, and
+    the shared product plain, with its LayerNorm and GELU, and with the
+    window transition gathered into it and its residual."""
+    from . import fused_linear as fl
+
+    def no_nan(case):
+        return not any(isinstance(a, torch.Tensor) and a.is_floating_point()
+                       and bool(torch.isnan(a).any()) for a in case.args)
+
+    for name in ("window_attention", "dyn_exp_step", "topk", "layernorm", "patch_embed",
+                 "downsample", "swin_attn_half", "swin_mlp_half", "window_transition",
+                 "swin_block", "dyn_exp_cross_step", "quant_matmul", "swin_mlp_half_a8"):
+        case = next(c for c in CASES[name](dev) if no_nan(c))
+        yield f"{name} {case.label}", case.run_kernel
+    g = torch.Generator().manual_seed(3100)
+    rows, c, hid = 2 * 144, 768, 3072
+    a_q = torch.randint(-127, 128, (rows, c), generator=g, dtype=torch.int8).to(dev)
+    a_scale = (torch.rand((rows,), generator=g) + 0.5).to(dev)
+    w1, s1 = _int8_weight(hid, c, g, dev)
+    w2, s2 = _int8_weight(c, hid, g, dev)
+    b1, b2 = _randn((hid,), g, dev), _randn((c,), g, dev)
+    h_q = torch.randint(-127, 128, (rows, hid), generator=g, dtype=torch.int8).to(dev)
+    resid = _randn((rows, c), g, dev, dtype=torch.bfloat16)
+    yield "mlp_a8_product fc1", lambda: sbf.mlp_a8_product(a_q, a_scale, (w1, s1, b1))
+    yield "mlp_a8_product fc2", lambda: sbf.mlp_a8_product(h_q, a_scale * 127, (w2, s2, b2),
+                                                              resid)
+    dt = torch.bfloat16
+    x = _randn((8 * 144, 768), g, dev, dtype=dt)
+    w, b = _linear(768, 768, g, dev, dt)
+    ln = _norm(768, g, dev)
+    gather = ("transition", 24, 12, 6)
+    yield "fused_linear", lambda: fl.fused_linear(x, w, b)
+    yield "fused_linear ln gelu", lambda: fl.fused_linear(x, w, b, ln, gelu=True)
+    yield "fused_linear gathered", lambda: fl.fused_linear(
+        x, w, b, ln, gather=gather, resid=x, resid_gather=gather)
+
+
 def compare(got: torch.Tensor, want: torch.Tensor, tol):
     """(max abs error, max rel error, ok) of got against want under
     |got - want| <= atol + rtol |want| (+ slack, where tol is (atol, rtol,

@@ -349,34 +349,27 @@ def _check_step_operands(name, pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_
     return b, L, E, d
 
 
-def dyn_exp_step(
-    pos: int,
-    reorder: torch.Tensor,
-    q_i: torch.Tensor,
-    bias_i: torch.Tensor,
-    k_i: torch.Tensor,
-    ca_i: torch.Tensor,
-    cb_i: torch.Tensor,
-    cond_i: torch.Tensor,
-    sel: torch.Tensor,
-    embed: torch.Tensor,
-    src: Sequence[torch.Tensor],
-    dst: Sequence[torch.Tensor],
-    eps: float = 1e-9,
-) -> torch.Tensor:
-    """One decode step: writes all six dst caches and returns out (B, d) fp32.
-    CPU tensors get the plain version; CUDA tensors get kernel K2."""
-    global launches
-    if k_i.device.type == "cpu":
-        out, new = dyn_exp_step_reference(
-            pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, src, eps
-        )
-        for d_, n_ in zip(dst, new):
-            d_.copy_(n_)
-        return out
-    if k_i.device.type != "cuda":
-        raise ValueError(f"dyn_exp_step: unsupported device {k_i.device}")
+_DST = ", ".join(f"Tensor({tag}!) dst_{name}" for tag, name in zip(
+    "abcdef", ("keys", "ca", "cb", "cond", "vals_a", "vals_b")))
+_STEP_OPERANDS = ("int pos, Tensor reorder, Tensor q_i, Tensor bias_i, Tensor k_i, Tensor ca_i, "
+                  "Tensor cb_i, Tensor cond_i, Tensor sel, Tensor embed")
 
+
+def _dyn_exp_step_plain(pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, src,
+                        *rest):
+    *dst, eps = rest
+    out, new = dyn_exp_step_reference(
+        pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, src, eps)
+    for d_, n_ in zip(dst, new):
+        d_.copy_(n_)
+    return out
+
+
+def _dyn_exp_step_cuda(pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, src,
+                       *rest) -> torch.Tensor:
+    """Kernel K2 on CUDA tensors: the CUDA kernel of `odic::dyn_exp_step`."""
+    global launches
+    *dst, eps = rest
     b, L, E, d = _check_step_operands(
         "dyn_exp_step", pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
         src, dst)
@@ -401,7 +394,14 @@ def dyn_exp_step(
     return out
 
 
-def dyn_exp_cross_step(
+_step_op = _build.define_op(
+    "dyn_exp_step", f"({_STEP_OPERANDS}, Tensor[] src, {_DST}, float eps) -> Tensor",
+    _dyn_exp_step_plain, _dyn_exp_step_cuda,
+    lambda pos, reorder, q_i, *rest: q_i.new_empty((q_i.shape[0], q_i.shape[2]),
+                                                    dtype=torch.float32))
+
+
+def dyn_exp_step(
     pos: int,
     reorder: torch.Tensor,
     q_i: torch.Tensor,
@@ -412,48 +412,36 @@ def dyn_exp_cross_step(
     cond_i: torch.Tensor,
     sel: torch.Tensor,
     embed: torch.Tensor,
-    y: torch.Tensor,
-    ln2: Tuple[torch.Tensor, torch.Tensor],
-    wq: torch.Tensor,
-    bq: torch.Tensor,
-    wo: torch.Tensor,
-    bo: torch.Tensor,
-    k_cross: torch.Tensor,
-    v_cross: torch.Tensor,
-    enc_mask: Optional[torch.Tensor],
     src: Sequence[torch.Tensor],
     dst: Sequence[torch.Tensor],
-    *,
-    heads: int,
-    ln_eps: float,
-    attn_fill: float,
-    group: int = 1,
     eps: float = 1e-9,
-    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """One decode step of a decoder layer up to and including its
-    cross-attention: writes all six dst caches and returns the residual stream
-    y + dyn + cross (B, d) fp32.
+    """One decode step: writes all six dst caches and returns out (B, d) fp32.
+    `odic::dyn_exp_step` (the dst caches are its mutated arguments): the
+    plain version on CPU tensors, kernel K2 on CUDA tensors."""
+    return _step_op(pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, list(src),
+                    *dst, eps)
 
-    y (B, d) fp32 is the stream before the dynamic-expansion add; ln2 =
-    (scale, bias) fp32; wq, wo (d, d) as (in, out) in the compute dtype, bq,
-    bo fp32; k_cross, v_cross (B / group, S, d) in the cache dtype; enc_mask
-    (B / group, S) fp32, > 0 where the encoder token is real, or None. Row i
-    reads image row i // group. CPU tensors get the plain version; CUDA
-    tensors get kernel B16, which is built for compute dtype == cache dtype."""
+
+def _cross_step_plain(pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
+                      y, ln2_w, ln2_b, wq, bq, wo, bo, k_cross, v_cross, enc_mask, src, *rest):
+    *dst, heads, ln_eps, attn_fill, group, eps, compute_dtype = rest
+    y_out, new = dyn_exp_cross_step_reference(
+        pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
+        y, (ln2_w, ln2_b), wq, bq, wo, bo, k_cross, v_cross, enc_mask, src, heads=heads,
+        ln_eps=ln_eps, attn_fill=attn_fill, group=group, eps=eps, compute_dtype=compute_dtype)
+    for d_, n_ in zip(dst, new):
+        d_.copy_(n_)
+    return y_out
+
+
+def _cross_step_cuda(pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
+                     y, ln2_w, ln2_b, wq, bq, wo, bo, k_cross, v_cross, enc_mask, src, *rest
+                     ) -> torch.Tensor:
+    """Kernel B16 on CUDA tensors: the CUDA kernel of `odic::dyn_exp_cross_step`."""
     global cross_launches
-    tail = dict(heads=heads, ln_eps=ln_eps, attn_fill=attn_fill, group=group,
-                compute_dtype=compute_dtype)
-    if k_i.device.type == "cpu":
-        y_out, new = dyn_exp_cross_step_reference(
-            pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
-            y, ln2, wq, bq, wo, bo, k_cross, v_cross, enc_mask, src, eps=eps, **tail)
-        for d_, n_ in zip(dst, new):
-            d_.copy_(n_)
-        return y_out
-    if k_i.device.type != "cuda":
-        raise ValueError(f"dyn_exp_cross_step: unsupported device {k_i.device}")
-
+    *dst, heads, ln_eps, attn_fill, group, eps, compute_dtype = rest
+    ln2 = (ln2_w, ln2_b)
     name = "dyn_exp_cross_step"
     b, L, E, d = _check_step_operands(
         name, pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, src, dst)
@@ -505,3 +493,60 @@ def dyn_exp_cross_step(
     _build.check_status(status, name)
     cross_launches += 1
     return y_out
+
+
+_cross_op = _build.define_op(
+    "dyn_exp_cross_step",
+    f"({_STEP_OPERANDS}, Tensor y, Tensor ln2_w, Tensor ln2_b, Tensor wq, Tensor bq, "
+    f"Tensor wo, Tensor bo, Tensor k_cross, Tensor v_cross, Tensor? enc_mask, Tensor[] src, "
+    f"{_DST}, int heads, float ln_eps, float attn_fill, int group, float eps, "
+    f"ScalarType? compute_dtype) -> Tensor",
+    _cross_step_plain, _cross_step_cuda,
+    lambda pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed, y, *rest: (
+        y.new_empty(y.shape)))
+
+
+def dyn_exp_cross_step(
+    pos: int,
+    reorder: torch.Tensor,
+    q_i: torch.Tensor,
+    bias_i: torch.Tensor,
+    k_i: torch.Tensor,
+    ca_i: torch.Tensor,
+    cb_i: torch.Tensor,
+    cond_i: torch.Tensor,
+    sel: torch.Tensor,
+    embed: torch.Tensor,
+    y: torch.Tensor,
+    ln2: Tuple[torch.Tensor, torch.Tensor],
+    wq: torch.Tensor,
+    bq: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    k_cross: torch.Tensor,
+    v_cross: torch.Tensor,
+    enc_mask: Optional[torch.Tensor],
+    src: Sequence[torch.Tensor],
+    dst: Sequence[torch.Tensor],
+    *,
+    heads: int,
+    ln_eps: float,
+    attn_fill: float,
+    group: int = 1,
+    eps: float = 1e-9,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """One decode step of a decoder layer up to and including its
+    cross-attention: writes all six dst caches and returns the residual stream
+    y + dyn + cross (B, d) fp32.
+
+    y (B, d) fp32 is the stream before the dynamic-expansion add; ln2 =
+    (scale, bias) fp32; wq, wo (d, d) as (in, out) in the compute dtype, bq,
+    bo fp32; k_cross, v_cross (B / group, S, d) in the cache dtype; enc_mask
+    (B / group, S) fp32, > 0 where the encoder token is real, or None. Row i
+    reads image row i // group. `odic::dyn_exp_cross_step` (the dst caches
+    are its mutated arguments): the plain version on CPU tensors, kernel B16
+    on CUDA tensors, which is built for compute dtype == cache dtype."""
+    return _cross_op(pos, reorder, q_i, bias_i, k_i, ca_i, cb_i, cond_i, sel, embed,
+                     y, *ln2, wq, bq, wo, bo, k_cross, v_cross, enc_mask, list(src), *dst,
+                     heads, ln_eps, attn_fill, group, eps, compute_dtype)

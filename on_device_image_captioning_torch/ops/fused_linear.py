@@ -18,7 +18,7 @@ uses.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,36 +71,40 @@ def fused_linear_reference(
     return y
 
 
-def fused_linear(
-    a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
-    norm: Optional[Norm] = None, *, m: Optional[int] = None, gather: Optional[Gather] = None,
-    gelu: bool = False, resid: Optional[torch.Tensor] = None,
-    resid_gather: Optional[Gather] = None, row_scale: Optional[torch.Tensor] = None,
-    eps: float = 1e-5, form: Optional[int] = None,
-) -> torch.Tensor:
-    """The product on (m, N) output rows from the rows of a (rows, K / segs)
-    gathered by `gather` (None: row r of a) and w (K, N) in a's dtype; bias
-    and the LayerNorm parameters fp32; resid (rows, N) read at the row
-    `resid_gather` (None or a transition, on the geometry of `gather` where
-    both are given) puts each output row; row_scale fp32 (images,)
-    multiplying each image's rounded product before the residual add. CPU
-    tensors get the plain version; CUDA tensors get the kernel, in the tile
-    form of the launch plan unless `form` names one (a yardstick's way to
-    compare forms)."""
+def _gather_ints(gather: Optional[Gather]) -> Optional[List[int]]:
+    """A gather as the op takes it: [map code, res, window, delta]."""
+    return None if gather is None else [_MAPS[gather[0]], *gather[1:]]
+
+
+def _gather_of(ints) -> Optional[Gather]:
+    if ints is None:
+        return None
+    code, res, window, delta = ints
+    return (next(k for k, v in _MAPS.items() if v == code), res, window, delta)
+
+
+def _fused_linear_plain(a, w, bias, norm_w, norm_b, m, gather, gelu, resid, resid_gather,
+                        row_scale, eps, form):
+    return fused_linear_reference(
+        a, w, bias, None if norm_w is None else (norm_w, norm_b), m=m, gather=_gather_of(gather),
+        gelu=gelu, resid=resid, resid_gather=_gather_of(resid_gather), row_scale=row_scale,
+        eps=eps)
+
+
+def _fused_linear_cuda(a, w, bias, norm_w, norm_b, m: int, gather, gelu: bool, resid,
+                       resid_gather, row_scale, eps: float, form: Optional[int]) -> torch.Tensor:
+    """The product on CUDA tensors: the CUDA kernel of `odic::fused_linear`."""
     global launches
-    kw = dict(m=m, gather=gather, gelu=gelu, resid=resid, resid_gather=resid_gather,
-              row_scale=row_scale, eps=eps)
-    if a.device.type == "cpu":
-        return fused_linear_reference(a, w, bias, norm, **kw)
-    if a.device.type != "cuda" or a.dtype not in _DTYPE_CODE or w.dtype != a.dtype:
+    norm = None if norm_w is None else (norm_w, norm_b)
+    gather, resid_gather = _gather_of(gather), _gather_of(resid_gather)
+    if a.dtype not in _DTYPE_CODE or w.dtype != a.dtype:
         raise ValueError(f"fused_linear: unsupported operands {a.device} {a.dtype} / {w.dtype}")
     kind = None if gather is None else gather[0]
     rkind = None if resid_gather is None else resid_gather[0]
-    if (kind not in _MAPS or rkind not in (None, "transition")
+    if (rkind not in (None, "transition")
             or (kind is not None and rkind is not None and gather != resid_gather)):
         raise ValueError(f"fused_linear: unsupported gathers {gather}, {resid_gather}")
     segs = 4 if kind == "merge" else 1
-    m = a.shape[0] if m is None else m
     k, n = w.shape
     if a.shape[-1] * segs != k:
         raise ValueError("fused_linear: a rows must be K / segs wide")
@@ -126,6 +130,39 @@ def fused_linear(
     _build.check_status(status, "fused_linear")
     launches += 1
     return out
+
+
+_op = _build.define_op(
+    "fused_linear",
+    "(Tensor a, Tensor w, Tensor? bias, Tensor? norm_w, Tensor? norm_b, int m, int[]? gather, "
+    "bool gelu, Tensor? resid, int[]? resid_gather, Tensor? row_scale, float eps, int? form) "
+    "-> Tensor",
+    _fused_linear_plain, _fused_linear_cuda,
+    lambda a, w, bias, norm_w, norm_b, m, *rest: a.new_empty((m, w.shape[1])))
+
+
+def fused_linear(
+    a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    norm: Optional[Norm] = None, *, m: Optional[int] = None, gather: Optional[Gather] = None,
+    gelu: bool = False, resid: Optional[torch.Tensor] = None,
+    resid_gather: Optional[Gather] = None, row_scale: Optional[torch.Tensor] = None,
+    eps: float = 1e-5, form: Optional[int] = None,
+) -> torch.Tensor:
+    """The product on (m, N) output rows from the rows of a (rows, K / segs)
+    gathered by `gather` (None: row r of a) and w (K, N) in a's dtype; bias
+    and the LayerNorm parameters fp32; resid (rows, N) read at the row
+    `resid_gather` (None or a transition, on the geometry of `gather` where
+    both are given) puts each output row; row_scale fp32 (images,)
+    multiplying each image's rounded product before the residual add.
+    `odic::fused_linear`: the plain version on CPU tensors, the kernel on
+    CUDA tensors, in the tile form of the launch plan unless `form` names one
+    (a yardstick's way to compare forms)."""
+    for g in (gather, resid_gather):
+        if g is not None and g[0] not in _MAPS:
+            raise ValueError(f"fused_linear: unsupported gathers {gather}, {resid_gather}")
+    norm_w, norm_b = (None, None) if norm is None else norm
+    return _op(a, w, bias, norm_w, norm_b, a.shape[0] if m is None else m, _gather_ints(gather),
+               gelu, resid, _gather_ints(resid_gather), row_scale, eps, form)
 
 
 def _grad_operands(a: torch.Tensor, b: torch.Tensor, layout: str):

@@ -102,16 +102,11 @@ def _launcher():
     ))
 
 
-def layernorm(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+def _layernorm_cuda(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
 ) -> torch.Tensor:
-    """LayerNorm over the last axis of x (any leading shape). CPU tensors get
-    the plain version; CUDA tensors get K4."""
+    """K4 on CUDA tensors: the CUDA kernel of `odic::layernorm`."""
     global launches
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return layernorm_reference(x, weight, bias, eps)
-        raise ValueError(f"layernorm: unsupported device {x.device}")
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
         raise ValueError(f"layernorm: unsupported dtype {x.dtype}")
@@ -133,6 +128,19 @@ def layernorm(
     _build.check_status(status, "layernorm")
     launches += 1
     return out
+
+
+_op = _build.define_op(
+    "layernorm", "(Tensor x, Tensor weight, Tensor bias, float eps) -> Tensor",
+    layernorm_reference, _layernorm_cuda, lambda x, weight, bias, eps: x.new_empty(x.shape))
+
+
+def layernorm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """LayerNorm over the last axis of x (any leading shape): `odic::layernorm`,
+    whose CPU kernel is the plain version and whose CUDA kernel is K4."""
+    return _op(x, weight, bias, eps)
 
 
 class _LayerNorm(torch.autograd.Function):

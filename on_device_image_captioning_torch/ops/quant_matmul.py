@@ -161,25 +161,6 @@ def product_plan(m: int, n: int, k: int) -> ProductPlan:
                        per * K_SLAB)
 
 
-def _check(x, w_q, w_scale, bias, x_scale, xq_out) -> None:
-    k = x.shape[-1]
-    n = w_q.shape[0] if w_q.dim() == 2 else -1
-    if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"quantized_matmul: x must be fp32 or bf16, got {x.dtype}")
-    if w_q.dtype != torch.int8 or w_q.shape != (n, k) or k % 16:
-        raise ValueError("quantized_matmul: w_q must be int8 (N, K), K a multiple of 16")
-    if w_scale.dtype != torch.float32 or w_scale.shape != (n,):
-        raise ValueError("quantized_matmul: w_scale must be fp32 (N,)")
-    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,)):
-        raise ValueError("quantized_matmul: bias must be fp32 (N,)")
-    if x_scale is not None and (x_scale.numel() != 1 or x_scale.dtype not in _DTYPE_CODE):
-        raise ValueError("quantized_matmul: x_scale must be one fp32 or bf16 value")
-    if xq_out is not None and (xq_out.dtype != torch.int8 or xq_out.shape != x.shape):
-        raise ValueError("quantized_matmul: xq_out must be int8 of x's shape")
-    if x.numel() == 0:
-        raise ValueError("quantized_matmul: x has no rows")
-
-
 def aligned(x: torch.Tensor) -> torch.Tensor:
     """x contiguous and 16-byte aligned (the kernels move 16-byte chunks)."""
     x = x.contiguous()
@@ -207,12 +188,24 @@ def _workspace_for(device: torch.device, tiles: int = 0, values: int = 0):
     return have
 
 
-def quantize_activation(
-    x2: torch.Tensor, x_scale: Optional[torch.Tensor], xq: torch.Tensor
-) -> torch.Tensor:
-    """Kernel B12's first part on CUDA x2 (M, K): writes the int8 x into xq
-    (M, K) and returns s_x as a (1,) fp32 device tensor."""
+def _quantize_activation_cuda(x2: torch.Tensor, x_scale: Optional[torch.Tensor],
+                              xq: torch.Tensor) -> torch.Tensor:
+    """Kernel B12's first part on CUDA x2 (M, K): the CUDA kernel of
+    `odic::quantize_activation`. Writes the int8 x into xq (M, K) and returns
+    s_x as a (1,) fp32 device tensor."""
     global quantize_launches
+    if x2.dtype not in _DTYPE_CODE:
+        raise ValueError(f"quantized_matmul: x must be fp32 or bf16, got {x2.dtype}")
+    if x2.dim() != 2 or x2.shape[1] % 16:
+        raise ValueError("quantized_matmul: x must be (M, K), K a multiple of 16 (the "
+                         "product's int8 rows)")
+    if x_scale is not None and (x_scale.numel() != 1 or x_scale.dtype not in _DTYPE_CODE):
+        raise ValueError("quantized_matmul: x_scale must be one fp32 or bf16 value")
+    if xq.dtype != torch.int8 or xq.shape != x2.shape:
+        raise ValueError("quantized_matmul: xq_out must be int8 of x's shape")
+    if x2.numel() == 0:
+        raise ValueError("quantized_matmul: x has no rows")
+    x2 = aligned(x2)
     form = quantize_plan(x2.numel(), x_scale is not None)
     round_bf16 = x2.dtype == torch.bfloat16 and (x_scale is None or x_scale.dtype == torch.bfloat16)
     counters, partial, _ = _workspace_for(x2.device)
@@ -232,14 +225,41 @@ def quantize_activation(
     return s_out
 
 
-def int8_product(
+def _quantize_activation_plain(x2, x_scale, xq):
+    q, s_x = quantize_activation_reference(x2, x_scale)
+    xq.copy_(q)
+    return s_x.clone()  # a calibrated fp32 (1,) scale comes back as itself
+
+
+_quantize_op = _build.define_op(
+    "quantize_activation", "(Tensor x2, Tensor? x_scale, Tensor(a!) xq) -> Tensor",
+    _quantize_activation_plain, _quantize_activation_cuda,
+    lambda x2, x_scale, xq: x2.new_empty((1,), dtype=torch.float32))
+
+
+def quantize_activation(
+    x2: torch.Tensor, x_scale: Optional[torch.Tensor], xq: torch.Tensor
+) -> torch.Tensor:
+    """B12's first part, `odic::quantize_activation`, on x2 (M, K): writes the
+    int8 x into xq (M, K) and returns s_x as a (1,) fp32 tensor (the plain
+    version on CPU tensors, the kernel on CUDA tensors)."""
+    return _quantize_op(x2, x_scale, xq)
+
+
+def _int8_product_cuda(
     xq: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Kernel B12's product on CUDA int8 xq (M, K) with s_x a (1,) fp32
-    device tensor: (M, N) fp32, as `int8_product_reference`."""
+    device tensor: the CUDA kernel of `odic::int8_product`."""
     global launches
-    (m, k), n = xq.shape, w_q.shape[0]
+    (m, k), n = xq.shape, w_q.shape[0] if w_q.dim() == 2 else -1
+    if xq.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.shape != (n, k) or k % 16:
+        raise ValueError("quantized_matmul: w_q must be int8 (N, K), K a multiple of 16")
+    if w_scale.dtype != torch.float32 or w_scale.shape != (n,):
+        raise ValueError("quantized_matmul: w_scale must be fp32 (N,)")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,)):
+        raise ValueError("quantized_matmul: bias must be fp32 (N,)")
     plan = product_plan(m, n, k)
     counters, _, sums = _workspace_for(xq.device, plan.tiles[0] * plan.tiles[1], m * n)
     _build.check_cuda_tensors(*[t for t in (xq, s_x, w_q, w_scale, bias) if t is not None])
@@ -256,25 +276,39 @@ def int8_product(
     return out
 
 
+_product_op = _build.define_op(
+    "int8_product",
+    "(Tensor xq, Tensor s_x, Tensor w_q, Tensor w_scale, Tensor? bias) -> Tensor",
+    int8_product_reference, _int8_product_cuda,
+    lambda xq, s_x, w_q, w_scale, bias: s_x.new_empty((xq.shape[0], w_q.shape[0])))
+
+
+def int8_product(
+    xq: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """B12's product, `odic::int8_product`, on int8 xq (M, K) with s_x a (1,)
+    fp32 tensor: (M, N) fp32, as `int8_product_reference` (the plain version
+    on CPU tensors, the kernel on CUDA tensors)."""
+    return _product_op(xq, s_x, w_q, w_scale, bias)
+
+
 def quantized_matmul(
     x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     bias: Optional[torch.Tensor] = None, x_scale: Optional[torch.Tensor] = None,
     xq_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The int8 product (see the module docstring). CPU tensors get the plain
-    version; CUDA tensors get kernel B12 (the int8 x once, then the product),
-    which takes K a multiple of 16 and raises on anything else it does not
-    take."""
-    if x.device.type == "cpu":
-        return quantized_matmul_reference(x, w_q, w_scale, bias, x_scale, xq_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantized_matmul: unsupported device {x.device}")
-    _check(x, w_q, w_scale, bias, x_scale, xq_out)
+    """The int8 product (see the module docstring): the int8 x once
+    (`quantize_activation`), then the product (`int8_product`); on CPU
+    tensors their plain versions, which compose `quantized_matmul_reference`,
+    on CUDA tensors kernel B12, which takes K a multiple of 16 and raises on
+    anything else it does not take."""
     k, n = x.shape[-1], w_q.shape[0]
-    x2 = aligned(x.reshape(-1, k))
-    if xq_out is not None and not xq_out.is_contiguous():
-        raise ValueError("quantized_matmul: xq_out must be contiguous")
-    xq = (torch.empty(x2.shape, dtype=torch.int8, device=x.device) if xq_out is None
+    x2 = x.reshape(-1, k)
+    if xq_out is not None and (xq_out.dtype != torch.int8 or xq_out.shape != x.shape
+                               or not xq_out.is_contiguous()):
+        raise ValueError("quantized_matmul: xq_out must be contiguous int8 of x's shape")
+    xq = (x2.new_empty(x2.shape, dtype=torch.int8) if xq_out is None
           else xq_out.view(x2.shape))
     s_x = quantize_activation(x2, x_scale, xq)
     return int8_product(xq, s_x, w_q, w_scale, bias).reshape(*x.shape[:-1], n)

@@ -114,40 +114,26 @@ def downsample_split_reference(
     return window_partition(y.to(xw.dtype), window)
 
 
-def patch_embed_fused(
-    x_s2d: torch.Tensor, proj: Linear, norm: Norm, window: int, eps: float
-) -> torch.Tensor:
-    """x_s2d (B, res, res, ps*ps*3): space-to-depth'd images in the compute
-    dtype -> the patch embedding in window layout (B*(res/window)^2,
-    window^2, embed_dim). CPU tensors get the plain version; CUDA tensors get
-    kernel B7."""
-    if not _check_device(x_s2d, "patch_embed_fused"):
-        return patch_embed_reference(x_s2d, proj, norm, window, eps)
-    return patch_embed_launch(x_s2d, proj, norm, window, eps)
-
-
-def patch_embed_launch(
-    x_s2d: torch.Tensor, proj: Linear, norm: Norm, window: int, eps: float,
-    plan: Optional[EmbedPlan] = None,
-) -> torch.Tensor:
-    """Kernel B7 on CUDA tensors in `plan` (None: `embed_plan`'s; or any
-    other grid of the bf16 kernel)."""
+def _patch_embed_cuda(x_s2d, proj_w, proj_b, norm_w, norm_b, window: int, eps: float,
+                      ctas: Optional[int]) -> torch.Tensor:
+    """Kernel B7 on CUDA tensors: the CUDA kernel of `odic::patch_embed`, on
+    `ctas` persistent CTAs of the bf16 kernel (0: the CUDA cores' kernel;
+    None: `embed_plan`'s grid)."""
     global patch_embed_launches
     b, res, res2, k = x_s2d.shape
-    c = proj[0].shape[1]
+    c = proj_w.shape[1]
+    if x_s2d.dtype not in _DTYPE_CODE:
+        raise ValueError(f"patch_embed_fused: unsupported dtype {x_s2d.dtype}")
     if res != res2 or res % window:
         raise ValueError("patch_embed_fused: the patch grid must be square and tile the window")
-    if proj[0].shape[0] != k or c > MAX_EMBED_DIM:
+    if proj_w.shape[0] != k or c > MAX_EMBED_DIM:
         raise ValueError(f"patch_embed_fused: proj must be ({k}, C) with C <= {MAX_EMBED_DIM}")
-    if proj[0].dtype != x_s2d.dtype or k % 16 or proj[1] is None or proj[1].dtype != torch.float32:
+    if proj_w.dtype != x_s2d.dtype or k % 16 or proj_b.dtype != torch.float32:
         raise ValueError("patch_embed_fused: proj must be (w in x's dtype, fp32 bias), K % 16 == 0")
-    _check_norm("patch_embed_fused", norm, c)
-    _build.check_cuda_tensors(*_flat([x_s2d, *proj, *norm]))
-    rows = b * res * res
-    plan = plan or embed_plan(rows, k, c, x_s2d.element_size(), sm_count(x_s2d.device))
-    if plan.rows != rows or (plan.ctas > 0) != (embed_plan(rows, k, c, x_s2d.element_size(),
-                                                           1).ctas > 0):
-        raise ValueError("patch_embed_launch: the plan is for other rows or another route")
+    _check_norm("patch_embed_fused", (norm_w, norm_b), c)
+    _build.check_cuda_tensors(x_s2d, proj_w, proj_b, norm_w, norm_b)
+    if ctas is None:
+        ctas = embed_plan(b * res * res, k, c, x_s2d.element_size(), sm_count(x_s2d.device)).ctas
     out = torch.empty((b * (res // window) ** 2, window * window, c),
                       dtype=x_s2d.dtype, device=x_s2d.device)
     fn = _build.cuda_function(
@@ -155,8 +141,8 @@ def patch_embed_launch(
         [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
     )
     status = fn(
-        x_s2d.data_ptr(), proj[0].data_ptr(), _ptr(proj[1]), norm[0].data_ptr(),
-        norm[1].data_ptr(), out.data_ptr(), b, res, window, k, c, float(eps), plan.ctas,
+        x_s2d.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(), norm_w.data_ptr(),
+        norm_b.data_ptr(), out.data_ptr(), b, res, window, k, c, float(eps), ctas,
         _DTYPE_CODE[x_s2d.dtype], _build.current_stream(),
     )
     _build.check_status(status, "patch_embed_fused")
@@ -164,8 +150,51 @@ def patch_embed_launch(
     return out
 
 
+def _patch_embed_fake(x_s2d, proj_w, proj_b, norm_w, norm_b, window, eps, ctas):
+    b, res = x_s2d.shape[:2]
+    return x_s2d.new_empty((b * (res // window) ** 2, window * window, proj_w.shape[1]))
+
+
+_patch_embed_op = _build.define_op(
+    "patch_embed",
+    "(Tensor x_s2d, Tensor proj_w, Tensor proj_b, Tensor norm_w, Tensor norm_b, int window, "
+    "float eps, int? ctas) -> Tensor",
+    lambda x, pw, pb, nw, nb, window, eps, ctas: patch_embed_reference(
+        x, (pw, pb), (nw, nb), window, eps),
+    _patch_embed_cuda, _patch_embed_fake)
+
+
+def patch_embed_fused(
+    x_s2d: torch.Tensor, proj: Linear, norm: Norm, window: int, eps: float
+) -> torch.Tensor:
+    """x_s2d (B, res, res, ps*ps*3): space-to-depth'd images in the compute
+    dtype -> the patch embedding in window layout (B*(res/window)^2,
+    window^2, embed_dim): `odic::patch_embed`, the plain version on CPU
+    tensors, kernel B7 on CUDA tensors."""
+    return _patch_embed_op(x_s2d, *proj, *norm, window, eps, None)
+
+
+def patch_embed_launch(
+    x_s2d: torch.Tensor, proj: Linear, norm: Norm, window: int, eps: float,
+    plan: Optional[EmbedPlan] = None,
+) -> torch.Tensor:
+    """`odic::patch_embed` in `plan` (None: `embed_plan`'s; or any other
+    grid of the bf16 kernel)."""
+    if plan is not None:
+        b, res = x_s2d.shape[:2]
+        rows, k, c = b * res * res, x_s2d.shape[-1], proj[0].shape[1]
+        if plan.rows != rows or (plan.ctas > 0) != (
+                embed_plan(rows, k, c, x_s2d.element_size(), 1).ctas > 0):
+            raise ValueError("patch_embed_launch: the plan is for other rows or another route")
+    if proj[1] is None:
+        raise ValueError("patch_embed_fused: proj must have its fp32 bias")
+    return _patch_embed_op(x_s2d, *proj, *norm, window, eps, None if plan is None else plan.ctas)
+
+
 def _check_downsample(xw, norm, reduction, w_in, window):
     bw, n, c = xw.shape
+    if xw.dtype not in _DTYPE_CODE:
+        raise ValueError(f"downsample_fused: unsupported dtype {xw.dtype}")
     if n != window * window or w_in % 2 or bw % (w_in * w_in):
         raise ValueError("downsample_fused: xw must be (B*w_in^2, window^2, C), w_in even")
     if reduction.shape != (4 * c, 2 * c) or c % 32:
@@ -193,23 +222,19 @@ def downsample_scratch(xw: torch.Tensor, plan: MergePlan) -> Optional[torch.Tens
     return torch.empty(shape, dtype=torch.float32 if plan.ring else xw.dtype, device=xw.device)
 
 
-def downsample_launch(
-    xw: torch.Tensor, norm: Norm, reduction: torch.Tensor, w_in: int, window: int, eps: float,
-    plan: Optional[MergePlan] = None, scratch: Optional[torch.Tensor] = None,
-    prologue_ready: bool = False,
-) -> torch.Tensor:
-    """Kernel B8 on CUDA tensors in `plan` (None: `downsample_plan`'s; or
-    any other form and split `merge_plan` takes). scratch: the first launch's
-    output for the product (`downsample_scratch`'s shape; allocated here when
-    None); prologue_ready=True launches the product alone on what an earlier
-    launch left there."""
+def _downsample_cuda(xw, norm_w, norm_b, reduction, w_in: int, window: int, eps: float,
+                     form: Optional[int], splits: Optional[int],
+                     scratch: Optional[torch.Tensor], prologue_ready: bool) -> torch.Tensor:
+    """Kernel B8 on CUDA tensors: the CUDA kernel of `odic::downsample`, in
+    the form and split given (None: `downsample_plan`'s). scratch: the first
+    launch's output for the product (allocated here when None);
+    prologue_ready launches the product alone on what an earlier launch left
+    there."""
     global downsample_launches
+    norm = (norm_w, norm_b)
     _check_downsample(xw, norm, reduction, w_in, window)
     bw, n, c = xw.shape
-    plan = plan or downsample_plan(xw)
-    if (plan.m, plan.n, plan.k) != (bw * n // 4, 2 * c, 4 * c) or (plan.form < 0) != (
-            xw.dtype == torch.float32):
-        raise ValueError("downsample_launch: the plan is for other shapes or another dtype")
+    plan = downsample_plan(xw, form, splits)
     if xw.dtype == torch.bfloat16:
         want = downsample_scratch(xw, plan)
         if scratch is None:
@@ -227,7 +252,7 @@ def downsample_launch(
         + [_P, ctypes.c_int, ctypes.c_int, _P],
     )
     status = fn(
-        xw.data_ptr(), norm[0].data_ptr(), norm[1].data_ptr(), reduction.data_ptr(),
+        xw.data_ptr(), norm_w.data_ptr(), norm_b.data_ptr(), reduction.data_ptr(),
         out.data_ptr(), bw // (w_in * w_in), w_in * window, window, c, float(eps),
         plan.form, plan.splits, plan.k_chunk, _ptr(scratch), int(prologue_ready),
         _DTYPE_CODE[xw.dtype], _build.current_stream(),
@@ -237,13 +262,47 @@ def downsample_launch(
     return out
 
 
+def _downsample_fake(xw, norm_w, norm_b, reduction, w_in, window, eps, form, splits, scratch,
+                     prologue_ready):
+    bw, n, c = xw.shape
+    return xw.new_empty((bw // 4, n, 2 * c))
+
+
+_downsample_op = _build.define_op(
+    "downsample",
+    "(Tensor xw, Tensor norm_w, Tensor norm_b, Tensor reduction, int w_in, int window, "
+    "float eps, int? form, int? splits, Tensor(a!)? scratch, bool prologue_ready) -> Tensor",
+    lambda xw, nw, nb, red, w_in, window, eps, form, splits, scratch, ready: (
+        downsample_reference(xw, (nw, nb), red, w_in, window, eps)),
+    _downsample_cuda, _downsample_fake)
+
+
+def downsample_launch(
+    xw: torch.Tensor, norm: Norm, reduction: torch.Tensor, w_in: int, window: int, eps: float,
+    plan: Optional[MergePlan] = None, scratch: Optional[torch.Tensor] = None,
+    prologue_ready: bool = False,
+) -> torch.Tensor:
+    """`odic::downsample` in `plan` (None: `downsample_plan`'s; or any other
+    form and split `merge_plan` takes). scratch: the first launch's output
+    for the product (`downsample_scratch`'s shape; allocated by the kernel
+    when None); prologue_ready=True launches the product alone on what an
+    earlier launch left there."""
+    form = splits = None
+    if plan is not None:
+        bw, n, c = xw.shape
+        if (plan.m, plan.n, plan.k) != (bw * n // 4, 2 * c, 4 * c) or (plan.form < 0) != (
+                xw.dtype == torch.float32):
+            raise ValueError("downsample_launch: the plan is for other shapes or another dtype")
+        form, splits = (None, None) if plan.form < 0 else (plan.form, plan.splits)
+    return _downsample_op(xw, *norm, reduction, w_in, window, eps, form, splits, scratch,
+                          prologue_ready)
+
+
 def downsample_fused(
     xw: torch.Tensor, norm: Norm, reduction: torch.Tensor, w_in: int, window: int, eps: float
 ) -> torch.Tensor:
     """xw (B*w_in^2, n, C): window layout of a stage -> the next stage's input
     (B*(w_in/2)^2, n, 2C), also in window layout. reduction is the (4C, 2C)
-    weight (no bias). CPU tensors get the plain version; CUDA tensors get
-    kernel B8."""
-    if not _check_device(xw, "downsample_fused"):
-        return downsample_reference(xw, norm, reduction, w_in, window, eps)
-    return downsample_launch(xw, norm, reduction, w_in, window, eps)
+    weight (no bias). `odic::downsample`: the plain version on CPU tensors,
+    kernel B8 on CUDA tensors."""
+    return _downsample_op(xw, *norm, reduction, w_in, window, eps, None, None, None, False)

@@ -252,21 +252,19 @@ def _block_launch_plan(x: torch.Tensor, heads: int, hidden: int):
     return _plan_ints(plan), attn
 
 
-def swin_block(
-    x: torch.Tensor, norm1: Norm, qkv: Linear, proj: Linear, norm2: Norm, fc1: Linear,
-    fc2: Linear, bias: torch.Tensor, mask: Optional[torch.Tensor], heads: int, scale: float,
-    eps: float, transition: Optional[Transition] = None,
-) -> torch.Tensor:
-    """The whole Swin block on window-partitioned x (B*nW, N, C): the
-    attention half (see `swin_attn_half`, transition included) and the MLP
-    half in one pass. CPU tensors get the plain version; CUDA tensors get
-    kernel B6, which is built for windows of 144 tokens, heads of 32 and
-    C = 192 or 384, and raises on anything else; its clusters of CTAs a window
-    are laid out by `ops/block_plan.py::block_plan`."""
+def _transition(t) -> Optional[Transition]:
+    """An op's `int[]? transition` as the wrappers' tuple."""
+    return None if t is None else tuple(t)
+
+
+def _swin_block_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2, bias, mask,
+                     heads: int, scale: float, eps: float, transition) -> torch.Tensor:
+    """Kernel B6 on CUDA tensors: the CUDA kernel of `odic::swin_block`."""
     global block_launches
-    if not _check_device(x, "swin_block"):
-        return swin_block_reference(
-            x, norm1, qkv, proj, norm2, fc1, fc2, bias, mask, heads, scale, eps, transition)
+    norm1, qkv, proj, norm2, fc1, fc2 = (g1, b1), (wqkv, bqkv), (wproj, bproj), (g2, b2), (
+        w1, bb1), (w2, bb2)
+    transition = _transition(transition)
+    _check_device(x, "swin_block")
     bw, n, c = x.shape
     if n != BLOCK_TOKENS or c not in BLOCK_WIDTHS:
         raise ValueError(
@@ -305,19 +303,45 @@ def swin_block(
     return out
 
 
-def swin_attn_half(
-    x: torch.Tensor, norm1: Norm, qkv: Linear, proj: Linear, bias: torch.Tensor,
-    mask: Optional[torch.Tensor], heads: int, scale: float, eps: float,
-    transition: Optional[Transition] = None,
+def _same_shape(x, *rest):
+    return x.new_empty(x.shape)
+
+
+_block_op = _build.define_op(
+    "swin_block",
+    "(Tensor x, Tensor norm1_w, Tensor norm1_b, Tensor qkv_w, Tensor? qkv_b, Tensor proj_w, "
+    "Tensor? proj_b, Tensor norm2_w, Tensor norm2_b, Tensor fc1_w, Tensor? fc1_b, "
+    "Tensor fc2_w, Tensor? fc2_b, Tensor bias, Tensor? mask, int heads, float scale, "
+    "float eps, int[]? transition) -> Tensor",
+    lambda x, g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2, bias, mask, heads,
+    scale, eps, t: swin_block_reference(
+        x, (g1, b1), (wqkv, bqkv), (wproj, bproj), (g2, b2), (w1, bb1), (w2, bb2), bias, mask,
+        heads, scale, eps, _transition(t)),
+    _swin_block_cuda, _same_shape)
+
+
+def swin_block(
+    x: torch.Tensor, norm1: Norm, qkv: Linear, proj: Linear, norm2: Norm, fc1: Linear,
+    fc2: Linear, bias: torch.Tensor, mask: Optional[torch.Tensor], heads: int, scale: float,
+    eps: float, transition: Optional[Transition] = None,
 ) -> torch.Tensor:
-    """x + proj(window_attention(LN1(x))) on window-partitioned x (B*nW, N, C).
-    transition = (res, from_shift, to_shift) reads x from the from_shift
-    layout; the result and the mask are in the to_shift layout. CPU tensors
-    get the plain version; CUDA tensors get kernel B4."""
+    """The whole Swin block on window-partitioned x (B*nW, N, C): the
+    attention half (see `swin_attn_half`, transition included) and the MLP
+    half in one pass. `odic::swin_block`: the plain version on CPU tensors,
+    kernel B6 on CUDA tensors, which is built for windows of 144 tokens,
+    heads of 32 and C = 192 or 384, and raises on anything else; its
+    clusters of CTAs a window are laid out by `ops/block_plan.py::block_plan`."""
+    return _block_op(x, *norm1, *qkv, *proj, *norm2, *fc1, *fc2, bias, mask, heads, scale, eps,
+                     transition)
+
+
+def _swin_attn_half_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, bias, mask, heads: int,
+                         scale: float, eps: float, transition) -> torch.Tensor:
+    """Kernel B4 on CUDA tensors: the CUDA kernel of `odic::swin_attn_half`."""
     global attn_half_launches
-    args = (x, norm1, qkv, proj, bias, mask, heads, scale, eps, transition)
-    if not _check_device(x, "swin_attn_half"):
-        return swin_attn_half_reference(*args)
+    norm1, qkv, proj = (g1, b1), (wqkv, bqkv), (wproj, bproj)
+    transition = _transition(transition)
+    _check_device(x, "swin_attn_half")
     bw, n, c = x.shape
     _check_norm("swin_attn_half", norm1, c)
     _check_linears("swin_attn_half", x.dtype, qkv, proj)
@@ -347,15 +371,35 @@ def swin_attn_half(
     return out
 
 
-def swin_mlp_half(
-    x: torch.Tensor, norm2: Norm, fc1: Linear, fc2: Linear, eps: float
+_attn_half_op = _build.define_op(
+    "swin_attn_half",
+    "(Tensor x, Tensor norm1_w, Tensor norm1_b, Tensor qkv_w, Tensor? qkv_b, Tensor proj_w, "
+    "Tensor? proj_b, Tensor bias, Tensor? mask, int heads, float scale, float eps, "
+    "int[]? transition) -> Tensor",
+    lambda x, g1, b1, wqkv, bqkv, wproj, bproj, bias, mask, heads, scale, eps, t: (
+        swin_attn_half_reference(x, (g1, b1), (wqkv, bqkv), (wproj, bproj), bias, mask, heads,
+                                 scale, eps, _transition(t))),
+    _swin_attn_half_cuda, _same_shape)
+
+
+def swin_attn_half(
+    x: torch.Tensor, norm1: Norm, qkv: Linear, proj: Linear, bias: torch.Tensor,
+    mask: Optional[torch.Tensor], heads: int, scale: float, eps: float,
+    transition: Optional[Transition] = None,
 ) -> torch.Tensor:
-    """x + fc2(GELU(fc1(LN2(x)))) over the rows of x (..., C): position-wise,
-    so any layout. CPU tensors get the plain version; CUDA tensors get
-    kernel B5."""
+    """x + proj(window_attention(LN1(x))) on window-partitioned x (B*nW, N, C).
+    transition = (res, from_shift, to_shift) reads x from the from_shift
+    layout; the result and the mask are in the to_shift layout.
+    `odic::swin_attn_half`: the plain version on CPU tensors, kernel B4 on
+    CUDA tensors."""
+    return _attn_half_op(x, *norm1, *qkv, *proj, bias, mask, heads, scale, eps, transition)
+
+
+def _swin_mlp_half_cuda(x, g2, b2, w1, bb1, w2, bb2, eps: float) -> torch.Tensor:
+    """Kernel B5 on CUDA tensors: the CUDA kernel of `odic::swin_mlp_half`."""
     global mlp_half_launches
-    if not _check_device(x, "swin_mlp_half"):
-        return swin_mlp_half_reference(x, norm2, fc1, fc2, eps)
+    norm2, fc1, fc2 = (g2, b2), (w1, bb1), (w2, bb2)
+    _check_device(x, "swin_mlp_half")
     c = x.shape[-1]
     rows = x.numel() // c
     _check_norm("swin_mlp_half", norm2, c)
@@ -381,6 +425,24 @@ def swin_mlp_half(
     _build.check_status(status, "swin_mlp_half")
     mlp_half_launches += 1
     return out
+
+
+_mlp_half_op = _build.define_op(
+    "swin_mlp_half",
+    "(Tensor x, Tensor norm2_w, Tensor norm2_b, Tensor fc1_w, Tensor? fc1_b, Tensor fc2_w, "
+    "Tensor? fc2_b, float eps) -> Tensor",
+    lambda x, g2, b2, w1, bb1, w2, bb2, eps: swin_mlp_half_reference(
+        x, (g2, b2), (w1, bb1), (w2, bb2), eps),
+    _swin_mlp_half_cuda, _same_shape)
+
+
+def swin_mlp_half(
+    x: torch.Tensor, norm2: Norm, fc1: Linear, fc2: Linear, eps: float
+) -> torch.Tensor:
+    """x + fc2(GELU(fc1(LN2(x)))) over the rows of x (..., C): position-wise,
+    so any layout. `odic::swin_mlp_half`: the plain version on CPU tensors,
+    kernel B5 on CUDA tensors."""
+    return _mlp_half_op(x, *norm2, *fc1, *fc2, eps)
 
 
 def _int8_linear_reference(hq: torch.Tensor, hs: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
@@ -423,19 +485,12 @@ def _check_quant_linears(name: str, c: int, fc1: QuantLinear, fc2: QuantLinear) 
     return hid
 
 
-def swin_mlp_half_a8(
-    x: torch.Tensor, norm2: Norm, fc1: QuantLinear, fc2: QuantLinear, eps: float,
-    hidden: bool = False,
-):
-    """x + fc2(GELU(fc1(LN2(x)))) over the rows of x (..., C) with int8 weights
-    and per-row int8 activations (a w8a8 block's MLP half). CPU tensors get the
-    plain version; CUDA tensors get kernel B13. hidden=True also returns the
-    int8 rows the two products read, LN2's and the hidden (on the card the
-    very buffers the kernel's products read; for checks)."""
-    if not _check_device(x, "swin_mlp_half_a8"):
-        return swin_mlp_half_a8_reference(x, norm2, fc1, fc2, eps, hidden)
-    out, xq, _, hq, _ = _launch_mlp_half_a8(x, norm2, fc1, fc2, eps)
-    return (out, xq, hq) if hidden else out
+def _swin_mlp_half_a8_cuda(x, g2, b2, w1q, s1, bb1, w2q, s2, bb2, eps: float):
+    """Kernel B13 on CUDA tensors: the CUDA kernel of `odic::swin_mlp_half_a8`.
+    Returns the output, LN2's int8 rows and the int8 hidden."""
+    _check_device(x, "swin_mlp_half_a8")
+    out, xq, _, hq, _ = _launch_mlp_half_a8(x, (g2, b2), (w1q, s1, bb1), (w2q, s2, bb2), eps)
+    return out, xq, hq
 
 
 def _launch_mlp_half_a8(
@@ -443,7 +498,8 @@ def _launch_mlp_half_a8(
 ) -> Tuple[torch.Tensor, ...]:
     """B13 on CUDA tensors in the launch `ops/linear_plan.py::mlp_a8_plan`
     picks. Returns the output, LN2's int8 rows and their scales, the int8
-    hidden and its rows' absmaxes: what fc1 and fc2 read."""
+    hidden and its rows' absmaxes: what fc1 and fc2 read (the card tests
+    hold the products alone to them)."""
     global mlp_half_a8_launches
     c = x.shape[-1]
     rows = x.numel() // c
@@ -479,6 +535,36 @@ def _launch_mlp_half_a8(
     return out, xq, xs, hq, hmax
 
 
+def _mlp_half_a8_fake(x, g2, b2, w1q, s1, bb1, w2q, s2, bb2, eps):
+    c = x.shape[-1]
+    rows = x.numel() // c
+    return (x.new_empty(x.shape), x.new_empty((rows, c), dtype=torch.int8),
+            x.new_empty((rows, w1q.shape[0]), dtype=torch.int8))
+
+
+_mlp_half_a8_op = _build.define_op(
+    "swin_mlp_half_a8",
+    "(Tensor x, Tensor norm2_w, Tensor norm2_b, Tensor fc1_q, Tensor fc1_scale, Tensor? fc1_b, "
+    "Tensor fc2_q, Tensor fc2_scale, Tensor? fc2_b, float eps) -> (Tensor, Tensor, Tensor)",
+    lambda x, g2, b2, w1q, s1, bb1, w2q, s2, bb2, eps: swin_mlp_half_a8_reference(
+        x, (g2, b2), (w1q, s1, bb1), (w2q, s2, bb2), eps, hidden=True),
+    _swin_mlp_half_a8_cuda, _mlp_half_a8_fake)
+
+
+def swin_mlp_half_a8(
+    x: torch.Tensor, norm2: Norm, fc1: QuantLinear, fc2: QuantLinear, eps: float,
+    hidden: bool = False,
+):
+    """x + fc2(GELU(fc1(LN2(x)))) over the rows of x (..., C) with int8 weights
+    and per-row int8 activations (a w8a8 block's MLP half):
+    `odic::swin_mlp_half_a8`, the plain version on CPU tensors, kernel B13 on
+    CUDA tensors. hidden=True also returns the int8 rows the two products
+    read, LN2's and the hidden (on the card the very buffers the kernel's
+    products read; for checks)."""
+    out, xq, hq = _mlp_half_a8_op(x, *norm2, *fc1, *fc2, eps)
+    return (out, xq, hq) if hidden else out
+
+
 def _amax_scales(amax: torch.Tensor) -> torch.Tensor:
     """(R, 1) row scales max(amax, 1e-8) / 127 of row absmaxes (R,), by IEEE
     division (a CUDA division by a Python number would multiply by a rounded
@@ -500,20 +586,11 @@ def mlp_a8_product_reference(
     return resid + z.to(resid.dtype)
 
 
-def mlp_a8_product(
-    a_q: torch.Tensor, a_scale: torch.Tensor, lin: QuantLinear,
-    resid: Optional[torch.Tensor] = None, form: Optional[int] = None,
-):
-    """One of B13's int8 products alone (for timing and card tests): fc1,
-    a_q (M, K) int8 LN2 rows with scales a_scale (M,), giving GELU(y) (M, N)
-    in fp32 and its row absmaxes (M,); or, with resid (M, N) in fp32 / bf16,
-    fc2 on the int8 hidden a_q whose row absmaxes are a_scale, giving resid +
-    T(z). In the form `int8_plan` picks or in `form`. CPU tensors get the
-    plain version."""
+def _mlp_a8_product_cuda(a_q, a_scale, w_q, s, b, resid, form: Optional[int]):
+    """One of B13's products on CUDA tensors: the CUDA kernel of
+    `odic::mlp_a8_product`. Returns (out, row absmaxes), the absmaxes empty
+    for fc2."""
     global mlp_a8_product_launches
-    if a_q.device.type == "cpu":
-        return mlp_a8_product_reference(a_q, a_scale, lin, resid)
-    w_q, s, b = lin
     (m, k), n = a_q.shape, w_q.shape[0]
     fc2 = resid is not None
     fp32 = lambda t, shape: t.dtype == torch.float32 and t.shape == shape  # noqa: E731
@@ -525,17 +602,51 @@ def mlp_a8_product(
                          "bf16 residual")
     plan = int8_plan(m, n, k, sm_count(a_q.device), form)
     _build.check_cuda_tensors(*_flat([a_q, a_scale, w_q, s, b, resid]))
-    hmax = None if fc2 else torch.zeros((m,), dtype=torch.float32, device=a_q.device)
+    hmax = torch.zeros((0 if fc2 else m,), dtype=torch.float32, device=a_q.device)
     out = (torch.empty_like(resid) if fc2
            else torch.empty((m, n), dtype=torch.float32, device=a_q.device))
     fn = _build.cuda_function("swin_mlp_half_a8", "a8_product_launch",
                               [_P] * 8 + [ctypes.c_int] * 6 + [_P])
     status = fn(a_q.data_ptr(), a_scale.data_ptr(), w_q.data_ptr(), s.data_ptr(), _ptr(b),
-                _ptr(hmax), out.data_ptr(), _ptr(resid), m, n, k, int(fc2), plan.form,
-                _DTYPE_CODE[resid.dtype] if fc2 else 0, _build.current_stream())
+                None if fc2 else hmax.data_ptr(), out.data_ptr(), _ptr(resid), m, n, k,
+                int(fc2), plan.form, _DTYPE_CODE[resid.dtype] if fc2 else 0,
+                _build.current_stream())
     _build.check_status(status, "mlp_a8_product")
     mlp_a8_product_launches += 1
-    return out if fc2 else (out, hmax)
+    return out, hmax
+
+
+def _mlp_a8_product_plain(a_q, a_scale, w_q, s, b, resid, form):
+    got = mlp_a8_product_reference(a_q, a_scale, (w_q, s, b), resid)
+    return got if resid is None else (got, a_scale.new_empty((0,)))
+
+
+def _mlp_a8_product_fake(a_q, a_scale, w_q, s, b, resid, form):
+    m, n = a_q.shape[0], w_q.shape[0]
+    if resid is not None:
+        return resid.new_empty((m, n)), a_scale.new_empty((0,))
+    return a_scale.new_empty((m, n)), a_scale.new_empty((m,))
+
+
+_mlp_a8_product_op = _build.define_op(
+    "mlp_a8_product",
+    "(Tensor a_q, Tensor a_scale, Tensor w_q, Tensor scale, Tensor? bias, Tensor? resid, "
+    "int? form) -> (Tensor, Tensor)",
+    _mlp_a8_product_plain, _mlp_a8_product_cuda, _mlp_a8_product_fake)
+
+
+def mlp_a8_product(
+    a_q: torch.Tensor, a_scale: torch.Tensor, lin: QuantLinear,
+    resid: Optional[torch.Tensor] = None, form: Optional[int] = None,
+):
+    """One of B13's int8 products alone (for timing and card tests): fc1,
+    a_q (M, K) int8 LN2 rows with scales a_scale (M,), giving GELU(y) (M, N)
+    in fp32 and its row absmaxes (M,); or, with resid (M, N) in fp32 / bf16,
+    fc2 on the int8 hidden a_q whose row absmaxes are a_scale, giving resid +
+    T(z). In the form `int8_plan` picks or in `form`. `odic::mlp_a8_product`:
+    the plain version on CPU tensors."""
+    out, hmax = _mlp_a8_product_op(a_q, a_scale, *lin, resid, form)
+    return out if resid is not None else (out, hmax)
 
 
 TRANSITION_WARPS = 8  # warps of a CTA of kernel B11
@@ -547,15 +658,11 @@ def transition_group_rows(row_bytes: int) -> int:
     return max(1, min(32, 256 // (row_bytes // 16)))
 
 
-def window_transition(
-    x: torch.Tensor, res: int, window: int, from_shift: int, to_shift: int
-) -> torch.Tensor:
-    """(B*nW, n, C) in the from_shift window layout of a (res, res) grid ->
-    the to_shift layout. CPU tensors get the plain version; CUDA tensors get
-    kernel B11."""
+def _window_transition_cuda(x, res: int, window: int, from_shift: int, to_shift: int
+                            ) -> torch.Tensor:
+    """Kernel B11 on CUDA tensors: the CUDA kernel of `odic::window_transition`."""
     global transition_launches
-    if not _check_device(x, "window_transition"):
-        return window_transition_reference(x, res, window, from_shift, to_shift)
+    _check_device(x, "window_transition")
     bw, n, c = x.shape
     row_bytes = c * x.element_size()
     if n != window * window or res % window or (bw * n) % (res * res) or row_bytes % 16:
@@ -573,6 +680,21 @@ def window_transition(
     _build.check_status(status, "window_transition")
     transition_launches += 1
     return out
+
+
+_transition_op = _build.define_op(
+    "window_transition",
+    "(Tensor x, int res, int window, int from_shift, int to_shift) -> Tensor",
+    window_transition_reference, _window_transition_cuda, _same_shape)
+
+
+def window_transition(
+    x: torch.Tensor, res: int, window: int, from_shift: int, to_shift: int
+) -> torch.Tensor:
+    """(B*nW, n, C) in the from_shift window layout of a (res, res) grid ->
+    the to_shift layout: `odic::window_transition`, the plain version on CPU
+    tensors, kernel B11 on CUDA tensors."""
+    return _transition_op(x, res, window, from_shift, to_shift)
 
 
 # ---------------------------------------------------------------------------

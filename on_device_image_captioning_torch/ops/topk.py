@@ -4,7 +4,8 @@
 Replaces `on_device_image_captioning_tpu/ops/topk.py::topk_pallas`, whose
 kernel takes rows of width V >= 1024 with k <= 8; so does K3, and on a CUDA
 tensor of any other shape the wrapper raises. Narrow rows (the beam-pool and
-final rankings of `decode/beam_search.py`) call `topk_reference` directly.
+final rankings of `decode/beam_search.py`) call `topk_reference` directly; its
+NaN rule is one stable sort on the device, with no sync with the host.
 `torch.topk` promises no order among ties, so it is neither the kernel nor
 the reference.
 
@@ -20,7 +21,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,31 +42,20 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 MAX_CLUSTER = 8
 
 
-def _nan_row(row: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's rule for a row holding NaN: while an unchosen NaN remains,
-    each pick is the lowest unchosen index with value NaN; after the last NaN
-    index is picked, the rest follow the (value desc, index asc) order."""
-    span = int(torch.isnan(row).nonzero()[-1]) + 1
-    n_seq = min(k, span)
-    idx = torch.arange(n_seq, device=row.device)
-    vals = torch.full((n_seq,), float("nan"), dtype=row.dtype, device=row.device)
-    if n_seq < k:
-        tail_v, tail_i = torch.sort(row[span:], descending=True, stable=True)
-        idx = torch.cat([idx, tail_i[: k - n_seq] + span])
-        vals = torch.cat([vals, tail_v[: k - n_seq]])
-    return vals, idx
-
-
 def topk_reference(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (R, V) -> (vals (R, k) in x.dtype, idx (R, k) int32), sorted
-    descending, ties to the lowest index, with the NaN rule of `_nan_row`."""
+    descending, ties to the lowest index, with the kernel's rule for a row
+    holding NaN: while an unchosen NaN remains, each pick is the lowest
+    unchosen index with value NaN; after the last NaN index is picked, the
+    rest follow the (value desc, index asc) order. That rule is one stable
+    sort once every position up to the row's last NaN is NaN (a stable
+    descending sort puts NaN first, in index order), so it runs on the
+    device without a sync with the host."""
+    pos = torch.arange(x.shape[-1], device=x.device)
+    span = torch.where(torch.isnan(x), pos, -1).amax(dim=-1, keepdim=True) + 1
+    x = torch.where(pos < span, torch.nan, x)
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    vals, idx = vals[:, :k].clone(), idx[:, :k].to(torch.int32)
-    nan_rows = torch.isnan(x).any(dim=-1)
-    for r in nan_rows.nonzero().flatten().tolist():
-        v, i = _nan_row(x[r], k)
-        vals[r], idx[r] = v, i.to(torch.int32)
-    return vals, idx
+    return vals[:, :k].clone(), idx[:, :k].to(torch.int32)
 
 
 def _head(address: int, itemsize: int) -> int:
@@ -184,35 +174,47 @@ def _launcher():
     ))
 
 
-def launch(x: torch.Tensor, k: int, plan: TopkPlan) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on a checked CUDA x (R, V) in the given plan (`topk` passes
-    `topk_plan`'s; timing scripts and the card tests pass others)."""
+def _topk_cuda(x: torch.Tensor, k: int, cluster: Optional[int]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on a CUDA x (R, V): the CUDA kernel of `odic::topk`, in clusters of
+    `cluster` CTAs a row (None: `topk_plan`'s)."""
     global launches
-    rows, v = x.shape
-    vals = torch.empty((rows, k), dtype=x.dtype, device=x.device)
-    idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
-    status = _launcher()(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, v, k,
-                         plan.cluster, _DTYPE_CODE[x.dtype], _build.current_stream())
-    _build.check_status(status, "topk")
-    launches += 1
-    return vals, idx
-
-
-def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over the last axis of x (R, V). CPU tensors get the plain
-    version; CUDA tensors get K3, which takes V >= 1024 and k <= 8 only."""
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return topk_reference(x, k)
-        raise ValueError(f"topk: unsupported device {x.device}")
     if x.dim() != 2 or x.shape[1] < MIN_KERNEL_WIDTH or not 1 <= k <= MAX_KERNEL_K:
         raise ValueError(f"topk: unsupported shape {tuple(x.shape)} / k={k}")
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"topk: unsupported dtype {x.dtype}")
     _build.check_cuda_tensors(x)
     rows, v = x.shape
+    vals = torch.empty((rows, k), dtype=x.dtype, device=x.device)
+    idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
     if rows == 0:
-        return (torch.empty((0, k), dtype=x.dtype, device=x.device),
-                torch.empty((0, k), dtype=torch.int32, device=x.device))
-    plan = topk_plan(rows, v, k, sm_count(x.device), x.element_size())
-    return launch(x, k, plan)
+        return vals, idx
+    if cluster is None:
+        cluster = topk_plan(rows, v, k, sm_count(x.device), x.element_size()).cluster
+    status = _launcher()(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, v, k,
+                         cluster, _DTYPE_CODE[x.dtype], _build.current_stream())
+    _build.check_status(status, "topk")
+    launches += 1
+    return vals, idx
+
+
+def _topk_fake(x, k, cluster):
+    return x.new_empty((x.shape[0], k)), x.new_empty((x.shape[0], k), dtype=torch.int32)
+
+
+_op = _build.define_op(
+    "topk", "(Tensor x, int k, int? cluster) -> (Tensor, Tensor)",
+    lambda x, k, cluster: topk_reference(x, k), _topk_cuda, _topk_fake)
+
+
+def launch(x: torch.Tensor, k: int, plan: TopkPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`odic::topk` in the given plan on a CUDA x (R, V) (`topk` passes
+    `topk_plan`'s; timing scripts and the card tests pass others)."""
+    return _op(x, k, plan.cluster)
+
+
+def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last axis of x (R, V): `odic::topk`, the plain version
+    on CPU tensors, K3 on CUDA tensors (which takes V >= 1024 and k <= 8
+    only)."""
+    return _op(x, k, None)

@@ -61,20 +61,9 @@ def _library():
     return fn
 
 
-def window_attention(
-    qkv: torch.Tensor,
-    bias: torch.Tensor,
-    mask: Optional[torch.Tensor],
-    heads: int,
-    scale: float,
-) -> torch.Tensor:
-    """Window attention over the flat qkv layout. CPU tensors get the plain
-    version; CUDA tensors get kernel K1."""
+def _window_attention_cuda(qkv, bias, mask, heads: int, scale: float) -> torch.Tensor:
+    """K1 on CUDA tensors: the CUDA kernel of `odic::window_attention`."""
     global launches
-    if qkv.device.type == "cpu":
-        return window_attention_reference(qkv, bias, mask, heads, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"window_attention: unsupported device {qkv.device}")
     bw, n, c3 = qkv.shape
     c = c3 // 3
     if c3 % 3 or c != heads * HEAD_DIM:
@@ -105,3 +94,24 @@ def window_attention(
     _build.check_status(status, "window_attention")
     launches += 1
     return out
+
+
+_op = _build.define_op(
+    "window_attention",
+    "(Tensor qkv, Tensor bias, Tensor? mask, int heads, float scale) -> Tensor",
+    window_attention_reference, _window_attention_cuda,
+    lambda qkv, bias, mask, heads, scale: qkv.new_empty(
+        (qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3)),
+)
+
+
+def window_attention(
+    qkv: torch.Tensor,
+    bias: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """Window attention over the flat qkv layout: `odic::window_attention`
+    (the plain version on CPU tensors, kernel K1 on CUDA tensors)."""
+    return _op(qkv, bias, mask, heads, scale)

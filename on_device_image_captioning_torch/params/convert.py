@@ -20,7 +20,7 @@ state_dict (`cli/quantize.py` writes one) gets its `QuantLinear`s first.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -139,6 +139,23 @@ def state_dict_from_jax(params_np: Mapping, cfg: ModelConfig) -> Dict[str, torch
         **swin_state_dict(params_np["swin"], cfg),
         **captioner_state_dict(params_np["captioner"]),
     }
+
+
+# The modules whose `.weight` the converter fills from a `w` leaf of the JAX
+# tree: `_lin` writes the weight of exactly the model's `nn.Linear`s (a strict
+# load of `state_dict_from_jax` holds the two to each other), and
+# `swin_state_dict` the patch embed's `nn.Conv2d` from its `proj/w`. The other
+# weights come from `embed` (`_emb`: `nn.Embedding`), `scale` (`_ln`:
+# `nn.LayerNorm`), `rel_bias` and `ape` leaves.
+W_LEAF_MODULES = (nn.Linear, nn.Conv2d)
+
+
+def w_leaf_names(model: nn.Module) -> List[str]:
+    """The state_dict names of `model` that hold the JAX tree's `w` leaves
+    (by `W_LEAF_MODULES`), in the state_dict's order."""
+    owners = {name for name, m in model.named_modules() if type(m) in W_LEAF_MODULES}
+    return [k for k in model.state_dict() if k.endswith(".weight")
+            and k[: -len(".weight")] in owners]
 
 
 def clean_reference_state_dict(sd: Mapping) -> Dict:

@@ -270,8 +270,10 @@ def test_topk_chunked_matches_reference_on_unaligned_rows(offset):
 # ---------------------------------------------------------------------------
 
 def test_layernorm_and_topk_route_by_device():
-    """A CPU tensor gets the plain version and launches nothing; a tensor on
-    neither the CPU nor a CUDA card is refused."""
+    """A CPU tensor gets the plain version and launches nothing; a meta
+    tensor gets the op's fake implementation (shapes and dtypes only); a
+    tensor the dispatcher has no kernel for (here a sparse one) is refused by
+    the dispatcher."""
     before = (k4.launches, k3.launches)
     x = torch.randn((6, 1024))
     w, b = torch.randn(1024), torch.randn(1024)
@@ -279,8 +281,12 @@ def test_layernorm_and_topk_route_by_device():
     got, want = k3.topk(x, 3), k3.topk_reference(x, 3)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (k4.launches, k3.launches) == before
-    with pytest.raises(ValueError, match="device"):
-        k4.layernorm(x.to("meta"), w.to("meta"), b.to("meta"))
-    with pytest.raises(ValueError, match="device"):
-        k3.topk(x.to("meta"), 3)
+    out = k4.layernorm(x.to("meta"), w.to("meta"), b.to("meta"))
+    assert out.is_meta and out.shape == x.shape and out.dtype == x.dtype
+    vals, idx = k3.topk(x.to("meta"), 3)
+    assert vals.is_meta and vals.shape == (6, 3) and idx.dtype == torch.int32
+    with pytest.raises(NotImplementedError, match="SparseCPU"):
+        k4.layernorm(x.to_sparse(), w, b)
+    with pytest.raises(NotImplementedError, match="SparseCPU"):
+        k3.topk(x.to_sparse(), 3)
     assert (k4.launches, k3.launches) == before
