@@ -16,7 +16,8 @@ Phases, in order (any failure raises and exits non-zero before the result):
 3. Each kernel against its plain PyTorch version on the card, at main-path
    shapes, in fp32 and bf16, with the tolerance printed beside each check
    (B6 in bf16: with one bf16 ulp of each of its output's two addends, and
-   the count of elements that needed it). Every inference kernel is a
+   the count of elements that needed it; K1 also at the model-axis shard
+   shape of run "parallel_eval", b8 stage 0 on 3 of 6 heads). Every inference kernel is a
    `torch.library` op of the namespace `odic`: `torch.library.opcheck` of
    each on CUDA inputs (ops/_cases.py::opcheck_calls) must pass.
 4. Main path at full width, once per run of RUNS: the `attention_impl`
@@ -117,6 +118,17 @@ Phases, in order (any failure raises and exits non-zero before the result):
    kernel outside the run's paths. Prints the CLI's s/it at --prefetch 0
    and 2 and the peak device memory of one iteration with and without
    --remat.
+   Parallel evaluation (run "parallel_eval"): `cli/evaluate.py
+   --distributed` in two worker processes on the one card, each joining a
+   gloo group itself, Swin-L/384 + d512 at Swin depths (2, 2, 2, 2), the
+   "pallas" backbone and step, run "eval"'s 12 images as JPEGs, b8 / beam 3
+   / L20: `--n_model 1` (two data ranks) and `--n_model 2` (one model group,
+   every FF, Swin qkv / proj / MLP, the vocabulary projection and embedding
+   cut over it) at fp32 with TF32 off, predictions equal one process's
+   `evaluate_split` token for token and the first step's log-probs within
+   1e-4; `--n_model 2` at bf16 held by its scores. Each rank's launches
+   counted (K1, K2, K3, K4 only). Prints the two-process img/s beside one
+   process's.
 5. The runs held to the plain path: 2 images at fp32 through each run on the
    card and through the plain path on the CPU, same weights; then sampling
    and the ensemble, card against CPU with the same noise, and the two
@@ -384,9 +396,28 @@ EXPORT_REPEATS = 5  # engine and eager walls of run "export": medians of this ma
 # the model's max_seq_len, against evaluate_split over the same weights: the
 # kernels of run "eval"
 PRUNE, PRUNE_AMOUNT, PRUNE_ROUNDS = "prune", 0.33, 2
+# run "parallel_eval": `cli/evaluate.py --distributed` in two processes on the
+# one card (gloo), Swin-L/384 + d512 at Swin depths SHALLOW, V = 10000, the
+# "pallas" backbone and step, beam 3 / L20, over run "eval"'s 12 images
+# written as JPEGs, in global batches of 8. Forms: name -> (--n_model, bf16);
+# the fp32 forms' predictions equal one process's token for token, the bf16
+# form's scores one process's within PARALLEL_BF16_SCORE_TOL. The launches
+# of the run are rank 0's of the fp32 tensor-parallel form ("tp");
+# "parallel_eval_dp" those of the data-parallel one.
+PARALLEL_EVAL, PARALLEL_DP = "parallel_eval", "parallel_eval_dp"
+PARALLEL_FORMS = {"dp": (1, False), "tp": (2, False), "tp_bf16": (2, True)}
+PARALLEL_METRICS = ("bleu", "cider")
+PARALLEL_LOGPROB_TOL = 1e-4  # the first step's log-probs, tensor parallel against one process
+PARALLEL_BF16_SCORE_TOL = 0.05  # bf16 near-ties move captions: held at the metric level
+PARALLEL_TIMEOUT = 600  # seconds a form's two workers may take
+# passes over the split (--beam_sizes 3 3): each process's first pass loads the
+# kernels and warms cuBLAS, so the img/s compared are the last pass's
+PARALLEL_PASSES = 2
 for _k in KERNELS.values():
     _k["paths"] += tuple(r for r, (src, *_) in EXPORT_RUNS.items() if src in _k["paths"])
     _k["paths"] += (PRUNE,) if EVAL in _k["paths"] else ()
+for _name in ("window_attention", "dyn_exp_step", "topk", "layernorm"):
+    KERNELS[_name]["paths"] += (PARALLEL_EVAL, PARALLEL_DP)
 # launches of the training kernels in one XE step of Swin-L (depths 2, 2, 18,
 # 2): the whole-block forward at stages 0 and 1, the two half forwards at
 # stage 2, both backwards once per block of stages 0-2, and a transition
@@ -974,8 +1005,6 @@ class Smoke:
         import shutil
         import tempfile
 
-        from PIL import Image
-
         torch = self.torch
         from on_device_image_captioning_torch.cli import evaluate as eval_cli
         from on_device_image_captioning_torch.data.datasets import load_coco_karpathy
@@ -1000,18 +1029,7 @@ class Smoke:
             start = time.perf_counter()
             pruning.save_sparse(npz, sd)
             save_s = time.perf_counter() - start
-            vocab_path, ann = os.path.join(root, "vocab.json"), os.path.join(root, "ann.json")
-            dataset.vocab.to_json(vocab_path)
-            os.makedirs(os.path.join(root, "v", "img"))  # <images_path>/<filepath>/img/<file>
-            items = []
-            for r in dataset.records("test"):
-                name = f"i{r['img_id']}.jpg"
-                img = load_images([r["img_path"]], cfg.swin.img_size)[0]
-                Image.fromarray(img).save(os.path.join(root, "v", "img", name), quality=95)
-                items.append({"cocoid": r["img_id"], "filepath": "v", "filename": name,
-                              "split": "test", "sentences": [{"raw": c} for c in r["captions"]]})
-            with open(ann, "w") as f:
-                json.dump({"images": items}, f)
+            ann, vocab_path = self.write_split(root, dataset, load_images, cfg.swin.img_size)
             dump = os.path.join(root, "preds.json")
             self.counters(reset=True)
             start = time.perf_counter()
@@ -1056,6 +1074,215 @@ class Smoke:
             f"evaluate_split's over the same weights in memory; launches {self.launches[PRUNE]}")
         del model
         torch.cuda.empty_cache()
+
+    @staticmethod
+    def write_split(root, dataset, load_images, size):
+        """Run "eval"'s synthetic test split as files in `root`, as a user
+        hands them to the evaluate CLI: JPEGs of its seeded images under
+        <root>/v/img/ (<images_path>/<filepath>/img/<file>), a Karpathy json
+        and the vocabulary json. Returns (annotations path, vocab path)."""
+        import os
+
+        from PIL import Image
+
+        vocab_path, ann = os.path.join(root, "vocab.json"), os.path.join(root, "ann.json")
+        dataset.vocab.to_json(vocab_path)
+        os.makedirs(os.path.join(root, "v", "img"))
+        items = []
+        for r in dataset.records("test"):
+            name = f"i{r['img_id']}.jpg"
+            img = load_images([r["img_path"]], size)[0]
+            Image.fromarray(img).save(os.path.join(root, "v", "img", name), quality=95)
+            items.append({"cocoid": r["img_id"], "filepath": "v", "filename": name,
+                          "split": "test", "sentences": [{"raw": c} for c in r["captions"]]})
+        with open(ann, "w") as f:
+            json.dump({"images": items}, f)
+        return ann, vocab_path
+
+    def parallel_eval_path(self):
+        """Phase 4, run "parallel_eval": `cli/evaluate.py --distributed` as a
+        user runs it, in two worker processes on the one card, each joining a
+        gloo group itself (NCCL refuses two ranks on one device) before it
+        calls the CLI's `main` (`eval_worker`). Seeded Swin-L/384 + d512
+        weights at Swin depths SHALLOW (full width), saved as a `.pth`; run
+        "eval"'s 12 images as JPEGs (global batches of 8, the last padded);
+        beam 3 / L20, the "pallas" backbone and step. Forms (PARALLEL_FORMS):
+        "dp" (--n_model 1: two data ranks) and "tp" (--n_model 2: one model
+        group of two, every FF, Swin qkv / proj / MLP, the vocabulary
+        projection and embedding cut over it) at fp32 with TF32 off, their
+        predictions equal token for token to one process's `evaluate_split`
+        on the same weights, the first step's log-probs of 8 images within
+        PARALLEL_LOGPROB_TOL of one process's; "tp_bf16" held at the metric
+        level (PARALLEL_BF16_SCORE_TOL). Each worker's launches counted
+        (`eval_worker`): K1 once a block an encoded batch, K2 once a layer
+        and step, no kernel off the run's paths. Each form's CLI passes over
+        the split PARALLEL_PASSES times (the first loads the kernels in the
+        fresh process); prints the last pass's img/s of the decode loop (the
+        CLI's own line, scoring apart) beside one process's, and what rank 0
+        says a rank holds."""
+        import shutil
+        import tempfile
+
+        root = tempfile.mkdtemp(prefix="parallel_eval_")
+        try:
+            self._parallel_eval(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    def _parallel_eval(self, root):
+        import contextlib
+        import dataclasses
+        import io
+        import os
+        import pickle
+        import socket
+
+        torch = self.torch
+        from on_device_image_captioning_torch.cli import evaluate as eval_cli
+        from on_device_image_captioning_torch.data.datasets import load_coco_karpathy
+        from on_device_image_captioning_torch.models.end_to_end import (
+            EndExpansionNetV2, init_weights,
+        )
+        from on_device_image_captioning_torch.utils.image import preprocess_batch
+
+        cfg = parallel_eval_cfg(torch)
+        model = init_weights(EndExpansionNetV2(cfg), torch.Generator().manual_seed(SEED + 40))
+        sd = model.state_dict()
+        dataset, load_images = self.eval_split(cfg.captioner)
+        ann, vocab_path = self.write_split(root, dataset, load_images, cfg.swin.img_size)
+        files = load_coco_karpathy(ann, root, vocab=dataset.vocab)
+        records = files.records("test")
+        pth = os.path.join(root, "e2e.pth")
+        torch.save(sd, pth)
+        with open(os.path.join(root, "cfg.pickle"), "wb") as f:  # the workers' config
+            pickle.dump(cfg, f)
+        first = preprocess_batch([r["img_path"] for r in records[:B_SERVE]], cfg.swin.img_size)
+        np.save(os.path.join(root, "first.npy"), first)
+
+        def nonzero(counts):
+            return {k: v for k, v in counts.items() if v}
+
+        def rate(text):  # the decode loop's img/s, the CLI's own last line of it
+            return float(re.findall(r"\(([0-9.]+) img/s\)", text)[-1])
+
+        one = {}  # bf16 -> (scores, predictions, img/s, first step's log-probs)
+        for bf16 in (False, True):
+            c = dataclasses.replace(cfg, compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+            m = EndExpansionNetV2(c)
+            m.load_state_dict(sd)
+            m.to(self.dev).eval().prepare_inference()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                for _ in range(PARALLEL_PASSES):
+                    scores, preds = eval_cli.evaluate_split(
+                        m, c, files, "test", BEAM_SERVE, B_SERVE, L_SERVE,
+                        metrics=PARALLEL_METRICS, step_impl="pallas")
+            one[bf16] = (scores, {str(k): v for k, v in preds.items()}, rate(out.getvalue()),
+                         first_step_log_probs(torch, m, c, first))
+            del m
+        del model
+        torch.cuda.empty_cache()
+
+        cap, swin = cfg.captioner, cfg.swin
+        argv = ["--annotations", ann, "--images_path", root, "--vocab_path", vocab_path,
+                "--load_path", pth, "--split", "test",
+                "--beam_sizes", *[str(BEAM_SERVE)] * PARALLEL_PASSES,
+                "--batch_size", str(B_SERVE), "--max_seq_len", str(cap.max_seq_len),
+                "--model_dim", str(cap.d_model), "--N_enc", str(cap.N_enc),
+                "--N_dec", str(cap.N_dec), "--ff", str(cap.ff), "--num_heads", str(cap.num_heads),
+                "--num_exp_enc_list", *map(str, cap.num_exp_enc_list),
+                "--num_exp_dec", str(cap.num_exp_dec), "--swin_img_size", str(swin.img_size),
+                "--swin_patch_size", str(swin.patch_size), "--swin_embed_dim", str(swin.embed_dim),
+                "--swin_depths", *map(str, swin.depths), "--swin_num_heads",
+                *map(str, swin.num_heads), "--swin_window_size", str(swin.window_size),
+                "--swin_attention_impl", swin.attention_impl, "--step_impl", "pallas",
+                "--metrics", *PARALLEL_METRICS, "--distributed", "--device", self.dev.type]
+        here = os.path.dirname(os.path.abspath(__file__))
+        for form, (n_model, bf16) in PARALLEL_FORMS.items():
+            s = socket.socket()
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+            s.close()
+            dump = os.path.join(root, f"{form}.json")
+            cmd = [sys.executable, "-c", "import sys, chip_smoke; "
+                   "sys.exit(chip_smoke.eval_worker(sys.argv[1:]))",
+                   os.path.join(root, form), str(n_model), *argv, "--n_model", str(n_model),
+                   "--dump_predictions", dump, *(["--bf16"] if bf16 else [])]
+            procs = [subprocess.Popen(
+                cmd, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2",
+                     "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
+                for r in (0, 1)]
+            start = time.perf_counter()
+            try:
+                outs = [p.communicate(timeout=PARALLEL_TIMEOUT)[0] for p in procs]
+            except subprocess.TimeoutExpired:
+                for p in procs:
+                    p.kill()
+                    p.communicate()
+                raise AssertionError(f"run {PARALLEL_EVAL!r} form {form!r}: a worker did not "
+                                     f"finish within {PARALLEL_TIMEOUT} s")
+            wall = time.perf_counter() - start
+            for r, (p, out) in enumerate(zip(procs, outs)):
+                if p.returncode != 0:
+                    log(out[-4000:])
+                    raise AssertionError(f"run {PARALLEL_EVAL!r} form {form!r}: worker {r} "
+                                         f"exited {p.returncode}")
+            ranks = [torch.load(os.path.join(root, f"{form}.{r}.pt")) for r in (0, 1)]
+            with open(dump) as f:
+                got = json.load(f)[str(BEAM_SERVE)]
+            scores = {m: float(v) for m, v in re.findall(
+                r"^(Bleu_\d|CIDEr): ([0-9.]+)$", outs[0], re.M)}
+            want_scores, want, one_rate, want_lp = one[bf16]
+            # launches: K1 once a block of each batch a rank encodes, K2 once
+            # a decoder layer and step (random weights emit no EOS)
+            n_data, n = 2 // n_model, len(records)
+            for r, rank in enumerate(ranks):
+                first = (r if n_model == 1 else 0) * (B_SERVE // n_data)  # of each batch
+                batches = sum(s + first < min(s + B_SERVE, n) for s in range(0, n, B_SERVE))
+                counts = rank["launches"]
+                expect = {"window_attention": sum(swin.depths) * batches * PARALLEL_PASSES,
+                          "dyn_exp_step": cap.N_dec * (L_SERVE - 1) * batches * PARALLEL_PASSES}
+                bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+                if bad:
+                    raise AssertionError(f"run {PARALLEL_EVAL!r} form {form!r} rank {r}: "
+                                         f"launches (got, want) {bad}")
+                self.check_paths(PARALLEL_EVAL, counts)
+            if form == "tp":
+                self.launches[PARALLEL_EVAL] = ranks[0]["launches"]
+            elif form == "dp":
+                self.launches[PARALLEL_DP] = ranks[0]["launches"]
+            same = sum(got[k] == want[k] for k in want)
+            if set(got) != set(want):
+                raise AssertionError(f"run {PARALLEL_EVAL!r} form {form!r}: images "
+                                     f"{sorted(got)} against {sorted(want)}")
+            lp_err = max(float((rank["log_probs"] - want_lp).abs().max()) for rank in ranks)
+            if not bf16:
+                if got != want:
+                    raise AssertionError(
+                        f"run {PARALLEL_EVAL!r} form {form!r}: predictions differ from one "
+                        f"process's: {[(k, got[k], want[k]) for k in want if got[k] != want[k]]}")
+                if not lp_err <= PARALLEL_LOGPROB_TOL:
+                    raise AssertionError(f"run {PARALLEL_EVAL!r} form {form!r}: first-step "
+                                         f"log-probs {lp_err:.3e} from one process's")
+            worst = max(abs(scores[k] - v) for k, v in want_scores.items())
+            if set(scores) != set(want_scores) or not worst <= PARALLEL_BF16_SCORE_TOL:
+                raise AssertionError(f"run {PARALLEL_EVAL!r} form {form!r}: scores {scores} "
+                                     f"against one process's {want_scores}")
+            log(f"phase 4 parallel evaluation, run {PARALLEL_EVAL!r} form {form!r} "
+                f"(--n_model {n_model}, {'bf16' if bf16 else 'fp32'}, 2 processes on one card, "
+                f"gloo): {same} of {len(want)} captions equal one process's; scores "
+                f"{scores} (largest difference {worst:.4f}); first-step log-probs within "
+                f"{lp_err:.3e}; launches rank 0 {nonzero(ranks[0]['launches'])}, rank 1 "
+                f"{nonzero(ranks[1]['launches'])}; workers' wall {wall:.1f} s")
+            held = [line.strip() for line in outs[0].splitlines() if "a rank holds" in line]
+            if n_model > 1 and not held:
+                raise AssertionError(f"run {PARALLEL_EVAL!r} form {form!r}: rank 0 did not say "
+                                     "what the model axis cut")
+            log(f"  {held[0] if held else 'weights whole on every rank'}")
+            log(f"  decode img/s b{B_SERVE}/beam {BEAM_SERVE}/L{L_SERVE} "
+                f"{'bf16' if bf16 else 'fp32'} Swin depths {SHALLOW}: two processes "
+                f"({form}) {rate(outs[0]):.2f} against one process {one_rate:.2f} | {self.card}")
 
     def opcheck_ops(self):
         """Phase 3: `torch.library.opcheck` of every `odic` op on CUDA inputs
@@ -2868,6 +3095,82 @@ class Smoke:
             f"(runs {[round(1000 * s, 2) for s in lat_s]} ms) | {self.card}")
 
 
+def parallel_eval_cfg(torch):
+    """Run "parallel_eval"'s configuration: Swin-L/384 + d512 (V = 10000)
+    at Swin depths SHALLOW, the "pallas" backbone, max_seq_len L_SERVE, fp32."""
+    import dataclasses
+
+    from on_device_image_captioning_torch.config import end_expansionnet_v2_coco
+
+    cfg = end_expansionnet_v2_coco(compute_dtype=torch.float32)
+    return dataclasses.replace(
+        cfg, swin=dataclasses.replace(cfg.swin, attention_impl="pallas", depths=SHALLOW),
+        captioner=dataclasses.replace(cfg.captioner, max_seq_len=L_SERVE))
+
+
+def first_step_log_probs(torch, model, cfg, images):
+    """The decoder's first step (SOS at position 0) over uint8 images: (B, V)
+    fp32 log-probs on the host."""
+    from on_device_image_captioning_torch.decode import cache as dc
+    from on_device_image_captioning_torch.utils.image import normalize_on_device
+
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        enc = model.forward_enc(normalize_on_device(torch.from_numpy(images).to(dev)))
+        state = dc.init_state(model, cfg.captioner, enc, L_SERVE, cfg.compute_dtype)
+        sos = torch.full((enc.shape[0],), cfg.captioner.sos_idx, dtype=torch.int32, device=dev)
+        lp, _ = dc.dec_step(model, cfg.captioner, state, sos, 0, cfg.compute_dtype)
+    return lp.float().cpu()
+
+
+def eval_worker(argv) -> int:
+    """One rank of run "parallel_eval" (`Smoke.parallel_eval_path` starts two,
+    with RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT set): joins a gloo
+    group, calls `cli/evaluate.py::main(argv[2:])` (which keeps the group it
+    finds), then the first step's log-probs of <dir>/first.npy on the same
+    model (<dir>/cfg.pickle, in the CLI's dtype) cut over `--n_model`
+    argv[1]; saves both and the launches of the CLI's call to
+    <argv[0]>.<rank>.pt."""
+    import dataclasses
+    import os
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from on_device_image_captioning_torch.cli import evaluate as eval_cli
+    from on_device_image_captioning_torch.models.end_to_end import EndExpansionNetV2
+    from on_device_image_captioning_torch.parallel import mesh as pm
+
+    out, n_model, cli_args = argv[0], int(argv[1]), argv[2:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="env://")
+    try:
+        smoke = Smoke(torch)
+        smoke.counters(reset=True)
+        rc = eval_cli.main(cli_args)
+        cuda = cli_args[cli_args.index("--device") + 1] == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+        launches = smoke.counters()
+        with open(os.path.join(os.path.dirname(out), "cfg.pickle"), "rb") as f:
+            cfg = dataclasses.replace(pickle.load(f), compute_dtype=(
+                torch.bfloat16 if "--bf16" in cli_args else torch.float32))
+        model = EndExpansionNetV2(cfg)
+        model.load_state_dict(torch.load(cli_args[cli_args.index("--load_path") + 1]))
+        pm.shard_model(model, pm.make_grid(n_model))
+        model.to(torch.device("cuda", torch.cuda.current_device()) if cuda else "cpu")
+        model.eval().prepare_inference()
+        images = np.load(os.path.join(os.path.dirname(out), "first.npy"))
+        torch.save({"launches": launches,
+                    "log_probs": first_step_log_probs(torch, model, cfg, images)},
+                   f"{out}.{dist.get_rank()}.pt")
+    finally:
+        dist.destroy_process_group()
+    return rc
+
+
 def main(names) -> int:
     import torch
 
@@ -2904,6 +3207,7 @@ def main(names) -> int:
     smoke.export_path()
     smoke.eval_path()
     smoke.prune_path()
+    smoke.parallel_eval_path()
     smoke.train_path()
     smoke.scst_path()
     smoke.train_cli_path()

@@ -26,6 +26,16 @@ the card decodes the current one, and the previous batch's captions are
 drained after the next decode has been issued. The last batch is padded to
 the batch size by repeating its last row, so that every batch runs on the
 same launch plans.
+
+`--distributed` evaluates over a world of processes, one a card (torchrun, or
+any launcher that exports RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT),
+cut into `W / n_model` data ranks by `--n_model` model ranks
+(`parallel/mesh.py`): each data rank decodes its `batch_size / n_data` rows
+of every global batch (its last one padded by the same rule), the ranks of a
+model group decode the same rows on a model cut over them (tensor
+parallelism, collectives inside the group only), and the predictions, keyed
+by image id, are gathered to rank 0, which alone scores, prints and writes
+`--dump_predictions`. `--eval_loss` sums over the data ranks.
 """
 from __future__ import annotations
 
@@ -74,7 +84,7 @@ def evaluate_split(
     model_or_models, cfg, dataset, split: str, beam_size: int, batch_size: int,
     max_seq_len: int, features_path: str | None = None, verbose: bool = True,
     metrics=("bleu", "rouge", "cider"), step_impl: str = "pallas",
-    load_images=preprocess_batch, feature_store=None,
+    load_images=preprocess_batch, feature_store=None, grid=None,
 ):
     """Decode every image of a split and score. Returns (scores, predictions).
 
@@ -85,17 +95,25 @@ def evaluate_split(
     for end-to-end ones). `load_images(paths, size)` gives the uint8 NHWC
     images of a batch; `feature_store` (an object with `read_batch(img_ids)`
     -> (features, pads)) takes the place of the store at `features_path`.
+    `grid` (`parallel/mesh.py::make_grid`; the models already cut over its
+    model axis): this rank decodes its data rank's rows of each global
+    batch of `batch_size`, and the predictions are gathered to rank 0, which
+    alone scores; the other ranks return ({}, {}).
     """
     from ..config import DecodeConfig
     from ..data.features_io import FeatureStore
     from ..data.prefetch import PrefetchIterator
     from ..decode import beam_search as bs
     from ..evalcap.harness import evaluate_captions
+    from ..parallel import mesh as pm
     from ..utils.image import normalize_on_device
 
     vocab = dataset.vocab
     records = dataset.records(split)
     end2end = features_path is None
+    grid = grid or pm.Grid()
+    parallel = grid.n_data * grid.n_model > 1
+    local_batch = _local_batch(batch_size, grid)
     models = list(model_or_models) if isinstance(model_or_models, (list, tuple)) else [
         model_or_models]
     dev = next(models[0].parameters()).device
@@ -126,9 +144,8 @@ def evaluate_split(
     t0 = time.time()
 
     def batches():
-        for start in range(0, len(records), batch_size):
-            chunk = records[start : start + batch_size]
-            pad_rows = batch_size - len(chunk)  # static batch: pad the tail
+        for _, chunk in _local_chunks(records, batch_size, grid):
+            pad_rows = local_batch - len(chunk)  # static batch: pad the tail
             if end2end:
                 imgs = load_images([r["img_path"] for r in chunk], cfg.swin.img_size)
                 if pad_rows:
@@ -151,7 +168,7 @@ def evaluate_split(
         for r, row in zip(chunk, caps):
             predictions[r["img_id"]] = vocab.description(row[0]).lower()
         done += len(chunk)
-        if verbose:
+        if verbose and not parallel:
             print(
                 f"decoded {done}/{len(records)} "
                 f"({done / max(time.time() - t0, 1e-9):.2f} img/s)",
@@ -178,21 +195,55 @@ def evaluate_split(
         if store is not None and feature_store is None:
             store.close()
 
+    if parallel:
+        predictions = pm.gather_predictions(predictions)
+        if pm.process_index() != 0:
+            return {}, {}
+        predictions = {r["img_id"]: predictions[r["img_id"]] for r in records}
+        if verbose:
+            wall = time.time() - t0
+            print(f"decoded {len(records)} images in {wall:.3f} s "
+                  f"({len(records) / max(wall, 1e-9):.2f} img/s) on {grid.n_data} data "
+                  f"ranks x {grid.n_model} model ranks", flush=True)
     references = {r["img_id"]: r["captions"] for r in records if r["captions"]}
     preds_for_eval = {i: predictions[i] for i in references}
     scores = evaluate_captions(preds_for_eval, references, metrics=metrics, verbose=verbose)
     return scores, predictions
 
 
+def _local_batch(batch_size: int, grid) -> int:
+    """The rows a data rank decodes of each global batch."""
+    if batch_size % grid.n_data:
+        raise SystemExit(f"--batch_size {batch_size} (the global batch) does not split over "
+                         f"{grid.n_data} data ranks")
+    return batch_size // grid.n_data
+
+
+def _local_chunks(records, batch_size: int, grid):
+    """(global batch index, this data rank's records of that batch of
+    `batch_size`: its `batch_size / n_data` consecutive rows); a rank whose
+    rows of the last batch all lie past the split's end gets no chunk of it."""
+    local = _local_batch(batch_size, grid)
+    for i, start in enumerate(range(0, len(records), batch_size)):
+        first = start + grid.data_rank * local
+        chunk = records[first : min(first + local, start + batch_size)]
+        if chunk:
+            yield i, chunk
+
+
 @torch.inference_mode()
 def compute_evaluation_loss(
     model, cfg, dataset, split: str, batch_size: int, features_path: str | None = None,
-    load_images=preprocess_batch, feature_store=None,
+    load_images=preprocess_batch, feature_store=None, grid=None,
 ):
     """Mean label-smoothing loss over a split (reference test.py:80-138): the
-    first reference of each image, teacher-forced."""
+    first reference of each image, teacher-forced; each batch's loss is its
+    mean over the batch's non-pad tokens, weighted by the batch's images.
+    `grid`: this rank takes its data rank's rows of each batch, and the
+    batches' sums and token counts are summed over the data ranks."""
     from ..data.features_io import FeatureStore
     from ..data.text import pad_batch
+    from ..parallel import mesh as pm
     from ..train.losses import label_smoothing_loss
     from ..utils.image import normalize_on_device
 
@@ -204,10 +255,11 @@ def compute_evaluation_loss(
     if not end2end:
         store = feature_store if feature_store is not None else FeatureStore(features_path)
 
-    total, count = 0.0, 0
+    grid = grid or pm.Grid()
+    starts = range(0, len(records), batch_size)
+    sums = torch.zeros((len(starts), 2), dtype=torch.float64, device=dev)
     try:
-        for start in range(0, len(records), batch_size):
-            chunk = records[start : start + batch_size]
+        for i, chunk in _local_chunks(records, batch_size, grid):
             caps = [vocab.encode_caption(r["captions"][0]) for r in chunk]
             padded, _ = pad_batch(caps, vocab.pad_idx)
             toks = torch.tensor(padded, dtype=torch.int32, device=dev)
@@ -224,13 +276,17 @@ def compute_evaluation_loss(
                                enc_num_pads=torch.tensor(fpads, device=dev),
                                dec_num_pads=dec_pads)
                 pad_idx = cfg.pad_idx
-            loss = label_smoothing_loss(logits, targets, pad_idx)
-            total += float(loss) * len(chunk)
-            count += len(chunk)
+            sums[i, 0] = label_smoothing_loss(logits, targets, pad_idx,
+                                              divide_by_non_pads=False).double()
+            sums[i, 1] = (targets != pad_idx).sum()
     finally:
         if store is not None and feature_store is None:
             store.close()
-    return total / max(count, 1)
+    sums = pm.all_reduce_sum(sums, grid.data_group)
+    images = torch.tensor([len(records[s:s + batch_size]) for s in starts],
+                          dtype=torch.float64, device=dev)
+    per_batch = sums[:, 0] / sums[:, 1].clamp_min(1)
+    return float((per_batch * images).sum()) / max(len(records), 1)
 
 
 def load_state_dicts(args, template=None):
@@ -313,15 +369,44 @@ def main(argv=None):
     parser.add_argument("--step_impl", choices=STEP_IMPLS, default="pallas",
                         help="decode-step path: 'pallas' or 'pallas_fused'")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--distributed", action="store_true",
+                        help="evaluate over torch.distributed: one process per card, the "
+                             "process group from RANK, WORLD_SIZE, MASTER_ADDR and "
+                             "MASTER_PORT (NCCL on cuda, gloo on the CPU); --batch_size "
+                             "stays the global batch, split over the data ranks")
+    parser.add_argument("--n_model", type=int, default=1,
+                        help="model-axis size under --distributed: each group of n_model "
+                             "consecutive ranks serves one model cut over them (tensor "
+                             "parallelism; the FFs, Swin's qkv / proj / MLP on the 'pallas' "
+                             "backbone, the vocabulary projection and embedding). Not with "
+                             "--quantize (ROADMAP A9); the 'fused' backbone keeps its blocks "
+                             "whole (ROADMAP A10)")
     args = parser.parse_args(argv)
 
+    from ..parallel import mesh as pm
+    from .demo import resolve_device
+
+    pm.check_model_axis(args.n_model, quantize=args.quantize)
+    device = resolve_device(args.device)
+    joined = args.distributed and not pm.is_distributed()  # a caller's group stays
+    if args.distributed:
+        device = pm.init_distributed(device)
+    try:
+        return _evaluate(args, device)
+    finally:
+        if joined:
+            pm.shutdown()
+
+
+def _evaluate(args, device) -> int:
     from ..config import CaptionerConfig, ModelConfig, SwinConfig, remove_layers
     from ..deploy.quantization import load_quantized_state_dict, quantize_model
     from ..models.captioner import ExpansionNetV2
     from ..models.end_to_end import EndExpansionNetV2
-    from .demo import resolve_device
+    from ..parallel import mesh as pm
 
-    device = resolve_device(args.device)
+    grid = pm.make_grid(args.n_model)
+    rank0 = pm.process_index() == 0
     dataset = build_dataset(args)
     vocab = dataset.vocab
     cap = CaptionerConfig(
@@ -365,6 +450,9 @@ def main(argv=None):
         model = load_quantized_state_dict(model_cls(cfg), sd)
         if args.quantize != "none":
             quantize_model(model, args.quantize)
+        lines = pm.shard_model(model, grid)
+        if rank0 and not models:
+            print("\n".join(lines), flush=True)
         model.to(device).eval()
         if isinstance(model, EndExpansionNetV2):
             model.prepare_inference()
@@ -373,16 +461,17 @@ def main(argv=None):
 
     dumped = {}
     for beam in args.beam_sizes:
-        print(f"=== beam size {beam} ===", flush=True)
+        if rank0:
+            print(f"=== beam size {beam} ===", flush=True)
         scores, predictions = evaluate_split(
             model, cfg, dataset, args.split, beam, args.batch_size,
             args.max_seq_len, args.features_path, metrics=tuple(args.metrics),
-            step_impl=args.step_impl,
+            step_impl=args.step_impl, grid=grid,
         )
         for k, v in scores.items():
             print(f"{k}: {v:.4f}", flush=True)
         dumped[beam] = {str(k): v for k, v in predictions.items()}
-    if args.dump_predictions:
+    if args.dump_predictions and rank0:
         import json
 
         with open(args.dump_predictions, "w") as f:
@@ -390,9 +479,11 @@ def main(argv=None):
         print(f"predictions written to {args.dump_predictions}", flush=True)
     if args.eval_loss:
         loss = compute_evaluation_loss(
-            models[0], cfg, dataset, args.split, args.batch_size, args.features_path
+            models[0], cfg, dataset, args.split, args.batch_size, args.features_path,
+            grid=grid,
         )
-        print(f"eval loss: {loss:.4f}", flush=True)
+        if rank0:
+            print(f"eval loss: {loss:.4f}", flush=True)
     return 0
 
 

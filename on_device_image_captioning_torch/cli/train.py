@@ -39,8 +39,11 @@ PyTorch versions of every kernel).
 - `--distributed`: data parallel over `torch.distributed`
   (`parallel/mesh.py`), one process per card, from the launcher's RANK,
   WORLD_SIZE, MASTER_ADDR and MASTER_PORT; `--batch_size` is the global
-  batch. Rank 0 prints, logs, saves and evaluates; the others wait.
-  `--n_model` above 1 (tensor parallelism) is refused.
+  batch. Rank 0 prints, logs and saves; the others wait. The eval hook runs
+  on every rank, each decoding its shard of "val" (`cli/evaluate.py`'s
+  data-parallel `evaluate_split`), and rank 0 scores and prints.
+  `--n_model` above 1 (tensor-parallel training) is refused (ROADMAP A8);
+  `cli/evaluate.py` serves over a model axis.
 
 Two faults of the JAX CLI are not copied: a features-in run warm-started
 from a `.pth` reads its caption head (the JAX CLI converts it as an
@@ -154,8 +157,9 @@ def parse_args(argv=None):
                         "the process group from RANK, WORLD_SIZE, MASTER_ADDR and "
                         "MASTER_PORT (NCCL on cuda, gloo on the CPU)")
     p.add_argument("--n_model", type=int, default=1,
-                   help="tensor-parallel axis size; the port has data parallelism only "
-                        "(1)")
+                   help="model-axis size: training takes 1 only (data parallel under "
+                        "--distributed); tensor-parallel training is ROADMAP A8, and "
+                        "cli/evaluate.py takes --n_model above 1 for serving")
     p.add_argument("--prefetch", type=int, default=0,
                    help="prefetch depth: materialize the next batches on a host thread "
                         "while the device computes; 0 = synchronous. Checkpoints store "
@@ -317,11 +321,12 @@ def main(argv=None):
     from ..utils.profiling import MetricsLogger, StepTimer
     from .demo import resolve_device
 
-    pm.check_model_axis(args.n_model)
+    pm.check_model_axis(args.n_model, training=True)
     device = resolve_device(args.device)
     if args.distributed:
         device = pm.init_distributed(device)
     rank = pm.process_index()
+    grid = pm.make_grid(1)  # the eval hook's data ranks
     random.seed(args.seed)
     np.random.seed(args.seed)
 
@@ -505,9 +510,7 @@ def main(argv=None):
                 last_save = time.time()
 
             if step % args.eval_every_iter == 0:
-                if rank == 0:
-                    evaluate_val(model, cfg, dataset, args, max_seq_len)
-                pm.barrier()
+                evaluate_val(model, cfg, dataset, args, max_seq_len, grid)
     finally:
         if prefetcher is not None:
             prefetcher.close()
@@ -521,10 +524,13 @@ def main(argv=None):
     return 0
 
 
-def evaluate_val(model, cfg, dataset, args, max_seq_len) -> None:
+def evaluate_val(model, cfg, dataset, args, max_seq_len, grid=None) -> None:
     """The eval hook: `evaluate_split` on "val" at each `--eval_beam_sizes`,
     on the current weights (the inference layout is laid out anew, and
-    dropped after), then back to training."""
+    dropped after), then back to training. Under `--distributed` every rank
+    decodes its data rank's rows of the split (`grid`) and rank 0 scores and
+    prints."""
+    from ..parallel import mesh as pm
     from .evaluate import evaluate_split
 
     model.eval()
@@ -534,8 +540,10 @@ def evaluate_val(model, cfg, dataset, args, max_seq_len) -> None:
         for beam in args.eval_beam_sizes:
             scores, _ = evaluate_split(model, cfg, dataset, "val", beam,
                                        args.eval_parallel_batch_size, max_seq_len,
-                                       args.features_path, step_impl=args.step_impl)
-            print(f"[eval beam {beam}] {scores}", flush=True)
+                                       args.features_path, step_impl=args.step_impl,
+                                       grid=grid)
+            if pm.process_index() == 0:
+                print(f"[eval beam {beam}] {scores}", flush=True)
     finally:
         release_inference_layout(model)
         model.train()

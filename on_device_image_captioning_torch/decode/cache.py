@@ -230,7 +230,7 @@ def dec_step_unguarded(
             for _ in range(cfg.N_dec)
         ]
 
-    y = embedding(model.out_embedder.embed.weight, tokens) * math.sqrt(float(cfg.d_model))
+    y = embedding(model.out_embedder.embed, tokens) * math.sqrt(float(cfg.d_model))
     y = y + model.pos_encoder.weight[pos][None]
     y_list = []
     for layer, src, dst, (kc, vc) in zip(model.decoders, state.caches, spare, state.cross):

@@ -96,7 +96,7 @@ class ExpansionNetV2(nn.Module):
                 b, t, cross_input.shape[1], row_pads=dec_num_pads,
                 col_pads=enc_num_pads, device=dev,
             )
-        y = dropout(embedding(self.out_embedder.embed.weight, dec_input), cfg.drop.dec_input,
+        y = dropout(embedding(self.out_embedder.embed, dec_input), cfg.drop.dec_input,
                     train, generator) * math.sqrt(float(cfg.d_model))
         y = y + self.pos_encoder.weight[:t][None]
         y_list = []

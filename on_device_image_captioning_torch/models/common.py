@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..deploy.quantization import QuantLinear
+from ..parallel.tensor import ShardedEmbedding, ShardedLinear
 from ..ops.layernorm import layernorm as _layernorm_op
 from ..ops.layernorm import layernorm_autograd as _layernorm_autograd
 
@@ -22,9 +23,12 @@ from ..ops.layernorm import layernorm_autograd as _layernorm_autograd
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
     """y = x W^T + b in `dtype` (x's dtype when None); the result keeps the
     compute dtype, as the JAX package's `linear` does. A `QuantLinear` ignores
-    `dtype` and returns fp32."""
+    `dtype` and returns fp32; a `ShardedLinear` (tensor parallelism,
+    `parallel/tensor.py`) computes its rank's part and meets the others'."""
     if isinstance(layer, QuantLinear):
         return layer(x)
+    if isinstance(layer, ShardedLinear):
+        return layer(x, dtype)
     if dtype is not None:
         x = x.to(dtype)
     w = layer.weight.to(x.dtype)
@@ -41,10 +45,14 @@ def layernorm(norm: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.T
     return _layernorm_op(x.contiguous(), norm.weight, norm.bias, eps)
 
 
-def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Row lookup that CLAMPS out-of-range ids, as `jnp.take(..., mode="clip")`
-    does in the JAX package (F.embedding raises instead, and on CUDA that is a
-    device-side assert)."""
+def embedding(embed: nn.Module, ids: torch.Tensor) -> torch.Tensor:
+    """Row lookup in an `nn.Embedding` that CLAMPS out-of-range ids, as
+    `jnp.take(..., mode="clip")` does in the JAX package (F.embedding raises
+    instead, and on CUDA that is a device-side assert); a `ShardedEmbedding`
+    clamps too and assembles the row from the ranks' slices."""
+    if isinstance(embed, ShardedEmbedding):
+        return embed(ids)
+    table = embed.weight
     return F.embedding(ids.long().clamp(0, table.shape[0] - 1), table)
 
 

@@ -96,31 +96,51 @@ WINDOW, SHIFT, N_TOKENS = 12, 6, 144
 def window_attention_cases(dev) -> Iterator[Case]:
     """The four Swin-L/384 stages at B=2, with and without the shift mask,
     fp32 and bf16. Stage 3 (one window) has no shift on the main path; a
-    random 0/-100 mask stands in so the masked branch runs there too."""
-    for dt in (torch.float32, torch.bfloat16):
-        tol = TOL[dt]
-        for stage, (c, heads, res) in enumerate(STAGES):
-            nw = (res // 12) ** 2
-            g = torch.Generator().manual_seed(100 + stage)
-            qkv = _randn((2 * nw, 144, 3 * c), g, dev, dtype=dt)
-            bias = _randn((heads, 144, 144), g, dev, scale=0.5)
+    random 0/-100 mask stands in so the masked branch runs there too. Then
+    the tensor-parallel serve shape (MAIN_PATH_TP): stage 0 of a b8 batch
+    on one rank of a model group of 2, its 3 of the 6 heads."""
+
+    def case(stage, b, heads, dt, m, label):
+        c, _, res = STAGES[stage]
+        nw = (res // 12) ** 2
+        g = torch.Generator().manual_seed(100 + stage + 1000 * (heads != STAGES[stage][1]))
+        width = heads * k1.HEAD_DIM
+        qkv = _randn((b * nw, 144, 3 * width), g, dev, dtype=dt)
+        bias = _randn((heads, 144, 144), g, dev, scale=0.5)
+        if m:
             if nw > 1:
                 mask = torch.from_numpy(shift_attn_mask(res, 12, 6)).to(dev)
             else:
                 mask = torch.where(torch.rand((1, 144, 144), generator=g) > 0.7, -100.0, 0.0)
                 mask = mask.to(dev)
-            for m in (mask, None):
-                a = (qkv, bias, m, heads, k1.HEAD_DIM**-0.5)
-                yield Case(
-                    "window_attention",
-                    f"stage{stage} qkv{tuple(qkv.shape)} H{heads} "
-                    f"{'mask' if m is not None else 'nomask'} {_dtype_name(dt)}",
-                    lambda a=a: k1.window_attention(*a),
-                    lambda a=a: k1.window_attention_reference(*a),
-                    _one(tol), args=a,
-                    nbytes=_nbytes(qkv, bias, m) + qkv.numel() // 3 * qkv.element_size(),
-                    flops=4 * qkv.shape[0] * 144 * 144 * c, matmul=True,
-                )
+        else:
+            mask = None
+        a = (qkv, bias, mask, heads, k1.HEAD_DIM**-0.5)
+        return Case(
+            "window_attention",
+            f"{label}qkv{tuple(qkv.shape)} H{heads} "
+            f"{'mask' if m else 'nomask'} {_dtype_name(dt)}",
+            lambda a=a: k1.window_attention(*a),
+            lambda a=a: k1.window_attention_reference(*a),
+            _one(TOL[dt]), args=a,
+            nbytes=_nbytes(qkv, bias, mask) + qkv.numel() // 3 * qkv.element_size(),
+            flops=4 * qkv.shape[0] * 144 * 144 * width, matmul=True,
+        )
+
+    for dt in (torch.float32, torch.bfloat16):
+        for stage, (_, heads, _) in enumerate(STAGES):
+            for m in (True, False):
+                yield case(stage, 2, heads, dt, m, f"stage{stage} ")
+    for b, stage, n_model in MAIN_PATH_TP:
+        for dt in (torch.float32, torch.bfloat16):
+            yield case(stage, b, STAGES[stage][1] // n_model, dt, True,
+                       f"b{b} stage{stage} tp{n_model} ")
+
+
+# (batch, stage, model ranks) of the tensor-parallel serve shapes with cases
+# of their own: run "parallel_eval"'s "pallas" backbone at b8 on one rank of a
+# model group of 2 (stage 0's 6 heads, 3 a rank)
+MAIN_PATH_TP = [(8, 0, 2)]
 
 
 # decode-step shapes: (rows, images, L, positions, seed). 24 rows are b8 x
