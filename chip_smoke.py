@@ -118,6 +118,25 @@ Phases, in order (any failure raises and exits non-zero before the result):
    kernel outside the run's paths. Prints the CLI's s/it at --prefetch 0
    and 2 and the peak device memory of one iteration with and without
    --remat.
+   Tensor-parallel training (run "train_tp", and "train_tp_pallas" for its
+   "pallas" form): `cli/train.py --distributed --n_model 2` in two worker
+   processes on the one card (gloo), Swin-L/384 + d512 at Swin depths (2,
+   2, 2, 2), fp32 with TF32 off, b4 on run "train_cli"'s JPEGs, dropouts and
+   stochastic depth 0.1, on "fused" (Swin whole on each rank, its training
+   kernels) and "pallas" (Swin cut by heads): two XE iterations from a
+   seeded checkpoint, a checkpoint after each, then one SCST iteration with
+   the on-card reward and the eval hook; the same XE call in this process
+   first, whose ReLU patterns the two processes' XE call runs with
+   (`relu_signs`), and its SCST call resumed at --n_model 1 from the two
+   processes' XE checkpoint. Each loss within 1e-6 of one process's
+   (relative to the size of its terms), the SCST samples equal, Adam's
+   moments within 1e-3 of each tensor's largest after the first XE
+   iteration and after SCST, 3e-3 after the second, the weights after SCST
+   within 2e-5; the replicated weights bit-equal across
+   the ranks at every checkpoint; each rank's launches per step equal one
+   process's. Prints the ReLU inputs of each XE iteration whose sign
+   differs from one process's, the bytes a rank holds and the seconds a step
+   beside one process's.
    Parallel evaluation (run "parallel_eval"): `cli/evaluate.py
    --distributed` in two worker processes on the one card, each joining a
    gloo group itself, Swin-L/384 + d512 at Swin depths (2, 2, 2, 2), the
@@ -413,17 +432,74 @@ PARALLEL_TIMEOUT = 600  # seconds a form's two workers may take
 # passes over the split (--beam_sizes 3 3): each process's first pass loads the
 # kernels and warms cuBLAS, so the img/s compared are the last pass's
 PARALLEL_PASSES = 2
+# run "train_tp": `cli/train.py --distributed --n_model 2` in two processes on
+# the one card (gloo), Swin-L/384 + d512 (V = 10000) at Swin depths SHALLOW,
+# fp32 with TF32 off, over run "train_cli"'s corpus (b4, captions of
+# L_TRAIN), in two forms: form -> the run its launches are kept under.
+# "fused" keeps Swin whole on every rank and trains it on the training
+# kernels; "pallas" cuts Swin by heads. Each form: two XE iterations from a
+# checkpoint written at step TRAIN_TP_START (two batches before the end of the
+# 7-batch epoch), a checkpoint after each, in one process (its ReLU patterns
+# recorded) and then in two with those patterns imposed (`relu_signs`: the
+# second iteration starts from weights that Adam's first update left apart by
+# up to 2 lr, which flips ReLU inputs near 0); one SCST iteration with the
+# on-card reward (the image-wise epoch is one batch) and the eval hook on val
+# at beam 3, in two processes from their XE checkpoint, and in one process
+# resumed at --n_model 1 from that same --n_model 2 checkpoint.
+# Held: losses within TRAIN_TP_LOSS_RTOL of one process's, relative to the
+# size of their terms (the SCST loss, a mean of (r - b) x sum log p, cancels
+# to near 0); the SCST samples equal; at each checkpoint Adam's moments, which
+# carry the gradients, within TRAIN_TP_MOMENTS of each tensor's largest (the
+# decoder's attention key bias, whose gradient is rounding alone, left out;
+# TRAIN_TP_MOMENTS_LATER after the second XE iteration);
+# the weights after SCST within TRAIN_TP_WEIGHTS (after XE not held: Adam
+# turns a rounding difference of a gradient near 0 into a whole update of
+# either sign); the replicated weights bit-equal across the ranks at every
+# checkpoint; each rank's launches per step equal to one process's.
+TRAIN_TP, TRAIN_TP_PALLAS = "train_tp", "train_tp_pallas"
+TRAIN_TP_FORMS = {"fused": TRAIN_TP, "pallas": TRAIN_TP_PALLAS}
+TRAIN_TP_N = 2  # --n_model: one model group of the two processes
+TRAIN_TP_START = 5
+TRAIN_TP_LOSS_RTOL = 1e-6
+TRAIN_TP_MOMENTS = 1e-3
+# the second XE iteration starts from weights that Adam's first update left
+# apart; with the ReLU patterns imposed its moments read 1.3e-4 ("fused") and
+# 1.017e-3 ("pallas", decoders.1.dyn_exp.selector_embed), against 3.2e-3 and
+# 4.2e-2 with them free (H100, PERF.md PR 19); a wrong gradient reads about 1
+TRAIN_TP_MOMENTS_LATER = 3e-3
+TRAIN_TP_WEIGHTS = 2e-5  # a fifth of one update at the CLI's lr
+TRAIN_TP_TIMEOUT = 900  # seconds the two workers may take (both forms)
+TRAIN_TP_GROUP = "== run train_tp: the next form's CLI calls"
 for _k in KERNELS.values():
     _k["paths"] += tuple(r for r, (src, *_) in EXPORT_RUNS.items() if src in _k["paths"])
     _k["paths"] += (PRUNE,) if EVAL in _k["paths"] else ()
 for _name in ("window_attention", "dyn_exp_step", "topk", "layernorm"):
     KERNELS[_name]["paths"] += (PARALLEL_EVAL, PARALLEL_DP)
+    KERNELS[_name]["paths"] += (TRAIN_TP, TRAIN_TP_PALLAS)  # the eval hook and the sampler
+for _name in ("patch_embed", "downsample", "swin_block", "swin_attn_half", "swin_mlp_half",
+              "window_transition", "swin_block_train", "swin_attn_bwd", "swin_mlp_bwd",
+              "swin_attn_half_train", "swin_mlp_half_train"):
+    KERNELS[_name]["paths"] += (TRAIN_TP,)  # "fused": training, and the eval hook's encode
 # launches of the training kernels in one XE step of Swin-L (depths 2, 2, 18,
 # 2): the whole-block forward at stages 0 and 1, the two half forwards at
 # stage 2, both backwards once per block of stages 0-2, and a transition
 # before every shifted block and after it, forward and backward
 TRAIN_LAUNCHES = {"swin_block_train": 4, "swin_attn_half_train": 18, "swin_mlp_half_train": 18,
                   "swin_attn_bwd": 22, "swin_mlp_bwd": 22, "window_transition": 44}
+
+
+def train_launches(depths):
+    """TRAIN_LAUNCHES at Swin-L/384's widths and other (even) depths: the
+    whole-block forward per block of stages 0 and 1, the half forwards per
+    block of stage 2, both backwards per block of stages 0-2, and a
+    transition before every shifted block and after it, forward and
+    backward (TRAIN_LAUNCHES is this at (2, 2, 18, 2))."""
+    windowed = sum(depths[:3])
+    return {"swin_block_train": depths[0] + depths[1], "swin_attn_half_train": depths[2],
+            "swin_mlp_half_train": depths[2], "swin_attn_bwd": windowed,
+            "swin_mlp_bwd": windowed, "window_transition": 2 * windowed}
+
+
 # launches of the window-resident kernels in one encode of Swin-L (depths
 # 2, 2, 18, 2): one per block of stages 0-2 (the whole-block kernel at stages
 # 0 and 1 unless every stage is on the halves), one per stage boundary, and
@@ -1284,6 +1360,298 @@ class Smoke:
                 f"{'bf16' if bf16 else 'fp32'} Swin depths {SHALLOW}: two processes "
                 f"({form}) {rate(outs[0]):.2f} against one process {one_rate:.2f} | {self.card}")
 
+    def train_tp_path(self):
+        """Phase 4, run "train_tp": `cli/train.py --distributed --n_model 2` as
+        a user runs it, in two worker processes on the one card, each joining
+        a gloo group itself (`train_tp_worker`, as run "parallel_eval" starts
+        its workers), against the same CLI calls in this process (its SCST
+        call resumed at --n_model 1 from the two processes' XE checkpoint),
+        for each form of TRAIN_TP_FORMS (the constants there say what runs
+        and what is held). Swin-L/384 + d512, V = 10000, Swin depths SHALLOW
+        (full width), fp32 with TF32 off, over run "train_cli"'s corpus.
+        Prints per form the losses, the weights' and Adam moments' largest
+        departures, the launches a rank makes per step, what rank 0 says a
+        rank holds, and each step's seconds beside one process's."""
+        import shutil
+        import tempfile
+
+        root = tempfile.mkdtemp(prefix="train_tp_")
+        try:
+            self._train_tp(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    def _train_tp(self, root):
+        import dataclasses
+        import gc
+        import os
+        import pickle
+        import shutil
+        import socket
+
+        torch = self.torch
+        from on_device_image_captioning_torch.cli import train as cli
+        from on_device_image_captioning_torch.config import end_expansionnet_v2_coco
+        from on_device_image_captioning_torch.data import loader as loader_mod
+        from on_device_image_captioning_torch.data.datasets import load_coco_karpathy
+        from on_device_image_captioning_torch.models.end_to_end import (
+            EndExpansionNetV2, init_weights,
+        )
+        from on_device_image_captioning_torch.train import schedules, train_step
+        from on_device_image_captioning_torch.utils import checkpointing as ckpt
+
+        base = end_expansionnet_v2_coco(compute_dtype=torch.float32)
+        vocab, vocab_path, ann = self.cli_corpus(root, base.captioner)
+        dataset = load_coco_karpathy(ann, root, vocab=vocab)
+        here = os.path.dirname(os.path.abspath(__file__))
+        forms = {}  # form -> (calls, dirs, the start's weights)
+        for form in TRAIN_TP_FORMS:
+            cfg = dataclasses.replace(
+                base, swin=dataclasses.replace(base.swin, attention_impl=form, depths=SHALLOW),
+                captioner=dataclasses.replace(base.captioner, max_seq_len=L_TRAIN))
+            common = ["--annotations", ann, "--images_path", root, "--vocab_path", vocab_path,
+                      "--is_end_to_end", "--swin_attention_impl", form,
+                      "--swin_depths", *map(str, SHALLOW), "--batch_size", str(B_TRAIN),
+                      "--max_seq_len", str(L_TRAIN), "--seed", str(SEED),
+                      "--sched_type", "custom_warmup_anneal", "--warmup_iters", "1",
+                      "--lr", str(CLI_LR), "--print_every_iter", "1", "--device", "cuda",
+                      "--save_every_minutes", "0", "--how_many_checkpoints", "3"]
+            scst = ["--reinforce", "--device_reward", "--num_samples", str(N_SAMPLES),
+                    "--scst_max_len", str(L_TRAIN), "--eval_every_iter", "1",
+                    "--eval_beam_sizes", "3", "--eval_parallel_batch_size", str(CLI_VAL)]
+            calls = [common + ["--num_epochs", "1"], common + scst + ["--num_epochs", "1"]]
+            # the start: the CLI's own seeded weights and a fresh optimizer,
+            # the loader two batches before the end of the epoch
+            args = cli.parse_args(calls[0])
+            model = init_weights(EndExpansionNetV2(cfg), torch.Generator().manual_seed(SEED))
+            loader = loader_mod.ShardedCaptionLoader(
+                dataset, [SEED + e for e in range(2)], batch_size=B_TRAIN, mode="caption_wise")
+            sched = schedules.custom_warmup_anneal(
+                CLI_LR, 1, args.min_lr, args.anneal_coeff, args.anneal_every_epoch,
+                loader.get_num_batches())
+            opt = train_step.with_grad_accum(cli.build_optimizer(model.parameters(), args, sched),
+                                             1)
+            for _ in range(TRAIN_TP_START):
+                loader.get_next_batch(L_TRAIN)
+            if loader.get_num_batches() - TRAIN_TP_START != 2:
+                raise AssertionError(f"the XE epoch has {loader.get_num_batches()} batches")
+            dirs = {who: os.path.join(root, form, who) for who in ("one", "tp", "resume")}
+            first = ckpt.save_checkpoint(dirs["one"], model.state_dict(), opt.state_dict(),
+                                         TRAIN_TP_START, loader.save_state(), "xe", epoch_it=0,
+                                         batch_it=TRAIN_TP_START, batch_size=B_TRAIN)
+            os.makedirs(dirs["tp"])
+            os.link(first, os.path.join(dirs["tp"], os.path.basename(first)))
+            forms[form] = (calls, dirs, {k: v.clone() for k, v in model.state_dict().items()})
+            del model, opt
+            gc.collect()
+
+        # one process: the XE call from the start, its ReLU patterns recorded
+        ones = {}
+        for form, (calls, dirs, _) in forms.items():
+            ones[form] = train_tp_calls(
+                self, [calls[0] + ["--save_path", dirs["one"] + "/"]], "record")
+            gc.collect()
+            torch.cuda.empty_cache()
+        # two processes, one model group: both forms' calls, one form after the
+        # other, with one process's ReLU patterns imposed on the XE call
+        spec = os.path.join(root, "calls.pickle")
+        with open(spec, "wb") as f:
+            pickle.dump([([c + ["--save_path", dirs["tp"] + "/", "--distributed", "--n_model",
+                                str(TRAIN_TP_N)] for c in calls], ones[form]["signs"])
+                         for form, (calls, dirs, _) in forms.items()], f)
+        for one in ones.values():
+            one["signs"] = None
+        sock = socket.socket()
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        out = os.path.join(root, "rank")
+        cmd = [sys.executable, "-c", "import sys, chip_smoke; "
+               "sys.exit(chip_smoke.train_tp_worker(sys.argv[1:]))", spec, out]
+        procs = [subprocess.Popen(
+            cmd, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}) for r in (0, 1)]
+        start = time.perf_counter()
+        try:
+            outs = [p.communicate(timeout=TRAIN_TP_TIMEOUT)[0] for p in procs]
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise AssertionError(f"run {TRAIN_TP!r}: a worker did not finish within "
+                                 f"{TRAIN_TP_TIMEOUT} s")
+        wall = time.perf_counter() - start
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                log(text[-4000:])
+                raise AssertionError(f"run {TRAIN_TP!r}: worker {r} exited {p.returncode}")
+        ranks = [torch.load(f"{out}.{r}.pt") for r in (0, 1)]  # [rank][form]
+        texts = outs[0].split(TRAIN_TP_GROUP)[1:]  # rank 0's output, form by form
+        for i, (form, run) in enumerate(TRAIN_TP_FORMS.items()):
+            calls, dirs, start_weights = forms[form]
+            # one process's SCST call resumed at --n_model 1 from the --n_model
+            # 2 XE checkpoint (the phase flip keeps its weights), so both SCST
+            # steps start equal
+            one = ones.pop(form)
+            xe_tp = [f for f in os.listdir(dirs["tp"]) if (m := ckpt._NAME.match(f))
+                     and m["info"] == "xe"]
+            os.makedirs(dirs["resume"])
+            shutil.copy(os.path.join(dirs["tp"], sorted(xe_tp)[-1]), dirs["resume"])
+            one["steps"] += train_tp_calls(
+                self, [calls[1] + ["--save_path", dirs["resume"] + "/"]])["steps"]
+            self._train_tp_hold(form, run, one, [rank[i] for rank in ranks], dirs,
+                                start_weights, texts[i], wall)
+            del forms[form]
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def _train_tp_hold(self, form, run, one, ranks, dirs, start, text, wall):
+        """Run "train_tp"'s checks of one form (TRAIN_TP_FORMS says what)."""
+        import os
+
+        from on_device_image_captioning_torch.utils import checkpointing as ckpt
+
+        torch = self.torch
+
+        def kinds(records):
+            return [r["kind"] for r in records]
+
+        def nonzero(counts):
+            return {k: v for k, v in counts.items() if v}
+
+        if kinds(one["steps"]) != ["xe", "xe", "scst_fused", "eval"] or any(
+                kinds(r["steps"]) != kinds(one["steps"]) for r in ranks):
+            raise AssertionError(f"run {run!r}: steps {kinds(one['steps'])} in one process, "
+                                 f"{[kinds(r['steps']) for r in ranks]} in the two")
+        losses = [[s["loss"] for s in rec["steps"] if s["kind"] != "eval"]
+                  for rec in (one, *ranks)]
+        if losses[1] != losses[2]:
+            raise AssertionError(f"run {run!r}: the ranks' losses differ: {losses[1:]}")
+        scales = [s["scale"] for s in one["steps"] if s["kind"] != "eval"]
+        rel = max(abs(a - b) / c for a, b, c in zip(losses[1], losses[0], scales))
+        if not rel <= TRAIN_TP_LOSS_RTOL:
+            raise AssertionError(f"run {run!r}: losses {losses[1]} against one process's "
+                                 f"{losses[0]} ({rel:.3e} relative)")
+        tokens = [[s["tokens"] for s in rec["steps"] if s["kind"] == "scst_fused"][0]
+                  for rec in (one, *ranks)]
+        if not all(torch.equal(t, tokens[0]) for t in tokens[1:]):
+            raise AssertionError(f"run {run!r}: the SCST samples differ from one process's")
+        # launches: each rank's, step by step, equal to one process's
+        for r, rec in enumerate(ranks):
+            for i, (a, b) in enumerate(zip(rec["steps"], one["steps"])):
+                if a["launches"] != b["launches"]:
+                    raise AssertionError(f"run {run!r} rank {r} step {i} ({a['kind']}): "
+                                         f"launches {nonzero(a['launches'])} against one "
+                                         f"process's {nonzero(b['launches'])}")
+        total = {k: sum(s["launches"][k] for s in ranks[0]["steps"]) for k in KERNELS}
+        self.check_paths(run, total)
+        if form == "fused":
+            want = train_launches(SHALLOW)
+            for s in ranks[0]["steps"]:
+                got = {k: s["launches"][k] for k in want}
+                if s["kind"] != "eval" and got != want:
+                    raise AssertionError(f"run {run!r} {s['kind']}: training launches {got} "
+                                         f"!= {want}")
+        self.launches[run] = total
+        # the replicated weights at every checkpoint: bit-equal across the ranks
+        digests = [rec["replicated"] for rec in ranks]
+        if len(digests[0]) != 3 or digests[0] != digests[1] or not digests[0][0]:
+            raise AssertionError(f"run {run!r}: replicated weights differ across the ranks "
+                                 f"({len(digests[0])} and {len(digests[1])} checkpoints)")
+        # the checkpoints against one process's: Adam's moments (the first a
+        # decayed sum of 0.1 x the gradients, the second of 0.001 x their
+        # squares), which carry the gradients, within TRAIN_TP_MOMENTS of each
+        # tensor's largest; the weights after SCST within TRAIN_TP_WEIGHTS.
+        # Misses are raised after the run's lines are printed.
+        misses = []
+
+        def held(a, b, what, weights=None, moments=TRAIN_TP_MOMENTS):
+            pa, pb = a["params"], b["params"]
+            ma, mb = (named_moments(x["opt_state"], x["params"]) for x in (a, b))
+            if pa.keys() != pb.keys() or ma.keys() != mb.keys():
+                raise AssertionError(f"run {run!r} {what}: other keys")
+            far = {k: float((pa[k].float() - v.float()).abs().max()) for k, v in pb.items()}
+            rel = {}
+            for k, v in mb.items():
+                if k[0].endswith("mha.Wk.bias"):  # its gradient is rounding alone
+                    continue
+                big = float(v.abs().max())
+                rel[k] = float((ma[k] - v).abs().max()) / big if big else float(ma[k].abs().max())
+            top = sorted(((r, k) for k, r in rel.items()), reverse=True)[:3]
+            worst = max((r, k) for k, r in far.items())
+            if top[0][0] > moments or (weights is not None and worst[0] > weights):
+                misses.append(f"run {run!r} {what}: moments, the furthest from one process's: "
+                              f"{top} (limit {moments}); weights {worst} (limit {weights})")
+            return worst, top, weights
+
+        def newest(d, info, back=1):  # onto the card: the comparisons run there
+            names = [f for f in os.listdir(d) if (m := ckpt._NAME.match(f)) and m["info"] == info]
+            return torch.load(os.path.join(d, sorted(names)[-back]), weights_only=True,
+                              map_location=self.dev)
+
+        # the XE iterations ran with one process's ReLU patterns imposed (the
+        # second starts from weights that Adam's first update left apart);
+        # their weights are not held (Adam turns a rounding difference of a
+        # gradient near 0 into a whole update of either sign); SCST starts
+        # from equal weights and a fresh optimizer
+        got = {"XE checkpoint, first iteration": held(
+                   newest(dirs["tp"], "xe", 2), newest(dirs["one"], "xe", 2), "XE 1"),
+               "XE checkpoint, second iteration": held(
+                   newest(dirs["tp"], "xe"), newest(dirs["one"], "xe"), "XE 2",
+                   moments=TRAIN_TP_MOMENTS_LATER),
+               "SCST checkpoint (one process from the --n_model 2 XE checkpoint at "
+               "--n_model 1)": held(newest(dirs["tp"], "rf"), newest(dirs["resume"], "rf"),
+                                    "SCST", TRAIN_TP_WEIGHTS)}
+        # the ReLU inputs whose sign differs from one process's, per iteration
+        # (a rank's columns counted on each rank, whole inputs once)
+        signs = [rec["signs"] for rec in ranks]
+        if len(signs[0]) % 2 or len(signs[0]) != len(signs[1]):
+            raise AssertionError(f"run {run!r}: {len(signs[0])} and {len(signs[1])} ReLU calls")
+        flips = [(shape, int(np.prod(shape)) * (TRAIN_TP_N if cut else 1),
+                  n0 + (n1 if cut else 0)) for (shape, cut, n0), (_, _, n1) in zip(*signs)]
+        half = len(flips) // 2
+        flipped = [[(i, shape, n) for i, (shape, _, n) in enumerate(part) if n]
+                   for part in (flips[:half], flips[half:])]
+        moved = max(float((v.float() - start[k].to(v.device).float()).abs().max())
+                    for k, v in newest(dirs["one"], "xe")["params"].items())
+        held_lines = list(dict.fromkeys(line.strip() for line in text.splitlines()
+                                        if "a rank holds" in line))
+        if len(held_lines) < 2:
+            raise AssertionError(f"run {run!r}: rank 0 did not say what a rank holds")
+
+        def secs(rec, kind):
+            return [round(s["seconds"], 4) for s in rec["steps"] if s["kind"] == kind]
+
+        log(f"phase 4 tensor-parallel training, run {run!r} (cli.train.main --distributed "
+            f"--n_model 2, 2 processes on one card, gloo; Swin-L/384 + d512, V=10000, Swin "
+            f"depths {SHALLOW}, '{form}', fp32, b{B_TRAIN}): losses (XE, XE, SCST) "
+            f"{losses[1]} against one process's {losses[0]} "
+            f"({rel:.3e} of the size of their terms); SCST samples equal; the weights moved up "
+            f"to {moved:.3e} by the steps")
+        for what, (worst, top, limit) in got.items():
+            log(f"  {what}: Adam's moments within {top[0][0]:.3e} of each tensor's largest "
+                f"(the furthest {top}); weights within {worst[0]:.3e} of one process's at "
+                f"{worst[1]} ({'not held' if limit is None else f'limit {limit}'})")
+        for it, part in enumerate(flipped):
+            log(f"  XE iteration {it + 1}: {sum(n for *_, n in part)} ReLU inputs of "
+                f"{sum(size for _, size, _ in flips[:half])} in {half} calls take "
+                f"another sign than one process's, whose patterns were imposed (call, the "
+                f"rank's shape, inputs): {part}")
+        log(f"  replicated weights bit-equal across the ranks at each of "
+            f"{len(digests[0])} checkpoints ({len(digests[0][0])} tensors)")
+        for s in ranks[0]["steps"]:
+            log(f"  launches a rank, {s['kind']}: {nonzero(s['launches'])} (= one process's)")
+        for line in held_lines:
+            log(f"  {line}")
+        log(f"  seconds a step (host clock, synchronized; XE, XE, SCST, eval hook): two "
+            f"processes {[round(s['seconds'], 4) for s in ranks[0]['steps']]} against one "
+            f"process {[round(s['seconds'], 4) for s in one['steps']]}; XE s/it (the second "
+            f"iteration) {secs(ranks[0], 'xe')[-1] / secs(one, 'xe')[-1]:.3f}x one process's; "
+            f"workers' wall {wall:.1f} s (both forms) | {self.card}")
+        if misses:
+            raise AssertionError("; ".join(misses))
+
     def opcheck_ops(self):
         """Phase 3: `torch.library.opcheck` of every `odic` op on CUDA inputs
         (`ops/_cases.py::opcheck_calls`: the first case of each inference
@@ -1646,14 +2014,17 @@ class Smoke:
             raise AssertionError(f"parameters without a finite gradient: {bad[:5]}")
         self.trainer = (cfg, model, optimizer, step, batch, gen)
 
-    def relu_signs(self, fn, impose=None):
+    def relu_signs(self, fn, impose=None, part=None):
         """fn() with `torch.relu` replaced for the call (only the caption head
         calls it): returns fn's result and the pattern `x > 0` of every call
         made while gradients are recorded, in order, on the CPU. With
         `impose`, such a list, each of those calls passes its input where the
         pattern says so and 0 elsewhere, whatever the input's own sign, and
-        its gradient follows the pattern too. Calls under no_grad (the SCST
-        sampler's plain decode step on the CPU, which the card's K2 makes
+        its gradient follows the pattern too. `part` = (model rank, n_model)
+        imposes one process's patterns on a rank of a model group: where the
+        input is the rank's columns of a column-cut layer's output (the FF
+        hidden), the rank's columns of the pattern. Calls under no_grad (the
+        SCST sampler's plain decode step on the CPU, which the card's K2 makes
         without them) pass through."""
         torch = self.torch
         real, seen, given = torch.relu, [], iter(impose or ())
@@ -1664,13 +2035,28 @@ class Smoke:
             seen.append((x > 0).cpu())
             if impose is None:
                 return real(x)
-            return torch.where(next(given).to(x.device), x, torch.zeros_like(x))
+            p = self.pattern_part(next(given), x.shape, part)
+            return torch.where(p.to(x.device), x, torch.zeros_like(x))
 
         torch.relu = relu
         try:
             return fn(), seen
         finally:
             torch.relu = real
+
+    @staticmethod
+    def pattern_part(p, shape, part):
+        """The part of one process's ReLU pattern `p` that a rank's input of
+        `shape` sees (`relu_signs`' `part`): all of it, or, for the rank's
+        columns of a column-cut output, those columns."""
+        if tuple(p.shape) == tuple(shape) or part is None:
+            return p
+        rank, n = part
+        w = shape[-1]
+        if tuple(p.shape[:-1]) != tuple(shape[:-1]) or p.shape[-1] != n * w:
+            raise AssertionError(f"a ReLU input {tuple(shape)} against a pattern "
+                                 f"{tuple(p.shape)} of one process")
+        return p[..., rank * w:(rank + 1) * w]
 
     @staticmethod
     def grads(model):
@@ -1921,6 +2307,33 @@ class Smoke:
                                  "host's")
         self.scst = (model, step, batch, tables, gen)
 
+    def cli_corpus(self, root, cap):
+        """The training CLI's corpus in `root` (runs "train_cli" and
+        "train_tp"): CLI_TRAIN + CLI_VAL seeded 384 x 384 JPEGs written with
+        PIL under <root>/v/img, CLI_REFS random references of 8 to 16 words
+        each, the synthetic vocabulary of the captioner's V words as a JSON.
+        Returns (vocab, vocab path, annotations path)."""
+        import os
+
+        from PIL import Image
+
+        vocab = self.synthetic_vocab(cap)
+        vocab_path, ann = os.path.join(root, "vocab.json"), os.path.join(root, "ann.json")
+        vocab.to_json(vocab_path)
+        plain = [w for w in vocab.idx2word if w.startswith("w")]
+        rng = np.random.default_rng(SEED + 30)
+        os.makedirs(os.path.join(root, "v", "img"))
+        items = []
+        for i, img in enumerate(self.images(CLI_TRAIN + CLI_VAL, SEED + 30)):
+            Image.fromarray(img).save(os.path.join(root, "v", "img", f"i{i}.jpg"), quality=95)
+            items.append({"cocoid": i, "filepath": "v", "filename": f"i{i}.jpg",
+                          "split": "train" if i < CLI_TRAIN else "val",
+                          "sentences": [{"raw": " ".join(rng.choice(plain, int(rng.integers(8, 17))))}
+                                        for _ in range(CLI_REFS)]})
+        with open(ann, "w") as f:
+            json.dump({"images": items}, f)
+        return vocab, vocab_path, ann
+
     def train_cli_path(self):
         """Phase 4, run "train_cli": `cli/train.py` as a user runs it, on the
         card at full width (Swin-L/384 + d512, V = 10000 by a --vocab_path
@@ -1955,8 +2368,6 @@ class Smoke:
         import os
         import socket
 
-        from PIL import Image
-
         torch = self.torch
         from on_device_image_captioning_torch.api import Captioner
         from on_device_image_captioning_torch.cli import evaluate as eval_cli
@@ -1973,21 +2384,7 @@ class Smoke:
         cfg = dataclasses.replace(
             cfg, swin=dataclasses.replace(cfg.swin, attention_impl="fused"),
             captioner=dataclasses.replace(cfg.captioner, max_seq_len=L_TRAIN))
-        vocab = self.synthetic_vocab(cfg.captioner)
-        vocab_path, ann = os.path.join(root, "vocab.json"), os.path.join(root, "ann.json")
-        vocab.to_json(vocab_path)
-        plain = [w for w in vocab.idx2word if w.startswith("w")]
-        rng = np.random.default_rng(SEED + 30)
-        os.makedirs(os.path.join(root, "v", "img"))
-        items = []
-        for i, img in enumerate(self.images(CLI_TRAIN + CLI_VAL, SEED + 30)):
-            Image.fromarray(img).save(os.path.join(root, "v", "img", f"i{i}.jpg"), quality=95)
-            items.append({"cocoid": i, "filepath": "v", "filename": f"i{i}.jpg",
-                          "split": "train" if i < CLI_TRAIN else "val",
-                          "sentences": [{"raw": " ".join(rng.choice(plain, int(rng.integers(8, 17))))}
-                                        for _ in range(CLI_REFS)]})
-        with open(ann, "w") as f:
-            json.dump({"images": items}, f)
+        vocab, vocab_path, ann = self.cli_corpus(root, cfg.captioner)
         common = ["--annotations", ann, "--images_path", root, "--vocab_path", vocab_path,
                   "--is_end_to_end", "--bf16", "--swin_attention_impl", "fused",
                   "--batch_size", str(B_TRAIN), "--max_seq_len", str(L_TRAIN), "--seed", str(SEED),
@@ -3123,6 +3520,135 @@ def first_step_log_probs(torch, model, cfg, images):
     return lp.float().cpu()
 
 
+def named_moments(opt_state, params):
+    """{(parameter name, moment): tensor} of the Adam state in a training
+    CLI checkpoint (`Scheduled` over `torch.optim.Adam`; the parameters are
+    numbered in the order of the checkpoint's params)."""
+    names = list(params)
+    return {(names[i], k): v for i, st in opt_state["optimizer"]["state"].items()
+            for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")}
+
+
+def train_tp_calls(smoke, calls, signs=None, part=None):
+    """`cli/train.py::main` on each argv of `calls` in turn, with spies: each
+    step the CLI builds (XE, SCST) and its eval hook note their kind, seconds
+    (host clock, synchronized before and after), launches and loss (and the
+    SCST samples); each gather of a checkpoint notes the sha1 of every weight
+    this rank holds whole (not cut over the model axis). Returns {"steps":
+    [...], "replicated": [{name: sha1}, one a checkpoint], "signs": ...}.
+    With `signs` "record", the first call records its ReLU patterns
+    (`Smoke.relu_signs`) and "signs" is their list; with `signs` such a list
+    of one process's, the first call runs with them imposed (on the rank
+    `part` = (model rank, n_model)) and "signs" lists, call by call, (the
+    input's shape, whether it is a rank's columns, how many of its signs
+    differ from the imposed pattern)."""
+    import hashlib
+
+    torch = smoke.torch
+    from on_device_image_captioning_torch.cli import train as cli
+    from on_device_image_captioning_torch.parallel import mesh as pm
+    from on_device_image_captioning_torch.train import train_step
+
+    steps, replicated = [], []
+
+    def timed(kind, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            smoke.counters(reset=True)
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            note = {"kind": kind, "seconds": time.perf_counter() - start,
+                    "launches": smoke.counters()}
+            if isinstance(out, dict):
+                # the loss and the size of its terms: |loss| for XE; for SCST,
+                # mean |r - b| x |sum log p|, the mean of (r - b) x sum log p
+                # cancelling to near 0 (the leave-one-out baseline)
+                note["loss"] = note["scale"] = float(out["loss"])
+                if "sampled" in out:
+                    note["tokens"] = out["sampled"].tokens.cpu()
+                    r = out["rewards"].float()
+                    b = (r.sum(-1, keepdim=True) - r) / (r.shape[-1] - 1)
+                    note["scale"] = float((r - b).abs().mean()) * float(out["logprob_sum"])
+                note["scale"] = abs(note["scale"])
+            steps.append(note)
+            return out
+        return run
+
+    def factory(make, kind):
+        return lambda *args, **kwargs: timed(kind, make(*args, **kwargs))
+
+    gather = pm.gather_state_dict
+
+    def noted(model, grid):
+        cuts = getattr(model, "model_axis_cuts", None) or {}
+        replicated.append({k: hashlib.sha1(v.detach().cpu().numpy().tobytes()).hexdigest()
+                           for k, v in model.state_dict().items() if k not in cuts})
+        return gather(model, grid)
+
+    patches = [(train_step, "make_xe_step", factory(train_step.make_xe_step, "xe")),
+               (train_step, "make_scst_step", factory(train_step.make_scst_step, "scst")),
+               (train_step, "make_scst_fused_step",
+                factory(train_step.make_scst_fused_step, "scst_fused")),
+               (cli, "evaluate_val", timed("eval", cli.evaluate_val)),
+               (pm, "gather_state_dict", noted)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    def call(argv):
+        rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"cli.train.main returned {rc}")
+
+    seen = None
+    try:
+        for i, argv in enumerate(calls):
+            if i == 0 and signs is not None:
+                _, seen = smoke.relu_signs(lambda: call(argv),
+                                           None if signs == "record" else signs, part)
+            else:
+                call(argv)
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+    if seen is not None and signs != "record":
+        seen = [(tuple(x.shape), x.shape != p.shape,
+                 int((x != smoke.pattern_part(p, x.shape, part)).sum()))
+                for x, p in zip(seen, signs)]
+    return {"steps": steps, "replicated": replicated, "signs": seen}
+
+
+def train_tp_worker(argv) -> int:
+    """One rank of run "train_tp" (`Smoke._train_tp` starts two, with RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT set): TF32 off, joins a gloo
+    group (NCCL refuses two ranks on one card), runs each group of CLI calls
+    of the pickle argv[0] (one a form, with one process's ReLU patterns of
+    its XE call to impose) through `train_tp_calls` (`cli/train.py::main`
+    keeps the group it finds) and saves what each noted, a list, to
+    <argv[1]>.<rank>.pt."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    spec, out = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec, "rb") as f:
+        groups = pickle.load(f)
+    dist.init_process_group("gloo", init_method="env://")
+    try:
+        noted = []
+        part = (dist.get_rank() % TRAIN_TP_N, TRAIN_TP_N)  # model groups of consecutive ranks
+        for calls, signs in groups:
+            log(TRAIN_TP_GROUP)  # the run splits rank 0's output at these lines
+            noted.append(train_tp_calls(Smoke(torch), calls, signs, part))
+        torch.save(noted, f"{out}.{dist.get_rank()}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def eval_worker(argv) -> int:
     """One rank of run "parallel_eval" (`Smoke.parallel_eval_path` starts two,
     with RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT set): joins a gloo
@@ -3208,6 +3734,7 @@ def main(names) -> int:
     smoke.eval_path()
     smoke.prune_path()
     smoke.parallel_eval_path()
+    smoke.train_tp_path()
     smoke.train_path()
     smoke.scst_path()
     smoke.train_cli_path()

@@ -378,15 +378,14 @@ def main(argv=None):
                         help="model-axis size under --distributed: each group of n_model "
                              "consecutive ranks serves one model cut over them (tensor "
                              "parallelism; the FFs, Swin's qkv / proj / MLP on the 'pallas' "
-                             "backbone, the vocabulary projection and embedding). Not with "
-                             "--quantize (ROADMAP A9); the 'fused' backbone keeps its blocks "
-                             "whole (ROADMAP A10)")
+                             "backbone, the vocabulary projection and embedding). With "
+                             "--quantize the int8 layers stay whole on every rank, as in the "
+                             "JAX package; the 'fused' backbone keeps its blocks whole")
     args = parser.parse_args(argv)
 
     from ..parallel import mesh as pm
     from .demo import resolve_device
 
-    pm.check_model_axis(args.n_model, quantize=args.quantize)
     device = resolve_device(args.device)
     joined = args.distributed and not pm.is_distributed()  # a caller's group stays
     if args.distributed:

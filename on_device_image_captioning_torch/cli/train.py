@@ -41,9 +41,18 @@ PyTorch versions of every kernel).
   WORLD_SIZE, MASTER_ADDR and MASTER_PORT; `--batch_size` is the global
   batch. Rank 0 prints, logs and saves; the others wait. The eval hook runs
   on every rank, each decoding its shard of "val" (`cli/evaluate.py`'s
-  data-parallel `evaluate_split`), and rank 0 scores and prints.
-  `--n_model` above 1 (tensor-parallel training) is refused (ROADMAP A8);
-  `cli/evaluate.py` serves over a model axis.
+  `evaluate_split` over the same grid), and rank 0 scores and prints.
+- `--n_model N` (with `--distributed`): tensor parallelism over a model axis
+  (the JAX CLI's (data, model) mesh and `shard_train_state`): W / N data
+  ranks by N model ranks, model groups of consecutive ranks. The loader
+  hands each data rank its rows (a model group reads the same ones); the
+  warm start and the resume load the whole model, then `shard_model` cuts
+  it by the rule table and the optimizer state is cut the same way, then
+  DDP wraps the model over the data group (one data rank: no DDP). A
+  checkpoint is gathered whole on every rank of each model group and rank
+  0 writes it: it loads at any `--n_model`. The start lines say which rules
+  cut which layers and the bytes of weights a rank holds; the first step's
+  line the bytes of optimizer state it holds.
 
 Two faults of the JAX CLI are not copied: a features-in run warm-started
 from a `.pth` reads its caption head (the JAX CLI converts it as an
@@ -56,6 +65,7 @@ import argparse
 import dataclasses
 import random
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -157,9 +167,11 @@ def parse_args(argv=None):
                         "the process group from RANK, WORLD_SIZE, MASTER_ADDR and "
                         "MASTER_PORT (NCCL on cuda, gloo on the CPU)")
     p.add_argument("--n_model", type=int, default=1,
-                   help="model-axis size: training takes 1 only (data parallel under "
-                        "--distributed); tensor-parallel training is ROADMAP A8, and "
-                        "cli/evaluate.py takes --n_model above 1 for serving")
+                   help="model-axis size under --distributed: each group of n_model "
+                        "consecutive ranks trains one model cut over them (tensor "
+                        "parallelism; the FFs, Swin's qkv / proj / MLP on the 'pallas' "
+                        "backbone, the vocabulary projection and embedding), DDP over "
+                        "the world / n_model data ranks")
     p.add_argument("--prefetch", type=int, default=0,
                    help="prefetch depth: materialize the next batches on a host thread "
                         "while the device computes; 0 = synchronous. Checkpoints store "
@@ -321,12 +333,12 @@ def main(argv=None):
     from ..utils.profiling import MetricsLogger, StepTimer
     from .demo import resolve_device
 
-    pm.check_model_axis(args.n_model, training=True)
     device = resolve_device(args.device)
+    joined = args.distributed and not pm.is_distributed()  # a caller's group stays
     if args.distributed:
         device = pm.init_distributed(device)
     rank = pm.process_index()
-    grid = pm.make_grid(1)  # the eval hook's data ranks
+    grid = pm.make_grid(args.n_model)
     random.seed(args.seed)
     np.random.seed(args.seed)
 
@@ -346,7 +358,7 @@ def main(argv=None):
     mode = "image_wise" if args.reinforce else "caption_wise"
     loader = ShardedCaptionLoader(
         dataset, array_of_init_seeds=[args.seed + e for e in range(args.num_epochs * 2)],
-        batch_size=args.batch_size, rank=rank, num_procs=pm.process_count(), mode=mode)
+        batch_size=args.batch_size, rank=grid.data_rank, num_procs=grid.n_data, mode=mode)
     store = img_store = None
     if args.features_path:
         from ..data.features_io import FeatureStore
@@ -375,18 +387,30 @@ def main(argv=None):
         sched = schedules.custom_warmup_anneal(args.lr, args.warmup_iters, args.min_lr,
                                                args.anneal_coeff, args.anneal_every_epoch,
                                                num_batches)
-    opt = train_step.with_grad_accum(build_optimizer(model.parameters(), args, sched),
-                                     args.num_accum)
+    def optimizer():
+        return train_step.with_grad_accum(build_optimizer(model.parameters(), args, sched),
+                                          args.num_accum)
 
+    opt = optimizer()
     phase = "rf" if args.reinforce else "xe"
     step = resume(model, opt, loader, args, phase, verbose=rank == 0)
 
+    # ---- model axis: cut the whole model and its optimizer state ---------
+    if grid.n_model > 1:
+        whole_state = opt.state_dict()
+        lines = pm.shard_model(model, grid)
+        opt = optimizer()  # on the cut parameters
+        opt.load_state_dict(pm.cut_optimizer_state(whole_state, model))
+        del whole_state
+        if rank == 0:
+            print("\n".join(lines), flush=True)
+
     # ---- data parallel (the reference's mp.spawn + DDP, train.py:616-643) --
     net = model
-    if args.distributed:
-        net = pm.DataParallel(model, device)
+    if grid.n_data > 1:
+        net = pm.DataParallel(model, device, grid.data_group)
         if rank == 0:
-            print(f"DDP over {net.world} processes ({device.type})", flush=True)
+            print(f"DDP over {net.world} data ranks ({device.type})", flush=True)
 
     # ---- steps ------------------------------------------------------------
     xe_step = train_step.make_xe_step(net, cfg, opt, remat=args.remat)
@@ -441,6 +465,7 @@ def main(argv=None):
     timer = StepTimer(warmup=2)
     logger = MetricsLogger(args.metrics_jsonl if rank == 0 else None, stdout=False)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    state_line = grid.n_model > 1 and rank == 0  # the optimizer state a rank holds
     if rank == 0:
         print(f"training: {total_iters} iters ({num_batches}/epoch), "
               f"{'end-to-end' if end2end else 'features'}, "
@@ -474,6 +499,9 @@ def main(argv=None):
                                     rewards, gen if args.scst_dropout else None)
                 running.append(float(metrics["reward"]))
             step = it + 1
+            if state_line and (line := optimizer_state_line(opt, model)):
+                print(line, flush=True)  # once: the first step allocates the state
+                state_line = False
 
             timer.tick()
             if step % args.print_every_iter == 0 and rank == 0:
@@ -494,18 +522,22 @@ def main(argv=None):
 
             due = (time.time() - last_save) / 60 >= args.save_every_minutes
             if pm.any_rank(due, device) or step == total_iters:
-                if rank == 0:  # the weights and optimizer state are whole on every rank
+                # whole on every rank: gathered over each model group
+                params = pm.gather_state_dict(model, grid)
+                opt_state = pm.gather_optimizer_state(opt.state_dict(), model, grid)
+                if rank == 0:
                     # with prefetch the loader runs ahead of consumption: save
                     # the cursor of the last batch consumed (reference
                     # data/transparent_data_loader.py:49-61)
                     dls = prefetcher.consumed_state if prefetcher is not None else (
                         loader.save_state())
                     ckpt.save_checkpoint(
-                        args.save_path, model.state_dict(), opt.state_dict(), step,
+                        args.save_path, params, opt_state, step,
                         data_loader_state=dls,
                         additional_info=phase, num_max_checkpoints=args.how_many_checkpoints,
                         epoch_it=dls["epoch_it"], batch_it=dls["batch_it"],
                         batch_size=dls["batch_size"], verbose=True)
+                del params, opt_state
                 pm.barrier()
                 last_save = time.time()
 
@@ -519,9 +551,19 @@ def main(argv=None):
         if img_store is not None:
             img_store.close()
         logger.close()
-        if args.distributed:
+        if joined:
             pm.shutdown()
     return 0
+
+
+def optimizer_state_line(opt, model) -> Optional[str]:
+    """The line of the optimizer state a rank holds beside the whole state's
+    bytes; None while the optimizer holds nothing (before its first step
+    allocates the moments)."""
+    from ..parallel import mesh as pm
+
+    held, whole = pm.optimizer_state_bytes(opt.state_dict(), model)
+    return f"  optimizer state a rank holds: {held} bytes of {whole} whole" if held else None
 
 
 def evaluate_val(model, cfg, dataset, args, max_seq_len, grid=None) -> None:

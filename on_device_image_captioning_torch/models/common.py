@@ -8,7 +8,7 @@ in float32 and dispatches to `ops/layernorm.py` (kernel K4 on CUDA tensors).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,19 +71,39 @@ def _check_generator(what: str, generator: torch.Generator, device: torch.device
 
 
 def dropout(
-    x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator] = None
+    x: torch.Tensor, rate: float, train: bool, generator: Optional[torch.Generator] = None,
+    cut: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """Inverted dropout, as the JAX package's `dropout`: the identity when not
     training, at rate 0, or without a generator (its `rng is None`). The mask
     is drawn from the explicit generator, which must live on x's kind of
     device (no mask drawn on the host for a tensor on the card); no global
-    seed is read."""
+    seed is read.
+
+    cut = (dim, start, whole): x holds positions [start, start + x.shape[dim])
+    of an activation `whole` wide along dim (a rank's columns or heads under
+    tensor parallelism, `column_cut`). The whole mask is drawn, as one
+    process draws it, and the rank's part kept: the mask and every later draw
+    of the generator's stream are one process's."""
     if not train or rate == 0.0 or generator is None:
         return x
     _check_generator("dropout", generator, x.device)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if cut is not None:
+        shape[cut[0]] = cut[2]
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if cut is not None:
+        mask = mask.narrow(cut[0], cut[1], x.shape[cut[0]])
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def column_cut(layer: nn.Module) -> Optional[Tuple[int, int, int]]:
+    """The `dropout` cut of a layer's output: the rank's columns of a
+    column-parallel `ShardedLinear`, None for a whole layer."""
+    if isinstance(layer, ShardedLinear) and layer.kind == "column":
+        return (-1, layer.start, layer.total)
+    return None
 
 
 def drop_path_scale(

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..config import CaptionerConfig
 from ..ops.masks import expand_mask_cols, expand_mask_rows
-from .common import dropout, f32_einsum, layernorm, linear
+from .common import column_cut, dropout, f32_einsum, layernorm, linear
 
 
 def _l1_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -173,7 +173,8 @@ class FeedForward(nn.Module):
 
     def forward(self, x, dtype=None, rate: float = 0.0, train: bool = False,
                 generator=None) -> torch.Tensor:
-        h = dropout(torch.relu(linear(self.linear_1, x, dtype)), rate, train, generator)
+        h = dropout(torch.relu(linear(self.linear_1, x, dtype)), rate, train, generator,
+                    column_cut(self.linear_1))
         return linear(self.linear_2, h, dtype)
 
 

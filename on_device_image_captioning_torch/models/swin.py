@@ -70,7 +70,7 @@ from ..ops.swin_block_fused import (
 )
 from ..ops.window_attention import window_attention
 from ..ops.window_layout import window_partition, window_reverse
-from .common import drop_path_scale, dropout, f32_einsum, layernorm, linear
+from .common import column_cut, drop_path_scale, dropout, f32_einsum, layernorm, linear
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,6 +219,10 @@ class WindowAttention(nn.Module):
         )
         # (H, N, N) bias expanded once by prepare_inference(); None = per call
         self.register_buffer("rel_bias_x", None, persistent=False)
+        # (first head, whole heads) where the heads are cut over a model axis
+        # (`parallel/mesh.py::shard_model`): the probabilities' dropout draws
+        # every head's mask and keeps the rank's
+        self.head_cut = None
 
     def bias(self) -> torch.Tensor:
         if self.rel_bias_x is not None:
@@ -240,17 +244,19 @@ class WindowAttention(nn.Module):
         """The plain attention of the training path (the JAX package's
         `window_attention` with `train`): q scaled in the compute dtype, scores
         and softmax in fp32, dropout on the probabilities and on the output."""
-        bw, n, c = x.shape
-        qkv = linear(self.qkv, x, dtype).reshape(bw, n, 3, self.heads, c // self.heads)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        bw, n, _ = x.shape
+        qkv = linear(self.qkv, x, dtype)
+        dk = qkv.shape[-1] // (3 * self.heads)  # the rank's heads where they are cut
+        q, k, v = qkv.reshape(bw, n, 3, self.heads, dk).permute(2, 0, 3, 1, 4)
         attn = f32_einsum("bhnd,bhmd->bhnm", q * float(self.scale), k) + self.table_bias()[None]
         if mask is not None:
             nw = mask.shape[0]
             attn = attn.reshape(bw // nw, nw, self.heads, n, n) + mask[None, :, None]
             attn = attn.reshape(bw, self.heads, n, n)
-        attn = dropout(torch.softmax(attn, dim=-1), self.attn_drop, True, generator)
+        cut = None if self.head_cut is None else (1, *self.head_cut)
+        attn = dropout(torch.softmax(attn, dim=-1), self.attn_drop, True, generator, cut)
         out = f32_einsum("bhnm,bhmd->bhnd", attn.to(v.dtype), v).to(v.dtype)
-        out = linear(self.proj, out.transpose(1, 2).reshape(bw, n, c), dtype)
+        out = linear(self.proj, out.transpose(1, 2).reshape(bw, n, self.heads * dk), dtype)
         return dropout(out, self.proj_drop, True, generator)
 
 
@@ -264,7 +270,7 @@ class Mlp(nn.Module):
                 generator=None) -> torch.Tensor:
         h = linear(self.fc1, x, dtype)
         h = F.gelu(h.float()).to(h.dtype)  # exact-erf GELU in fp32
-        h = dropout(h, drop, train, generator)
+        h = dropout(h, drop, train, generator, column_cut(self.fc1))
         return dropout(linear(self.fc2, h, dtype), drop, train, generator)
 
 

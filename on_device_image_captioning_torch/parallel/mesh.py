@@ -29,17 +29,26 @@ ranks (`DataParallel.sum`) and multiplied by the world size: DDP's average
 of the gradients then equals the gradient of the whole batch's loss, as the
 JAX step's single reduction over the sharded batch gives it.
 
-Serving and evaluation also take a model axis (the JAX package's
+Serving, evaluation and training also take a model axis (the JAX package's
 `make_mesh(n_data, n_model)` and `_MODEL_AXIS_RULES`): `make_grid` cuts a
 world of W processes into `W / n_model` data ranks by `n_model` model ranks,
 each model group consecutive ranks; `shard_model` replaces every layer the
 rule table (`MODEL_AXIS_RULES`, the JAX rules in the reference's parameter
 names) matches by its rank's slice (`parallel/tensor.py`), so a model group
-runs one model and meets only inside itself during a decode. The
-collectives over the whole world are `gather_predictions` (per-image
-predictions to rank 0, the counterpart of `local_rows` / `host_copy` for
-evaluation) and the sums of `all_reduce_sum`. `check_model_axis` refuses
-what is not ported: training and `--quantize` with `--n_model` above 1.
+runs one model and meets only inside itself. The collectives over the whole
+world are `gather_predictions` (per-image predictions to rank 0, the
+counterpart of `local_rows` / `host_copy` for evaluation) and the sums of
+`all_reduce_sum`. Int8 layers (`deploy/quantization.py::QuantLinear`) stay
+whole on every rank, as the JAX rules match no `w_q` or `scale` leaf.
+
+Training over the grid (the JAX `shard_train_state` and `host_copy`):
+`shard_model` records how it cut each parameter (`Cut`); the optimizer's
+moments and gradient accumulators are cut the same way
+(`cut_optimizer_state`), counters and replicated leaves stay whole;
+`gather_state_dict` and `gather_optimizer_state` put the whole state back
+together on every rank of a model group (a checkpoint loads at any
+`--n_model`); `DataParallel` runs DDP over the data group only, so a model
+group's ranks, which read the same rows, are counted once.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ import os
 import re
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -96,28 +106,6 @@ def barrier() -> None:
         dist.barrier()
 
 
-def check_model_axis(n_model: int, training: bool = False, quantize: str = "none") -> None:
-    """Refuse what the port does not run over a model axis: training (the
-    rules shard only serving; ROADMAP A8) and int8 weights (a row-parallel
-    w8a8 linear needs the whole row's absmax; ROADMAP A9). Widths the axis
-    does not divide are refused by `shard_model`, which names the layer."""
-    if n_model < 1:
-        raise SystemExit(f"--n_model {n_model}: the model axis takes 1 or more ranks")
-    if n_model == 1:
-        return
-    if training:
-        raise SystemExit(
-            f"--n_model {n_model}: tensor-parallel training is not ported (ROADMAP A8: "
-            "autograd through the collectives, DDP over the data group, sharded optimizer "
-            "moments); cli/train.py takes --n_model 1 with --distributed (data parallel), "
-            "and cli/evaluate.py takes --n_model above 1")
-    if quantize != "none":
-        raise SystemExit(
-            f"--n_model {n_model} with --quantize {quantize}: int8 weights are not sharded "
-            "(ROADMAP A9: a row-parallel w8a8 linear needs the activation's absmax over "
-            "the whole row); use --n_model 1 with --quantize")
-
-
 # module-name regex -> how the layer is cut over the model axis: the JAX
 # package's _MODEL_AXIS_RULES (parallel/mesh.py there) on this package's, i.e.
 # the reference's, names. nn.Linear.weight is (out, in): JAX's P(None, "model")
@@ -160,10 +148,12 @@ def make_grid(n_model: int = 1) -> Grid:
     `make_mesh(W / n_model, n_model)`); a process without a group is a grid
     of one. Every rank calls it (it makes every group, in one order)."""
     world = process_count()
+    if n_model < 1:
+        raise SystemExit(f"--n_model {n_model}: the model axis takes 1 or more ranks")
     if n_model > 1 and not is_distributed():
         raise SystemExit(f"--n_model {n_model} needs --distributed: one process a card, "
                          "n_model processes a model group")
-    if n_model < 1 or world % n_model:
+    if world % n_model:
         raise SystemExit(f"--n_model {n_model} does not divide the world of {world} "
                          "processes (one a card)")
     rank, n_data = process_index(), world // n_model
@@ -185,10 +175,39 @@ def make_grid(n_model: int = 1) -> Grid:
     return Grid(n_data, n_model, rank // n_model, rank % n_model, data_group, model_group)
 
 
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """How a parameter is cut over the model axis: the rank holds the whole
+    tensor's entries at `index` along `dim`; `whole` is the whole shape."""
+
+    dim: int
+    index: torch.Tensor
+    whole: Tuple[int, ...]
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's part of a whole tensor."""
+        return t.index_select(self.dim, self.index.to(t.device))
+
+    def place(self, t: torch.Tensor) -> torch.Tensor:
+        """A whole-shaped buffer of negative zeros with the rank's part `t`
+        written in. The sum of the group's buffers is the whole tensor, bit
+        for bit: every other term is -0.0, which adds exactly to anything,
+        +0.0 included (a +0.0 fill would turn a -0.0 into +0.0)."""
+        buf = torch.full(self.whole, -0.0, dtype=t.dtype, device=t.device)
+        return buf.index_copy_(self.dim, self.index.to(t.device), t)
+
+    def gather(self, t: torch.Tensor, group) -> torch.Tensor:
+        """The whole tensor from the group's parts (`place`, summed over the
+        group). A collective: every rank of the group calls it."""
+        buf = self.place(t)
+        dist.all_reduce(buf, group=group)
+        return buf
+
+
 def model_axis_layers(model: nn.Module) -> List[Tuple[str, str, str]]:
     """(module name, kind, rule) of every layer the rules cut, in module
     order. A "fused" backbone's layers are left out: its block kernels take
-    whole weights and carry the residual in their epilogues (ROADMAP A10),
+    whole weights and carry the residual in their epilogues (ROADMAP B-15),
     so they stay whole on every rank; the rules hold on "pallas"."""
     from ..models.swin import SwinTransformer
 
@@ -205,13 +224,52 @@ def model_axis_layers(model: nn.Module) -> List[Tuple[str, str, str]]:
     return out
 
 
+def _layer_cuts(model: nn.Module, name: str, kind: str, n: int, r: int) -> Dict[str, Cut]:
+    """{parameter name: Cut} of one layer the rules cut, on this rank."""
+    mod = model.get_submodule(name)
+    w = mod.weight
+    out_dim, in_dim = w.shape[0], w.shape[-1]
+
+    def span(count: int) -> torch.Tensor:
+        return torch.arange(r * (count // n), (r + 1) * (count // n))
+
+    if kind == "embedding":
+        return {name + ".weight": Cut(0, span(out_dim), tuple(w.shape))}
+    if kind == "row":
+        return {name + ".weight": Cut(1, span(in_dim), tuple(w.shape))}
+    if kind == "heads":
+        owner_name = name.rpartition(".")[0]
+        owner = model.get_submodule(owner_name)
+        c, local = out_dim // 3, owner.heads // n
+        width = local * (c // owner.heads)
+        rows = torch.cat([torch.arange(t * c + r * width, t * c + (r + 1) * width)
+                          for t in range(3)])
+        table = owner.relative_position_bias_table
+        cuts = {name + ".weight": Cut(0, rows, tuple(w.shape)),
+                owner_name + ".relative_position_bias_table":
+                    Cut(1, torch.arange(r * local, (r + 1) * local), tuple(table.shape))}
+    else:
+        rows = span(out_dim)
+        cuts = {name + ".weight": Cut(0, rows, tuple(w.shape))}
+    if getattr(mod, "bias", None) is not None:
+        cuts[name + ".bias"] = Cut(0, rows, tuple(mod.bias.shape))
+    return cuts
+
+
 def shard_model(model: nn.Module, grid: Grid) -> List[str]:
     """Replace every layer `model_axis_layers` names by this rank's slice
     (the counterpart of the JAX `shard_params`), in place; the model stays
-    on its device. Call it on the loaded weights, before `prepare_inference`
-    (which expands the sliced bias tables). Returns the lines that say which
-    rule cut which layers and the bytes of weights a rank holds. A width the
-    axis does not divide raises, naming the layer (the port does not pad)."""
+    on its device and its weights keep their `requires_grad` (a model cut
+    for training trains its slices). Call it on the loaded weights, before
+    `prepare_inference` (which expands the sliced bias tables) and before
+    an optimizer is built on the parameters. Records how each parameter was
+    cut in `model.model_axis_cuts` ({name: Cut}; `gather_state_dict`,
+    `cut_optimizer_state` and `gather_optimizer_state` read it). Returns the
+    lines that say which rule cut which layers, which layers the rules name
+    but stay whole, and the bytes of weights a rank holds. A width the axis
+    does not divide raises, naming the layer (the port does not pad)."""
+    from ..deploy.quantization import QuantLinear
+
     n, r = grid.n_model, grid.model_rank
     if n == 1:
         return []
@@ -231,42 +289,137 @@ def shard_model(model: nn.Module, grid: Grid) -> List[str]:
             raise SystemExit(f"--n_model {n} does not divide {name}'s {width} {what} "
                              "(the port does not pad)")
     whole = sum(p.numel() * p.element_size() for p in model.parameters())
+    int8 = [name for name, mod in model.named_modules() if isinstance(mod, QuantLinear)
+            and any(re.search(pattern, name) for pattern, _ in MODEL_AXIS_RULES)]
     group = grid.model_group
     by_rule: Dict[str, List[str]] = {}
+    cuts: Dict[str, Cut] = {}
     for name, kind, pattern in layers:
         mod = model.get_submodule(name)
         by_rule.setdefault(f"{pattern} ({kind})", []).append(name)
-        w, b = mod.weight.detach(), getattr(mod, "bias", None)
-        b = None if b is None else b.detach()
+        layer_cuts = _layer_cuts(model, name, kind, n, r)
+        cuts.update(layer_cuts)
+        grad = mod.weight.requires_grad
+        w = layer_cuts[name + ".weight"].take(mod.weight.detach())
+        b = getattr(mod, "bias", None)
+        if b is not None and name + ".bias" in layer_cuts:
+            b = layer_cuts[name + ".bias"].take(b.detach())
         if kind == "embedding":
-            rows = w.shape[0] // n
-            new = ShardedEmbedding(w[r * rows:(r + 1) * rows], r * rows, w.shape[0], group)
+            new = ShardedEmbedding(w, r * w.shape[0], mod.num_embeddings, group, grad)
         elif kind == "row":
-            cols = w.shape[1] // n
-            new = ShardedLinear("row", w[:, r * cols:(r + 1) * cols], b, group)
+            new = ShardedLinear("row", w, b, group, requires_grad=grad)
         elif kind == "heads":
-            owner = model.get_submodule(name.rpartition(".")[0])
-            c, local = w.shape[0] // 3, owner.heads // n
-            width = local * (c // owner.heads)
-            idx = torch.cat([torch.arange(t * c + r * width, t * c + (r + 1) * width)
-                             for t in range(3)]).to(w.device)
-            new = ShardedLinear("column", w[idx], None if b is None else b[idx], group)
-            table = owner.relative_position_bias_table.detach()
+            new = ShardedLinear("column", w, b, group, requires_grad=grad)
+            owner_name = name.rpartition(".")[0]
+            owner = model.get_submodule(owner_name)
+            table = owner.relative_position_bias_table
             owner.relative_position_bias_table = nn.Parameter(
-                table[:, r * local:(r + 1) * local].clone(), requires_grad=False)
-            owner.heads, owner.rel_bias_x = local, None
+                cuts[owner_name + ".relative_position_bias_table"].take(table.detach()),
+                requires_grad=table.requires_grad)
+            owner.head_cut = (r * (owner.heads // n), owner.heads)
+            owner.heads, owner.rel_bias_x = owner.heads // n, None
         else:
-            rows = w.shape[0] // n
-            sl = slice(r * rows, (r + 1) * rows)
-            new = ShardedLinear("vocab" if kind == "vocab" else "column", w[sl],
-                                None if b is None else b[sl], group, r * rows, w.shape[0])
+            new = ShardedLinear("vocab" if kind == "vocab" else "column", w, b, group,
+                                r * w.shape[0], mod.out_features, grad)
         model.set_submodule(name, new)
+    model.model_axis_cuts = cuts
     held = sum(p.numel() * p.element_size() for p in model.parameters())
     lines = [f"model axis: {n} ranks a model group, {grid.n_data} data ranks"]
     lines += [f"  {rule}: {len(names)} layers ({names[0]}{', ...' if len(names) > 1 else ''})"
               for rule, names in by_rule.items()]
+    if int8:
+        lines.append(f"  whole on every rank: {len(int8)} int8 layers the rules name "
+                     f"({int8[0]}{', ...' if len(int8) > 1 else ''}): the JAX rules match no "
+                     "w_q or scale leaf")
     lines.append(f"  weights a rank holds: {held} bytes of {whole} whole")
     return lines
+
+
+def gather_state_dict(model: nn.Module, grid: Grid) -> Dict[str, torch.Tensor]:
+    """The whole model's state_dict, in the reference's names, from a model
+    cut by `shard_model` (its own state_dict where nothing is cut). Every
+    rank of the model group calls it and gets the whole."""
+    sd = model.state_dict()
+    cuts = getattr(model, "model_axis_cuts", None)
+    if not cuts:
+        return sd
+    return {k: cuts[k].gather(v, grid.model_group) if k in cuts else v for k, v in sd.items()}
+
+
+def _map_param_state(state, fn):
+    """An optimizer's state_dict with fn(i, tensor) applied to every tensor
+    held for parameter i: the moments of a torch optimizer's "state" (and
+    of the wrappers' nested "optimizer": `train/schedules.py::Scheduled`,
+    `train/train_step.py::_EveryK`) and `_EveryK`'s summed gradients. Every
+    other entry (counts, param_groups) is kept as it is."""
+    if not isinstance(state, dict):
+        return state
+    out = dict(state)
+    if "optimizer" in out:
+        out["optimizer"] = _map_param_state(out["optimizer"], fn)
+    if isinstance(out.get("grads"), list):
+        out["grads"] = [None if g is None else fn(i, g) for i, g in enumerate(out["grads"])]
+    if "state" in out and "param_groups" in out:
+        out["state"] = {i: {k: fn(i, v) if torch.is_tensor(v) else v for k, v in st.items()}
+                        for i, st in out["state"].items()}
+    return out
+
+
+def _param_cuts(model: nn.Module) -> List[Optional[Cut]]:
+    """The Cut of each parameter in `model.parameters()` order (the order an
+    optimizer built on them numbers them), None where it is whole."""
+    cuts = getattr(model, "model_axis_cuts", None) or {}
+    return [cuts.get(name) for name, _ in model.named_parameters()]
+
+
+def cut_optimizer_state(state: dict, model: nn.Module) -> dict:
+    """A whole optimizer state_dict (of an optimizer on the whole model's
+    parameters, in order) cut for an optimizer on the parameters of
+    `model` after `shard_model`: every tensor of a cut parameter's shape
+    is cut as the parameter (the JAX `shard_train_state`'s moments on their
+    weights' specs); scalars and replicated leaves stay whole."""
+    cuts = _param_cuts(model)
+
+    def cut(i, t):
+        c = cuts[i]
+        return c.take(t) if c is not None and tuple(t.shape) == c.whole else t
+
+    return _map_param_state(state, cut)
+
+
+def gather_optimizer_state(state: dict, model: nn.Module, grid: Grid) -> dict:
+    """The whole optimizer state_dict from a rank's (the counterpart of the
+    JAX `host_copy` of the train state): a collective over the model
+    group, every rank gets the whole."""
+    cuts = _param_cuts(model)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    if not any(cuts):
+        return state
+
+    def whole(i, t):
+        c = cuts[i]
+        if c is None or tuple(t.shape) != shapes[i]:
+            return t
+        return c.gather(t, grid.model_group)
+
+    return _map_param_state(state, whole)
+
+
+def optimizer_state_bytes(state: dict, model: nn.Module) -> Tuple[int, int]:
+    """(bytes a rank holds, bytes of the whole state) of the per-parameter
+    tensors of an optimizer state_dict."""
+    cuts = _param_cuts(model)
+    held, whole = [0], [0]
+
+    def count(i, t):
+        c = cuts[i]
+        held[0] += t.numel() * t.element_size()
+        n = int(np.prod(c.whole)) if c is not None and t.dim() == len(c.whole) else t.numel()
+        whole[0] += n * t.element_size()
+        return t
+
+    _map_param_state(state, count)
+    return held[0], whole[0]
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -312,26 +465,28 @@ class _Apply(nn.Module):
 
 
 class DataParallel:
-    """`model` replicated on every rank of the process group under
+    """`model` replicated on every rank of `group` (the whole process group
+    when None; the data group of a grid with a model axis) under
     `DistributedDataParallel`. `dp(fn, *args)` runs `fn(model, *args)` as a
-    DDP forward (the backward of its result all-reduces the gradients, their
-    mean over ranks); `sum` and `mean` reduce a tensor over ranks."""
+    DDP forward (the backward of its result all-reduces the gradients over
+    the group, their mean); `sum` and `mean` reduce a tensor over its
+    ranks, and `world` counts them."""
 
-    def __init__(self, model: nn.Module, device: torch.device):
+    def __init__(self, model: nn.Module, device: torch.device, group=None):
         if not is_distributed():
             raise RuntimeError("DataParallel needs the process group (init_distributed)")
-        self.module = model
-        self.world = process_count()
+        self.module, self.group = model, group
+        self.world = dist.get_world_size(group)
         self.ddp = nn.parallel.DistributedDataParallel(
             _Apply(model), device_ids=[device.index] if device.type == "cuda" else None,
-            broadcast_buffers=False)
+            broadcast_buffers=False, process_group=group)
 
     def __call__(self, fn: Callable, *args, **kwargs):
         return self.ddp(fn, *args, **kwargs)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         out = x.detach().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.group)
         return out
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:

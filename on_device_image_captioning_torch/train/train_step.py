@@ -19,11 +19,19 @@ head `ExpansionNetV2` with a `CaptionerConfig` (batch "enc_input": features
 (B, S, img_feature_dim), and "enc_num_pads" (B,) where rows are padded).
 
 Data parallel: every step also takes the model wrapped in
-`parallel/mesh.py::DataParallel` (each rank with its own rows of the batch);
-a bare model runs as its one-process stand-in `Local`, through the same
-code. The step's differentiable part runs as one (DDP) forward, the XE loss
-is normalized by the non-pad tokens of all ranks (that module's docstring
-says why), and the returned metrics are means over the ranks.
+`parallel/mesh.py::DataParallel` (each data rank with its own rows of the
+batch); a bare model runs as its one-process stand-in `Local`, through the
+same code. The step's differentiable part runs as one (DDP) forward, the XE
+loss is normalized by the non-pad tokens of all data ranks (that module's
+docstring says why), and the returned metrics are means over the data ranks.
+
+Tensor parallel: the model may be cut over a model axis
+(`parallel/mesh.py::shard_model`); its collectives are autograd functions
+(`parallel/tensor.py`), so the steps run unchanged. The ranks of a model
+group read the same rows and hold the same generator, so they draw the same
+dropout masks (whole masks, `models/common.py::dropout`), the same sampler
+noise over whole logit rows, the same samples and the same rewards;
+`DataParallel` spans the data group only.
 
 `remat=True` recomputes each Swin block off the training kernels in the
 backward (`models/swin.py`), as the JAX steps' `remat` does.
@@ -92,13 +100,13 @@ def make_xe_step(model, cfg, optimizer, smoothing: float = 0.1, remat: bool = Fa
     without one; `drop_path_scales` hands the per-block scales in instead),
     one backward, one `optimizer.step()`. The model's parameters are updated
     in place; the loss is returned detached, on the model's device. Under
-    `DataParallel` the loss is the whole batch's (all ranks' tokens)."""
+    `DataParallel` the loss is the whole batch's (all data ranks' tokens)."""
     dp = replicated(model)
     pad = _caption_cfg(cfg).pad_idx
 
     def step(batch, generator=None, drop_path_scales=None):
         optimizer.zero_grad(set_to_none=True)
-        # this rank's sum over ALL ranks' tokens, times the ranks DDP averages over
+        # this rank's sum over ALL data ranks' tokens, times the ranks DDP averages over
         tokens = dp.sum((batch["captions"][:, 1:] != pad).sum())
         total = dp(xe_loss, cfg, batch, generator, smoothing, drop_path_scales, remat, False)
         loss = total / tokens.clamp_min(1) * dp.world
@@ -110,7 +118,7 @@ def make_xe_step(model, cfg, optimizer, smoothing: float = 0.1, remat: bool = Fa
 
 
 def _metrics(dp, loss, metrics):
-    """The step's metrics, detached: means over the ranks."""
+    """The step's metrics, detached: means over the data ranks."""
     return {k: dp.mean(v) for k, v in {"loss": loss, **metrics}.items()}
 
 
