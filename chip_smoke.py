@@ -17,7 +17,10 @@ Phases, in order (any failure raises and exits non-zero before the result):
    shapes, in fp32 and bf16, with the tolerance printed beside each check
    (B6 in bf16: with one bf16 ulp of each of its output's two addends, and
    the count of elements that needed it; K1 also at the model-axis shard
-   shape of run "parallel_eval", b8 stage 0 on 3 of 6 heads). Every inference kernel is a
+   shape of run "parallel_eval", b8 stage 0 on 3 of 6 heads; K2 and B16 also at
+   the cache lengths chunked decode gives the serve and latency cells, and K2
+   at the SCST sampler's first phase: ops/_cases.py CHUNK_SHAPES,
+   SCST_CHUNK_STEP). Every inference kernel is a
    `torch.library` op of the namespace `odic`: `torch.library.opcheck` of
    each on CUDA inputs (ops/_cases.py::opcheck_calls) must pass.
 4. Main path at full width, once per run of RUNS: the `attention_impl`
@@ -26,7 +29,8 @@ Phases, in order (any failure raises and exits non-zero before the result):
    the "fused" backbone with every stage on the half-block kernels. Each is
    Swin-L/384 + the d512 captioner, V = 10000, seeded random weights,
    `api.Captioner` beam search on 8 uint8 images at 384^2, beam 3,
-   max_seq_len 20, bf16. The launch counters are set to 0 before each run
+   max_seq_len 20, bf16, decoded in the default phases (caches of 12, then
+   20 positions: `DecodeConfig.chunk_schedule`). The launch counters are set to 0 before each run
    and read after it; every kernel of that run must have been launched and
    no other, the window-resident kernels exactly as often as the model has
    blocks and stages, the decode-step kernels once per layer and step. The
@@ -83,6 +87,12 @@ Phases, in order (any failure raises and exits non-zero before the result):
    written as JPEGs (L74): predictions equal to `evaluate_split`'s over the
    same pruned weights in memory; the GLOBAL sparsity and the npz's bytes
    printed.
+   The benchmarking CLI (runs "benchmark", "benchmark_w8a8"):
+   `cli/benchmark.py`'s main at its defaults (Swin-L/384 + d512, bf16,
+   "fused", "pallas" step, b1 / beam 5 / L20) with --runs 10, then
+   --quantize w8a8 --runs 5; its JSON echoed, with the JAX CLI's keys, the
+   parameter count of run "fused"'s model and finite latencies; the
+   launches those of the path.
    Evaluation (runs "eval", "eval_w8a8", "features", "eval_features"; no
    image or HDF5 file is read: the images are seeded uint8 arrays handed in
    through `load_images`, the stores kept in memory): a synthetic test split
@@ -177,6 +187,10 @@ Phases, in order (any failure raises and exits non-zero before the result):
    under the CPU's ReLU signs within the imposed tolerance (5e-5), the
    free-running card within the free one against the CPU under the card's
    signs; the ReLU flips counted and bounded.
+   Chunked decode held to one phase: the latency cell (b1 / beam 5 / L74,
+   chunks (12, 24, 40, 56, 74)) and the serve cell (b8 / beam 3 / L20,
+   chunks (12, 20)) at fp32 on the card, on both step paths, against
+   chunk_schedule=(L,): captions equal, log-probs within CHUNK_LOGPROB_TOL.
    Evaluation held to the plain path: 2 images through the features-in
    evaluation at fp32 (the caption head of the fp32 model's weights, two
    images' features of run "features"'s store) on the card and on the CPU:
@@ -221,7 +235,8 @@ Phases, in order (any failure raises and exits non-zero before the result):
    sampling, reward, re-score with backward and optimizer, and its peak
    device memory.
 
-The next-to-last line is {"kernels": [...]} and the last line is
+The script's seconds in all, then {"kernels": [...]} on the next-to-last line and
+the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 """
 from __future__ import annotations
@@ -415,6 +430,21 @@ EXPORT_REPEATS = 5  # engine and eager walls of run "export": medians of this ma
 # the model's max_seq_len, against evaluate_split over the same weights: the
 # kernels of run "eval"
 PRUNE, PRUNE_AMOUNT, PRUNE_ROUNDS = "prune", 0.33, 2
+# runs "benchmark" and "benchmark_w8a8": `cli/benchmark.py`'s main as users
+# call it, at full width (Swin-L/384 + d512, bf16, the "fused" backbone and
+# the "pallas" step, b1 / beam 5 / L20: the CLI's defaults), BENCH_RUNS timed
+# calls, then with --quantize w8a8 BENCH_A8_RUNS; each run's launches are
+# those of one warm-up call and the timed ones (random weights emit no EOS)
+BENCH, BENCH_A8 = "benchmark", "benchmark_w8a8"
+BENCH_RUNS, BENCH_A8_RUNS, BENCH_L = 10, 5, 20
+# the keys of the JAX CLI's JSON (`cli/benchmark.py` there): pruned runs add
+# "global_sparsity", quantized ones "quantized"
+BENCH_KEYS = {"params", "flops", "flops_reference_strategy", "latency_s", "images_per_sec"}
+# phase 5: chunked decode (the default schedule) against one phase
+# (chunk_schedule=(L,)) at fp32 on the card, the latency and serve cells on
+# both step paths: tokens equal, the captions' log-probs within this
+# (absolute; PERF.md §6 states it and what was expected)
+CHUNK_LOGPROB_TOL = 1e-4
 # run "parallel_eval": `cli/evaluate.py --distributed` in two processes on the
 # one card (gloo), Swin-L/384 + d512 at Swin depths SHALLOW, V = 10000, the
 # "pallas" backbone and step, beam 3 / L20, over run "eval"'s 12 images
@@ -472,7 +502,8 @@ TRAIN_TP_TIMEOUT = 900  # seconds the two workers may take (both forms)
 TRAIN_TP_GROUP = "== run train_tp: the next form's CLI calls"
 for _k in KERNELS.values():
     _k["paths"] += tuple(r for r, (src, *_) in EXPORT_RUNS.items() if src in _k["paths"])
-    _k["paths"] += (PRUNE,) if EVAL in _k["paths"] else ()
+    _k["paths"] += (PRUNE, BENCH) if EVAL in _k["paths"] else ()
+    _k["paths"] += (BENCH_A8,) if "w8a8" in _k["paths"] else ()
 for _name in ("window_attention", "dyn_exp_step", "topk", "layernorm"):
     KERNELS[_name]["paths"] += (PARALLEL_EVAL, PARALLEL_DP)
     KERNELS[_name]["paths"] += (TRAIN_TP, TRAIN_TP_PALLAS)  # the eval hook and the sampler
@@ -1151,6 +1182,56 @@ class Smoke:
         del model
         torch.cuda.empty_cache()
 
+    def benchmark_path(self):
+        """Phase 4, runs "benchmark" and "benchmark_w8a8": `cli/benchmark.py`'s
+        main at its defaults (Swin-L/384 + d512, bf16, "fused", "pallas"
+        step, b1 / beam 5 / L20) with --runs BENCH_RUNS, then --quantize w8a8
+        --runs BENCH_A8_RUNS, its output echoed. The JSON must have the JAX
+        CLI's keys, the parameter count of run "fused"'s model, finite and
+        positive latencies; the launches those of the path, K2 once a layer
+        and step of every call (one warm-up and the timed ones)."""
+        import contextlib
+        import io
+
+        torch = self.torch
+        from on_device_image_captioning_torch.cli import benchmark
+        from on_device_image_captioning_torch.deploy import analysis
+
+        n_params = analysis.param_count(self.serve["fused"].model)
+        for run, extra, runs in ((BENCH, [], BENCH_RUNS),
+                                 (BENCH_A8, ["--quantize", "w8a8"], BENCH_A8_RUNS)):
+            argv = ["--runs", str(runs), "--device", "cuda", *extra]
+            out = io.StringIO()
+            self.counters(reset=True)
+            start = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = benchmark.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            self.launches[run] = self.counters()
+            text = out.getvalue()
+            log(f"phase 4 run {run!r}: cli.benchmark.main({argv}) in {wall:.1f} s, output:")
+            log(text.rstrip())
+            res = json.loads(text[text.index("{\n"):])
+            want_keys = BENCH_KEYS | ({"quantized"} if extra else set())
+            latencies = [*res["latency_s"].values(), res["images_per_sec"]]
+            if rc != 0 or set(res) != want_keys or set(res["latency_s"]) != {
+                    "mean", "p50", "p90", "min"}:
+                raise AssertionError(f"run {run!r}: rc {rc}, keys {sorted(res)}")
+            if not all(np.isfinite(v) and v > 0 for v in latencies):
+                raise AssertionError(f"run {run!r}: latencies {latencies}")
+            if res["params"] != n_params:
+                raise AssertionError(f"run {run!r}: params {res['params']} != {n_params}")
+            self.check_paths(run, self.launches[run])
+            want_k2 = N_DEC * (BENCH_L - 1) * (runs + 1)
+            if self.launches[run]["dyn_exp_step"] != want_k2:
+                raise AssertionError(f"run {run!r}: K2 launched "
+                                     f"{self.launches[run]['dyn_exp_step']} times, not {want_k2}")
+            log(f"  run {run!r}: keys as the JAX CLI's, params {n_params}, p50 "
+                f"{1e3 * res['latency_s']['p50']:.3f} ms, {res['images_per_sec']:.3f} img/s "
+                f"| {self.card}; launches {self.launches[run]}")
+        torch.cuda.empty_cache()
+
     @staticmethod
     def write_split(root, dataset, load_images, size):
         """Run "eval"'s synthetic test split as files in `root`, as a user
@@ -1799,8 +1880,59 @@ class Smoke:
 
         log(f"phase 5 ensemble of two models, 2 images / beam {BEAM_SERVE} / L{L_SERVE} fp32")
         self.compare_tokens("ensemble, card vs CPU", e_gpu, e_cpu, ensemble_margin)
+        self.chunk_check(gpu_model, gpu_cfg)
         del gpu, gpu_model, gpu_model2, fused
         torch.cuda.empty_cache()
+
+    def chunk_check(self, model, cfg):
+        """Phase 5: chunked decode (the default schedule) against one phase
+        (chunk_schedule=(L,)) on the card at fp32, the latency cell (b1 /
+        beam 5 / L74) and the serve cell (b8 / beam 3 / L20), both step paths,
+        one encoder output each: the captions equal, their log-probs within
+        CHUNK_LOGPROB_TOL. Where a token differs, the gap of the two top
+        log-probs at that step is printed, then the check fails."""
+        torch = self.torch
+        from on_device_image_captioning_torch.config import DecodeConfig
+        from on_device_image_captioning_torch.decode import beam_search as bs
+        from on_device_image_captioning_torch.utils.image import normalize_on_device
+
+        cap = cfg.captioner
+        for cell, (b, beam, L) in {"latency": (1, BEAM_LAT, L_LAT),
+                                   "serve": (B_SERVE, BEAM_SERVE, L_SERVE)}.items():
+            x = torch.from_numpy(self.images(b, SEED + 6)).to(self.dev)
+            with torch.inference_mode():
+                enc = model.forward_enc(normalize_on_device(x))
+            base = dict(beam_size=beam, how_many_outputs=1, max_seq_len=L,
+                        sos_idx=cap.sos_idx, eos_idx=cap.eos_idx)
+            chunks = bs.default_chunk_schedule(L)
+            for step_impl in ("pallas", "pallas_fused"):
+                got, want = (bs.captions_from_result(bs.beam_search(
+                    model, cap, enc, DecodeConfig(**base, chunk_schedule=sched),
+                    dtype=torch.float32, step_impl=step_impl)) for sched in (None, (L,)))
+                err = max((abs(a - w) for g_img, w_img in zip(got[1], want[1])
+                           for g, w_ in zip(g_img, w_img) for a, w in zip(g, w_)), default=0.0)
+                same = got[0] == want[0]
+                log(f"phase 5 chunked decode, {cell} cell b{b}/beam {beam}/L{L} fp32, "
+                    f"step_impl={step_impl!r}: chunks {chunks} against ({L},): captions "
+                    f"{'equal' if same else 'DIFFER'}, log-probs max_abs {err:.3e} "
+                    f"(tol {CHUNK_LOGPROB_TOL:g})")
+                if not same:
+                    for i, (g_img, w_img) in enumerate(zip(got[0], want[0])):
+                        g, w_ = g_img[0], w_img[0]
+                        t = next((s_ for s_ in range(min(len(g), len(w_))) if g[s_] != w_[s_]),
+                                 None)
+                        if t is None:
+                            continue
+                        with torch.inference_mode():
+                            prefix = torch.tensor([w_[:t]], dtype=torch.int64, device=self.dev)
+                            lp = model.forward_dec(enc[i:i + 1], prefix, apply_log_softmax=True)
+                        top = torch.topk(lp[0, t - 1].float(), 2).values
+                        log(f"  image {i}: diverges at step {t}, the two top log-probs' gap "
+                            f"{float(top[0] - top[1]):.3e}")
+                    raise AssertionError(f"chunked decode changed the {cell} cell's captions")
+                if not err <= CHUNK_LOGPROB_TOL:
+                    raise AssertionError(f"chunked decode moved the {cell} cell's log-probs "
+                                         f"by {err:.3e}")
 
     def quant_modules(self, cpu_model, gpu_model, x, dtype):
         """Every module of the quantized encoder on the card, fed the CPU plain
@@ -3709,6 +3841,7 @@ def main(names) -> int:
     if unknown:
         print(f"chip_smoke: no kernel named {unknown}; there are {list(KERNELS)}", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     smoke = Smoke(torch)
     smoke.device()
     smoke.build()
@@ -3733,6 +3866,7 @@ def main(names) -> int:
     smoke.export_path()
     smoke.eval_path()
     smoke.prune_path()
+    smoke.benchmark_path()
     smoke.parallel_eval_path()
     smoke.train_tp_path()
     smoke.train_path()
@@ -3762,6 +3896,7 @@ def main(names) -> int:
             "max_abs_err": smoke.errors[name], **smoke.times[name],
             "launches_by_path": by_path, "main_path_cases": smoke.case_times.get(name, []),
         })
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

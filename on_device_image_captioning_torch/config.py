@@ -6,8 +6,9 @@
 window-attention kernel; "fused" keeps activations in window layout from the
 patch embed on and runs the half-block and stage-boundary kernels. The JAX
 package's "xla" and "auto" have no counterpart: the port has no kernel-free
-configuration on the card. Left out on purpose: `DecodeConfig.chunk_schedule`
-and `resolve_kernel_impls` (the port decodes with one cache at `max_seq_len`).
+configuration on the card, and so `resolve_kernel_impls` is left out.
+`DecodeConfig.chunk_schedule` has the JAX meaning: every decode runs in phases
+of growing cache length (`decode/beam_search.py::default_chunk_schedule`).
 `remove_layers` is the JAX package's, for the layer-removal ablations.
 """
 from __future__ import annotations
@@ -164,6 +165,16 @@ class DecodeConfig:
     sample_or_max: str = "max"
     sos_idx: int = 79
     eos_idx: int = 77
+    # Cache-length schedule of chunked decode: the caches start at
+    # chunk_schedule[0] positions and are zero-padded to the next chunk only
+    # while some beam still grows. Every step of the decode-step kernels reads
+    # and writes every position of the caches it is given, so a step's bytes
+    # follow the cache length, not the position. Positions beyond `pos` are
+    # masked: tokens equal a single phase's, values up to the order of fp32
+    # sums. None = `decode/beam_search.py::default_chunk_schedule(max_seq_len)`;
+    # (max_seq_len,) = one phase. Strictly increasing, ending at max_seq_len,
+    # every chunk but the last even (the JAX package's rule).
+    chunk_schedule: Optional[tuple] = None
 
 
 def swin_large_384() -> SwinConfig:

@@ -14,13 +14,20 @@ Semantics replicate the reference loop (models/captioning_model.py:220-427):
   stops when no beam grew in the previous step;
 - the final ranking divides the cumulative log-prob by the length.
 
-One cache of `max_seq_len` positions is used throughout. The vocab-wide
+Chunked decode, as in the JAX package: the caches start at the first chunk
+of `DecodeConfig.chunk_schedule` (`default_chunk_schedule` when None) and
+are zero-padded on their position axis to the next chunk once the step to
+run no longer fits (`decode/cache.py::grow_state`). The decode-step kernels
+read and write every position of the caches they are given, so early steps
+on short caches move fewer bytes; positions after `pos` are masked, so the
+tokens equal a single phase's. The vocab-wide
 candidate top-k is kernel K3 (ops/topk.py); the beam-pool and final top-k run
 over narrow rows and use the plain, tie-exact version, whose NaN rule runs on
 the device. A step (`_beam_step`) does not sync with the host; two loops
 run it: `ensemble_beam_search` with the early exit, which syncs with the host
-once per step, and `fixed_beam_search` for a fixed number of steps, the form
-`torch.export` traces (`deploy/aot.py`).
+once per step and grows the caches only while some beam still grows, and
+`fixed_beam_search` for a fixed number of steps, growing at every chunk
+boundary, the form `torch.export` traces (`deploy/aot.py`).
 
 Noise. JAX and PyTorch draw different numbers from the same seed, so the
 sampling mode takes either a `torch.Generator` on the tensors' device or the
@@ -45,6 +52,58 @@ class BeamResult:
     tokens: torch.Tensor  # (B, how_many_outputs, L) int32 (garbage after length)
     logprobs: torch.Tensor  # (B, how_many_outputs, L) fp32 per-step log-probs
     lengths: torch.Tensor  # (B, how_many_outputs) int32, SOS and EOS included
+
+
+def default_chunk_schedule(max_seq_len: int, first: int = 12) -> Tuple[int, ...]:
+    """The JAX package's cache-length schedule, number for number: one phase
+    for a budget up to first + 4, (first, L) up to first + 8, else a ramp of
+    first, 2 x first while under 24, then +16 a phase, every chunk but the
+    last even (first is rounded up to even), and a chunk within 8 of
+    max_seq_len merged into the last phase."""
+    first = first + (first % 2)
+    if max_seq_len <= first + 4:
+        return (max_seq_len,)
+    if max_seq_len <= first + 8:
+        return (first, max_seq_len)
+    chunks = []
+    c = first
+    while c + 8 < max_seq_len:
+        chunks.append(c + (c % 2))
+        c = 2 * c if c < 24 else c + 16
+    chunks.append(max_seq_len)
+    return tuple(chunks)
+
+
+def check_schedule(chunks: Sequence[int], max_seq_len: int, even: bool = True
+                   ) -> Tuple[int, ...]:
+    """`chunks` as a tuple, or ValueError where the JAX package's loops refuse
+    it: not strictly increasing, or not ending at max_seq_len, or (even=True,
+    the beam loop's rule) a chunk but the last that is odd. Also refused,
+    where the JAX package would run it: a first chunk below 1."""
+    chunks = tuple(chunks)
+    if not chunks or chunks[-1] != max_seq_len or chunks != tuple(sorted(set(chunks))):
+        raise ValueError(
+            f"chunk schedule {chunks} must increase strictly to max_seq_len={max_seq_len}")
+    if chunks[0] < 1:
+        raise ValueError(f"chunk schedule {chunks}: the first chunk holds no position")
+    if even and any(c % 2 for c in chunks[:-1]):
+        raise ValueError(f"chunk schedule {chunks}: every chunk but the last must be even")
+    return chunks
+
+
+def schedule_of(decode_cfg: DecodeConfig) -> Tuple[int, ...]:
+    """The beam loops' checked schedule: decode_cfg.chunk_schedule, or the
+    default for its max_seq_len where that is None (or empty, as in the JAX
+    package)."""
+    L = decode_cfg.max_seq_len
+    return check_schedule(decode_cfg.chunk_schedule or default_chunk_schedule(L), L)
+
+
+def chunk_at(chunks: Tuple[int, ...], t: int) -> int:
+    """The chunk whose phase runs step t: the first chunk above t (a beam
+    step t writes position t - 1; a sampling step t writes position t into
+    caches of chunk + 1)."""
+    return next(c for c in chunks if t < c)
 
 
 def gumbel_source(
@@ -98,10 +157,12 @@ class _Beams:
 
 def _start(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads, step_impl, generator,
            noise, dec_step=dc.dec_step):
-    """The decoder states and step 1, which expands SOS into beam_size beams.
-    Returns (step, draw, beams): step(tokens, pos, reorder, group) -> the
-    models' log-probs of the next token through `dec_step`, draw the noise
-    source (None for "max")."""
+    """The decoder states, at the schedule's first chunk, and step 1, which
+    expands SOS into beam_size beams. Returns (step, grow, chunks, draw,
+    beams): step(tokens, pos, reorder, group) -> the models' log-probs of the
+    next token through `dec_step`; grow(length) zero-pads every model's
+    caches to that length; chunks the checked schedule; draw the noise source
+    (None for "max")."""
     if decode_cfg.sample_or_max not in ("max", "sample"):
         raise ValueError(f"sample_or_max {decode_cfg.sample_or_max!r}")
     k = decode_cfg.beam_size
@@ -112,10 +173,14 @@ def _start(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads, step_impl,
     if decode_cfg.sample_or_max == "sample":
         draw = gumbel_source(dev, generator, noise)
     cache_dtype = dtype if dtype is not None else torch.float32
+    chunks = schedule_of(decode_cfg)
     states = [
-        dc.init_state(m, cfg, e, L, cache_dtype, enc_num_pads)
+        dc.init_state(m, cfg, e, chunks[0], cache_dtype, enc_num_pads)
         for m, e in zip(models, enc_outputs)
     ]
+
+    def grow(length):
+        states[:] = [dc.grow_state(st, length) for st in states]
 
     def step(tokens, pos, reorder=None, group=1):
         logps = []
@@ -142,7 +207,7 @@ def _start(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads, step_impl,
         reorder=torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(k),
         img_base=torch.arange(b, dtype=torch.int32, device=dev)[:, None] * k,
     )
-    return step, draw, beams
+    return step, grow, chunks, draw, beams
 
 
 def _beam_step(step, beams: _Beams, t: int, eos: int, draw) -> _Beams:
@@ -246,11 +311,13 @@ def ensemble_beam_search(
     models/ensemble_captioning_model.py:55-84). `enc_outputs` holds one
     encoder output per model, each encoded with that model's weights. One
     model is plain beam search. The loop stops when no beam grew in the
-    previous step: the one sync with the host a step."""
-    step, draw, beams = _start(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads,
-                               step_impl, generator, noise)
+    previous step: the one sync with the host a step. The caches grow to the
+    next chunk only when a step that runs needs it."""
+    step, grow, chunks, draw, beams = _start(models, cfg, enc_outputs, decode_cfg, dtype,
+                                             enc_num_pads, step_impl, generator, noise)
     t = 2
     while t < decode_cfg.max_seq_len and bool((beams.num_elem == t).any()):
+        grow(chunk_at(chunks, t))
         beams = _beam_step(step, beams, t, decode_cfg.eos_idx, draw)
         t += 1
     return _ranked(beams, decode_cfg.how_many_outputs)
@@ -265,16 +332,20 @@ def fixed_beam_search(
     step_impl: str = "pallas",
 ) -> BeamResult:
     """Beam search with a fixed number of steps: `_beam_step` for t = 2 ...
-    L-1 with no exit test, so that the whole decode is one traceable graph
-    (`deploy/aot.py`; the reference's unrolled decoder, with beams). The
-    steps after every beam finished are the identity on the beams, so
+    L-1 with no exit test, the caches grown at every boundary of the chunk
+    schedule (the JAX engine runs the same schedule), so that the whole
+    decode is one traceable graph (`deploy/aot.py`; the reference's unrolled
+    decoder, with beams). The steps after every beam finished are the
+    identity on the beams, so
     captions (tokens up to `lengths`), lengths and log-probs up to the length
     equal `beam_search`'s; tokens past a caption's length are not part of the
     result in either. Runs under the caller's grad mode (no switch inside:
     it would split a traced graph)."""
-    step, draw, beams = _start([model], cfg, [enc_output], decode_cfg, dtype, None, step_impl,
-                               None, None, dc.dec_step_unguarded)
+    step, grow, chunks, draw, beams = _start([model], cfg, [enc_output], decode_cfg, dtype,
+                                             None, step_impl, None, None,
+                                             dc.dec_step_unguarded)
     for t in range(2, decode_cfg.max_seq_len):
+        grow(chunk_at(chunks, t))
         beams = _beam_step(step, beams, t, decode_cfg.eos_idx, draw)
     return _ranked(beams, decode_cfg.how_many_outputs)
 

@@ -18,7 +18,10 @@ The per-position caches are a ping-pong pair: step t reads the current set
 through `reorder` (the beam reshuffle, fused into kernel K2's cache reads)
 and writes every position of the spare set, which then becomes current. A
 kernel may not write a cache row that another row of the same launch still
-reads, so the two sets are always distinct buffers.
+reads, so the two sets are always distinct buffers. A step allocates the
+spare set anew wherever its rows or its length differ from the current
+set's: a state grown between the phases of a chunked decode (`grow_state`)
+never hands the kernels a destination of the old length.
 """
 from __future__ import annotations
 
@@ -52,6 +55,10 @@ class DecState:
     @property
     def rows(self) -> int:
         return self.caches[0][0].shape[0]
+
+    @property
+    def length(self) -> int:
+        return self.caches[0][0].shape[1]
 
 
 def _alloc_caches(cfg: CaptionerConfig, rows: int, max_len: int, dtype, device, fill_zero):
@@ -92,6 +99,23 @@ def init_state(
 
     cross = [(project(layer.mha.Wk), project(layer.mha.Wv)) for layer in model.decoders]
     return DecState(caches=caches, spare=None, cross=cross, enc_mask=enc_mask)
+
+
+def grow_state(state: DecState, new_len: int) -> DecState:
+    """The state with every per-position cache zero-padded on its position
+    axis (axis 1) to `new_len` (a state already that long is returned as it
+    is): the step between two phases of a chunked decode. Decode masks the
+    positions after `pos`, so the zeros are never read as data. The spare set
+    is dropped (the next step allocates one of the new length); the cross K/V
+    and the encoder mask, which have no position axis, are kept."""
+    if state.length >= new_len:
+        return state
+
+    def pad(t):
+        return torch.cat([t, t.new_zeros((t.shape[0], new_len - t.shape[1], *t.shape[2:]))], 1)
+
+    return DecState(caches=[tuple(pad(t) for t in layer) for layer in state.caches],
+                    spare=None, cross=state.cross, enc_mask=state.enc_mask)
 
 
 def _step_operands(p, x2: torch.Tensor, cd: torch.dtype, dtype=None):
@@ -222,11 +246,10 @@ def dec_step_unguarded(
     if reorder is None:
         reorder = torch.arange(rows, dtype=torch.int32, device=dev)
     spare = state.spare
-    if spare is None or spare[0][0].shape[0] != rows:
+    if spare is None or spare[0][0].shape[:2] != (rows, state.length):
         cd = state.caches[0][0].dtype
-        max_len = state.caches[0][0].shape[1]
         spare = [
-            _alloc_caches(cfg, rows, max_len, cd, dev, fill_zero=False)
+            _alloc_caches(cfg, rows, state.length, cd, dev, fill_zero=False)
             for _ in range(cfg.N_dec)
         ]
 

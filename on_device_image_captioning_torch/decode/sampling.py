@@ -7,12 +7,15 @@ rows, one token is sampled per step from the softmax until every row has
 sampled EOS or `max_seq_len` tokens are out, the per-step log-probs are
 recorded and zeroed after the first EOS.
 
-One full-length cache is used throughout (the JAX package's chunked cache
-schedule is not ported). There is no beam reshuffle, so every step reads the
-current cache set through the identity and writes the spare set (the step
-kernels never write the set they read). The encoder side stays one row per
-image: the `num_outputs` sample rows of an image share its cross K/V and pad
-mask through `dec_step`'s `group`.
+The caches grow in phases, as the JAX package's do: `chunks` (the beam
+search's `default_chunk_schedule(max_seq_len)` when None) gives the phases;
+step t (which writes position t) runs in the phase of the first chunk above
+t, on caches of that chunk + 1 positions, zero-padded from the phase before;
+the token and log-prob buffers are full length throughout. There is no beam
+reshuffle, so every step reads the current cache set through the identity and
+writes the spare set (the step kernels never write the set they read). The
+encoder side stays one row per image: the `num_outputs` sample rows of an
+image share its cross K/V and pad mask through `dec_step`'s `group`.
 
 A token is drawn as the arg-max of the log-probs plus Gumbel noise, which is
 how `jax.random.categorical` draws it; the noise comes from a
@@ -23,14 +26,14 @@ package and the JAX package the same numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Optional
+from typing import Iterable, List, Optional, Sequence
 
 import torch
 
 from ..config import CaptionerConfig
 from ..models.captioner import ExpansionNetV2
 from . import cache as dc
-from .beam_search import gumbel_source
+from .beam_search import check_schedule, chunk_at, default_chunk_schedule, gumbel_source
 
 
 @dataclasses.dataclass
@@ -54,16 +57,21 @@ def sample(
     step_impl: str = "pallas",
     generator: Optional[torch.Generator] = None,
     noise: Optional[Iterable[torch.Tensor]] = None,
+    chunks: Optional[Sequence[int]] = None,
 ) -> SampleResult:
     """enc_output (B, S_enc, d_model); enc_num_pads (B,) trailing pad rows of
-    each. The decoder caches are stored in `dtype` (fp32 when None)."""
+    each. The decoder caches are stored in `dtype` (fp32 when None). chunks:
+    the cache-length schedule (module docstring), strictly increasing to
+    max_seq_len; ValueError otherwise."""
     b = enc_output.shape[0]
     dev = enc_output.device
     n = b * num_outputs
     L = max_seq_len
+    chunks = check_schedule(default_chunk_schedule(L) if chunks is None else chunks, L,
+                            even=False)
     draw = gumbel_source(dev, generator, noise)
     cache_dtype = dtype if dtype is not None else torch.float32
-    state = dc.init_state(model, cfg, enc_output, L + 1, cache_dtype, enc_num_pads)
+    state = dc.init_state(model, cfg, enc_output, chunks[0] + 1, cache_dtype, enc_num_pads)
 
     tokens = torch.zeros((n, L + 1), dtype=torch.int32, device=dev)
     tokens[:, 0] = sos_idx
@@ -76,6 +84,7 @@ def sample(
 
     t = 0
     while t < L and not bool(finished.all()):
+        state = dc.grow_state(state, chunk_at(chunks, t) + 1)
         logp, state = dc.dec_step(
             model, cfg, state, tokens[:, t], t, dtype, reorder, num_outputs, step_impl)
         reorder = identity

@@ -3,7 +3,8 @@ program (counterpart of the JAX package's `deploy/aot.py`; reference
 onnx4tensorrt/convert2onnx.py:143-265, onnx2tensorrt.py:44-203).
 
 - `caption_fn` is the computation: uint8 images -> normalization on the
-  device -> encoder -> beam search for a fixed number of steps
+  device -> encoder -> beam search for a fixed number of steps, the caches
+  grown at each boundary of the decode config's chunk schedule
   (`decode/beam_search.py::fixed_beam_search`, the reference's unrolled
   decoder with beams; greedy is beam 1) -> (tokens, lengths) of the best
   beam;
@@ -72,7 +73,8 @@ def caption_fn(cfg: ModelConfig, dcfg: DecodeConfig, greedy: bool = False,
 
     use_dcfg = (
         DecodeConfig(beam_size=1, how_many_outputs=1, max_seq_len=dcfg.max_seq_len,
-                     sos_idx=dcfg.sos_idx, eos_idx=dcfg.eos_idx)
+                     sos_idx=dcfg.sos_idx, eos_idx=dcfg.eos_idx,
+                     chunk_schedule=dcfg.chunk_schedule)
         if greedy else dcfg
     )
 
@@ -196,6 +198,8 @@ def export_artifact(
     Int8 weights and index tables keep their dtype. The program is traced
     over the shipped weights, so loading and running it gives what the model
     gives on those weights (rounded through the shipped dtype)."""
+    from ..decode.beam_search import schedule_of
+
     tgt = _target_dtype(cfg, param_dtype)
     ep = _export(model, cfg, dcfg, batch_size, greedy, step_impl, tgt)
     os.makedirs(path, exist_ok=True)
@@ -208,6 +212,7 @@ def export_artifact(
                 "img_size": cfg.swin.img_size,
                 "beam_size": 1 if greedy else dcfg.beam_size,
                 "max_seq_len": dcfg.max_seq_len,
+                "chunk_schedule": list(schedule_of(dcfg)),
                 "step_impl": step_impl,
                 "attention_impl": cfg.swin.attention_impl,
             },

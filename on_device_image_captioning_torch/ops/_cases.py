@@ -157,6 +157,25 @@ STEP_SHAPES = [
 # samples, fp32 caches of 20 + 1 positions (the sampler's caches are fp32
 # whatever the model's compute dtype)
 SCST_STEP = (20, 4, 21, (0, 7, 20), 2221)
+# the steps of chunked decode (decode/beam_search.py::default_chunk_schedule),
+# label prefix and (rows, images, L, positions, seed): the serve cell's (b8 /
+# beam 3 / L20, caches of 12 then 20) SOS step at L12 and the last step of
+# each phase; the latency cell's (b1 / beam 5 / L74, caches of 12, 24, 40,
+# 56, 74) the same. The prefixes mark main-path shapes (chip_smoke.py's
+# kernels line lists their times).
+CHUNK_SHAPES = [
+    ("b8 decode ", (8, 8, 12, (0,), 2312)),
+    ("b8 decode ", (24, 8, 12, (10,), 2324)),
+    ("b8 decode ", (24, 8, 20, (18,), 2320)),
+    ("b1 decode ", (1, 1, 12, (0,), 2412)),
+    ("b1 decode ", (5, 1, 12, (10,), 2512)),
+    ("b1 decode ", (5, 1, 24, (22,), 2524)),
+    ("b1 decode ", (5, 1, 40, (38,), 2540)),
+    ("b1 decode ", (5, 1, 56, (54,), 2556)),
+    ("b1 decode ", (5, 1, 74, (72,), 2574)),
+]
+# the SCST sampler's first phase: caches of 12 + 1 positions (then SCST_STEP's 21)
+SCST_CHUNK_STEP = (20, 4, 13, (0, 11), 2213)
 
 
 def _step_operands(b, L, E, d, dt, g, dev, first):
@@ -187,13 +206,15 @@ def _step_checks(first_name):
 
 
 def dyn_exp_step_cases(dev) -> Iterator[Case]:
-    """K2 at the STEP_SHAPES (E=16, d=512), fp32 and bf16 caches, and at the
-    SCST sampler's own shape (SCST_STEP). Checks the output and all six
-    destination caches."""
+    """K2 at the STEP_SHAPES and CHUNK_SHAPES (E=16, d=512), fp32 and bf16
+    caches, and at the SCST sampler's own shapes (SCST_CHUNK_STEP, SCST_STEP).
+    Checks the output and all six destination caches."""
     E, d = 16, 512
     checks = _step_checks("out")
-    shapes = [(dt, "", shape) for dt in (torch.float32, torch.bfloat16) for shape in STEP_SHAPES]
-    shapes.append((torch.float32, "b4 sampling ", SCST_STEP))
+    dtypes = (torch.float32, torch.bfloat16)
+    shapes = [(dt, "", shape) for dt in dtypes for shape in STEP_SHAPES]
+    shapes += [(dt, prefix, shape) for dt in dtypes for prefix, shape in CHUNK_SHAPES]
+    shapes += [(torch.float32, "b4 sampling ", s) for s in (SCST_CHUNK_STEP, SCST_STEP)]
     for dt, prefix, (b, _, L, positions, seed) in shapes:
         tol = TOL[dt]
         g = torch.Generator().manual_seed(200 + L if seed is None else seed)
@@ -218,14 +239,15 @@ def dyn_exp_step_cases(dev) -> Iterator[Case]:
 
 
 def dyn_exp_cross_step_cases(dev) -> Iterator[Case]:
-    """B16 at the STEP_SHAPES (images x beams rows), S=144 encoder tokens,
-    d=512, 8 heads, E=16, a pad mask with 0 and 16 pads, fp32 and bf16.
-    Checks the output row and all six destination caches."""
+    """B16 at the STEP_SHAPES and CHUNK_SHAPES (images x beams rows), S=144
+    encoder tokens, d=512, 8 heads, E=16, a pad mask with 0 and 16 pads, fp32
+    and bf16. Checks the output row and all six destination caches."""
     E, d, heads, S = 16, 512, 8, 144
     checks = _step_checks("y_out")
     for dt in (torch.float32, torch.bfloat16):
         tol = TOL[dt]
-        for b, images, L, positions, seed in STEP_SHAPES:
+        shapes = [("", shape) for shape in STEP_SHAPES] + CHUNK_SHAPES
+        for prefix, (b, images, L, positions, seed) in shapes:
             group = b // images
             g = torch.Generator().manual_seed(1000 + 10 * L + b if seed is None else seed + 1)
             src, reorder, q_i, bias_i, rows, sel, embed = _step_operands(
@@ -248,7 +270,7 @@ def dyn_exp_cross_step_cases(dev) -> Iterator[Case]:
                     return k2.dyn_exp_cross_step(*a, dst, **kw), dst
 
                 yield Case(
-                    "dyn_exp_cross_step", f"B{b} L{L} pos{pos} {_dtype_name(dt)}",
+                    "dyn_exp_cross_step", f"{prefix}B{b} L{L} pos{pos} {_dtype_name(dt)}",
                     run_kernel, lambda a=a, kw=kw: k2.dyn_exp_cross_step_reference(*a, **kw),
                     lambda got, want, tol=tol: checks(got, want, tol), args=a,
                     # K2's bytes plus y, LN2, Wq, Wo, the images' K and V and the mask

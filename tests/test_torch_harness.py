@@ -120,7 +120,7 @@ def jax_pallas_path():
         (pcfg.SwinConfig, jcfg.SwinConfig, set()),
         (pcfg.CaptionerConfig, jcfg.CaptionerConfig, set()),
         (pcfg.ModelConfig, jcfg.ModelConfig, set()),
-        (pcfg.DecodeConfig, jcfg.DecodeConfig, {"chunk_schedule"}),
+        (pcfg.DecodeConfig, jcfg.DecodeConfig, set()),
         (pcfg.DropConfig, jcfg.DropConfig, set()),
     ],
 )
