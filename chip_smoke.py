@@ -20,7 +20,9 @@ Phases, in order (any failure raises and exits non-zero before the result):
    shape of run "parallel_eval", b8 stage 0 on 3 of 6 heads; K2 and B16 also at
    the cache lengths chunked decode gives the serve and latency cells, and K2
    at the SCST sampler's first phase: ops/_cases.py CHUNK_SHAPES,
-   SCST_CHUNK_STEP). Every inference kernel is a
+   SCST_CHUNK_STEP; K1 also at the `"pallas"` encode's own calls, b8 and b1,
+   stages 0-3, bf16, masked where the encode masks: MAIN_PATH_ATTN). Every
+   inference kernel is a
    `torch.library` op of the namespace `odic`: `torch.library.opcheck` of
    each on CUDA inputs (ops/_cases.py::opcheck_calls) must pass.
 4. Main path at full width, once per run of RUNS: the `attention_impl`
@@ -207,7 +209,9 @@ Phases, in order (any failure raises and exits non-zero before the result):
    PyTorch call computes the same function, that call (CUDA events); B6
    against B4 + B5 at each main-path shape of stages 0 and 1 (ops/_cases.py
    MAIN_PATH_BLOCKS; the kernels line lists each kernel's main-path cases);
-   B12 as
+   K1 beside `scaled_dot_product_attention` at each of its cases, the
+   encode's own among them; the attention core's share of B4's device time
+   at B4's main-path shapes (one profiled call each); B12 as
    the whole call and as its product alone on the int8 x; the shared bf16
    product of B4 and B5 alone at the four stage-2 products of a b8
    encode, beside `F.linear` on the same tensors (a yardstick); B13's two
@@ -3413,6 +3417,36 @@ class Smoke:
                 f"({', '.join(f'{t['name'][:48]} x{t['calls']}' for t in prof['top'])}) "
                 f"| {self.card}")
 
+    def attention_core_share(self):
+        """The attention core's (csrc/window_attention.cuh) share of B4's
+        device time at each of B4's main-path shapes (ops/_cases.py
+        MAIN_PATH_HALVES), from one profiled call each."""
+        from on_device_image_captioning_torch.cli.breakdown import device_profile
+        from on_device_image_captioning_torch.ops import _cases
+
+        for case in _cases.CASES["swin_attn_half"](self.dev):
+            if not MAIN_PATH_LABEL.match(case.label):
+                continue
+            case.run_kernel()
+            # Now and then a profiler session records the host's launches but
+            # none of the kernels' device records (on the H100, in runs of
+            # consecutive sessions; the kernels ran): such a session is logged
+            # and taken again, at most twice.
+            for attempt in range(3):
+                prof = device_profile(case.run_kernel)
+                if prof["device_ms"] > 0:
+                    break
+                log(f"  swin_attn_half {case.label}: profiled session {attempt + 1} recorded "
+                    f"no device time | {self.card}")
+            else:
+                log(f"  swin_attn_half {case.label}: the attention core's share not measured "
+                    f"| {self.card}")
+                continue
+            core = sum(t["ms"] for t in prof["top"] if "window_attention" in t["name"])
+            log(f"  swin_attn_half {case.label}: attention core {core:.4f} of "
+                f"{prof['device_ms']:.4f} device ms ({core / prof['device_ms']:.1%}), "
+                f"{prof['launches']} CUDA launches, one profiled call | {self.card}")
+
     def kernel_timing(self, names=None):
         from on_device_image_captioning_torch.ops import _cases
 
@@ -3857,6 +3891,8 @@ def main(names) -> int:
         if {"swin_mlp_bwd", "swin_attn_bwd"} & set(names):
             smoke.grad_product_timing()
             smoke.backward_launches()
+        if "swin_attn_half" in names:
+            smoke.attention_core_share()
         log(f"checked and timed {names} only: no result")
         return 0
     smoke.kernels()
@@ -3882,6 +3918,7 @@ def main(names) -> int:
     smoke.merge_product_timing()
     smoke.grad_product_timing()
     smoke.backward_launches()
+    smoke.attention_core_share()
     smoke.topk_cluster_timing()
     smoke.path_timing()
     smoke.eval_timing()

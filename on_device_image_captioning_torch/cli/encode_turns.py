@@ -15,6 +15,8 @@ images):
   warm-up, and device ms, the summed device time of a `torch.profiler` pass,
   the median of PROFILED_PASSES of them (the tree's own `cli/breakdown`
   helpers; single passes read up to 0.5 ms apart at b1 and 2.4 ms at b8);
+  and the attention core's device ms (every kernel whose name holds
+  "window_attention"), the median of as many passes of its own;
 - the bf16 backbone features (2, 144, 1536) of D and of H against P's, same
   weights and images: the relative RMS of the difference (its RMS over P's)
   and its largest absolute value. P runs no kernel of the shared product, so
@@ -48,6 +50,21 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 forms = {"D": ("fused", False), "H": ("fused", True), "P": ("pallas", False)}
 PROFILED_PASSES = 5
+
+
+def attention_ms(fn):
+    """Device ms and launches of the attention core's kernels (every kernel
+    of csrc/window_attention.cuh: K1, B3 and the core of B4) in one profiled
+    call."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "window_attention" in e.key]
+    return sum(e.self_device_time_total for e in rows) / 1000.0, sum(e.count for e in rows)
+
+
 encode, feats = {}, {}
 check = torch.from_numpy(
     np.random.default_rng(7).integers(0, 256, (2, 384, 384, 3), dtype=np.uint8)).cuda()
@@ -61,10 +78,13 @@ for name, (impl, halves) in forms.items():
         imgs = np.random.default_rng(100 + b).integers(0, 256, (b, 384, 384, 3), dtype=np.uint8)
         wall = wall_ms(lambda: cap.forward_enc(imgs))
         profs = [device_profile(lambda: cap.forward_enc(imgs)) for _ in range(PROFILED_PASSES)]
+        attn = [attention_ms(lambda: cap.forward_enc(imgs)) for _ in range(PROFILED_PASSES)]
         encode[f"{name} b{b}"] = {"wall_ms": statistics.median(wall),
                                   "device_ms": statistics.median(p["device_ms"] for p in profs),
                                   "device_ms_passes": [p["device_ms"] for p in profs],
-                                  "launches": profs[-1]["launches"], "top": profs[-1]["top"][:4]}
+                                  "launches": profs[-1]["launches"], "top": profs[-1]["top"][:4],
+                                  "attention_ms": statistics.median(a[0] for a in attn),
+                                  "attention_calls": attn[-1][1]}
     with torch.inference_mode():
         feats[name] = model.swin_transf(normalize_on_device(check), cfg.compute_dtype).float()
     del cap, model
@@ -109,7 +129,9 @@ def main(argv=None) -> int:
         runs.append({"tree": tree, **got})
         for key, r in got["encode"].items():
             print(f"turn {i} {tree}: encode {key}: device {r['device_ms']:.3f} ms, wall "
-                  f"{r['wall_ms']:.3f} ms, {r['launches']} launches | {card}", flush=True)
+                  f"{r['wall_ms']:.3f} ms, {r['launches']} launches; attention core "
+                  f"{r['attention_ms']:.3f} ms in {r['attention_calls']} calls | {card}",
+                  flush=True)
         for key, r in got["features"].items():
             print(f"turn {i} {tree}: bf16 backbone features {key} vs P {tuple(r['shape'])}: "
                   f"relative RMS {r['rel_rms']:.4e}, max abs {r['max_abs']:.4e} | {card}",
@@ -121,9 +143,16 @@ def main(argv=None) -> int:
         tree: {key: statistics.mean(r["encode"][key]["device_ms"] for r in rs)
                for key in rs[0]["encode"]}
         for tree, rs in by_tree.items()}
+    attention = {
+        tree: {key: statistics.mean(r["encode"][key]["attention_ms"] for r in rs)
+               for key in rs[0]["encode"]}
+        for tree, rs in by_tree.items()}
     for tree, means in summary.items():
         print(f"{tree}: mean encode device ms over its turns: "
               + ", ".join(f"{k} {v:.3f}" for k, v in means.items()) + f" | {card}", flush=True)
+        print(f"{tree}: mean attention-core device ms over its turns: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in attention[tree].items()) + f" | {card}",
+              flush=True)
     ok = True
     if args.max_ratio is not None:
         base, cand = (by_tree[t][0]["features"] for t in list(by_tree)[:2])
@@ -132,7 +161,8 @@ def main(argv=None) -> int:
             ok &= ratio <= args.max_ratio
             print(f"bf16 features {name} vs P: {list(by_tree)[1]} / {list(by_tree)[0]} relative "
                   f"RMS ratio {ratio:.3f} (at most {args.max_ratio:g})", flush=True)
-    line = json.dumps({"card": card, "runs": runs, "mean_device_ms": summary, "ok": ok})
+    line = json.dumps({"card": card, "runs": runs, "mean_device_ms": summary,
+                       "mean_attention_ms": attention, "ok": ok})
     if args.out:
         with open(args.out, "w") as f:
             f.write(line + "\n")

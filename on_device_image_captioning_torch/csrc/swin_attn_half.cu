@@ -14,8 +14,9 @@
 // 4 N C of attention against 4 C bytes of x in and out (bf16): about 2 C
 // flop/byte, 384 to 1536, above the card's balance point. bf16 runs on the
 // tensor cores (the products on warpgroup MMA in the tile forms of the
-// wrapper's launch plan, fused_linear.cuh; the attention core on
-// nvcuda::wmma), fp32 on the CUDA cores as full fp32.
+// wrapper's launch plan, fused_linear.cuh; the attention core on mma.sync
+// with scores and probabilities in registers, window_attention.cuh, in the
+// wrapper's attention plan), fp32 on the CUDA cores as full fp32.
 //
 // Design: a chain of three launches at every width (C = 192, 384, 768):
 //   1. qkv  = LN1(x') @ Wqkv + b     x' gathered by map_row(kMapTransition)
@@ -24,7 +25,8 @@
 //   2. attn = window attention core  window_attention.cuh with the fused
 //                                    kernels' rounding (q scaled in the
 //                                    storage type, division after e.v);
-//                                    scores only ever in shared memory
+//                                    scores only ever in registers, a CTA
+//                                    a mask row and a run of heads
 //   3. out  = x' + attn @ Wproj + b  residual rows gathered by the same map
 // The transition is index arithmetic in launch 1's loads and launch 3's
 // residual reads: no P4 matrix, no separate permuting pass. qkv (rows, 3C)
@@ -46,7 +48,7 @@ static cudaError_t attn_half_typed(const void* x, const float* ln_g,
                                 int map, Geometry geo, int dtype,
                                 const float* m1, int rows_per_image,
                                 int qkv_form, int proj_form, void* ln_rows,
-                                cudaStream_t s) {
+                                int attn_heads, int attn_splits, cudaStream_t s) {
   LinearArgs p = {};
   p.a = x; p.w = wqkv; p.bias = bqkv; p.ln_g = ln_g; p.ln_b = ln_b;
   p.out = qkv; p.M = bw * n; p.N = 3 * c; p.K = c;
@@ -55,7 +57,7 @@ static cudaError_t attn_half_typed(const void* x, const float* ln_g,
   cudaError_t err = launch_linear_wide<T>(p, qkv_form, s);
   if (err != cudaSuccess) return err;
   err = launch_window_attention<true>(qkv, bias, mask, attn, bw, n, c, heads,
-                                      num_windows, scale, dtype, s);
+                                      num_windows, scale, attn_heads, attn_splits, dtype, s);
   if (err != cudaSuccess) return err;
   LinearArgs q = {};
   q.a = attn; q.w = wproj; q.bias = bproj; q.resid = x; q.resid_map = map;
@@ -75,7 +77,7 @@ static int attn_half_dispatch(const void* x, const void* ln_g,
                               float eps, int transition, int res,
                               int window, int delta, const void* m1,
                               int rows_per_image, int qkv_form, int proj_form,
-                              void* ln_rows,
+                              void* ln_rows, int attn_heads, int attn_splits,
                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int map = kMapIdentity;
@@ -98,13 +100,13 @@ static int attn_half_dispatch(const void* x, const void* ln_g,
     return attn_half_typed<float>(x, g, b, wqkv, fq, wproj, fp, fbias, fmask, qkv,
                                attn, out, bw, n, c, heads, num_windows, scale,
                                eps, map, geo, dtype, fm1, rows_per_image, qkv_form,
-                               proj_form, ln_rows, s);
+                               proj_form, ln_rows, attn_heads, attn_splits, s);
   if (dtype == kBFloat16)
     return attn_half_typed<__nv_bfloat16>(x, g, b, wqkv, fq, wproj, fp, fbias,
                                        fmask, qkv, attn, out, bw, n, c, heads,
                                        num_windows, scale, eps, map, geo, dtype,
                                        fm1, rows_per_image, qkv_form, proj_form, ln_rows,
-                                       s);
+                                       attn_heads, attn_splits, s);
   return cudaErrorInvalidValue;
 }
 
@@ -113,8 +115,9 @@ static int attn_half_dispatch(const void* x, const void* ln_g,
 // and attn (bw, n, c) scratch. transition != 0 reads x through the window
 // transition of a res grid with delta = (to_shift - from_shift) mod res;
 // qkv_form and proj_form are the bf16 products' tile forms (the launch
-// plan's) and ln_rows (bw n, c) scratch in the storage type for the rows of
-// LN1(x') the qkv product reads; fp32 reads neither.
+// plan's), ln_rows (bw n, c) scratch in the storage type for the rows of
+// LN1(x') the qkv product reads (fp32 reads neither), and attn_heads and
+// attn_splits the attention core's plan (heads a CTA, shares of the images).
 extern "C" int swin_attn_half_launch(const void* x, const void* ln_g,
                                      const void* ln_b, const void* wqkv,
                                      const void* bqkv, const void* wproj,
@@ -124,12 +127,13 @@ extern "C" int swin_attn_half_launch(const void* x, const void* ln_g,
                                      int heads, int num_windows, float scale,
                                      float eps, int transition, int res,
                                      int window, int delta, int qkv_form,
-                                     int proj_form, void* ln_rows, int dtype,
-                                     void* stream) {
+                                     int proj_form, void* ln_rows, int attn_heads,
+                                     int attn_splits, int dtype, void* stream) {
   return attn_half_dispatch(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
                             qkv, attn, out, bw, n, c, heads, num_windows, scale,
                             eps, transition, res, window, delta, nullptr, 1,
-                            qkv_form, proj_form, ln_rows, dtype, stream);
+                            qkv_form, proj_form, ln_rows, attn_heads, attn_splits,
+                            dtype, stream);
 }
 
 // B10a, the training forward (`_attn_half_train_fwd_call`): the same with the
@@ -144,11 +148,19 @@ extern "C" int swin_attn_half_train_launch(
     const void* bqkv, const void* wproj, const void* bproj, const void* bias,
     const void* mask, const void* m1, void* qkv, void* attn, void* out, int bw,
     int n, int c, int heads, int num_windows, int windows_per_image, float scale,
-    float eps, int qkv_form, int proj_form, void* ln_rows, int dtype, void* stream) {
+    float eps, int qkv_form, int proj_form, void* ln_rows, int attn_heads, int attn_splits,
+    int dtype, void* stream) {
   if (m1 == nullptr || windows_per_image <= 0 || bw % windows_per_image != 0)
     return cudaErrorInvalidValue;
   return attn_half_dispatch(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
                             qkv, attn, out, bw, n, c, heads, num_windows, scale,
                             eps, 0, 0, 0, 0, m1, windows_per_image * n, qkv_form,
-                            proj_form, ln_rows, dtype, stream);
+                            proj_form, ln_rows, attn_heads, attn_splits, dtype, stream);
+}
+
+// The registers and local memory a thread of each instance of the attention
+// core with the fused kernels' rounding (window_attention.cuh::
+// attention_attributes; ops/window_attention.py::kernel_resources).
+extern "C" int swin_attn_half_core_attributes(int which, int* registers, int* local_bytes) {
+  return attention_attributes<true>(which, registers, local_bytes);
 }

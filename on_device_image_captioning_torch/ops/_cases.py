@@ -98,7 +98,8 @@ def window_attention_cases(dev) -> Iterator[Case]:
     fp32 and bf16. Stage 3 (one window) has no shift on the main path; a
     random 0/-100 mask stands in so the masked branch runs there too. Then
     the tensor-parallel serve shape (MAIN_PATH_TP): stage 0 of a b8 batch
-    on one rank of a model group of 2, its 3 of the 6 heads."""
+    on one rank of a model group of 2, its 3 of the 6 heads; then the
+    `"pallas"` encode's own calls at b8 and b1 (MAIN_PATH_ATTN), bf16."""
 
     def case(stage, b, heads, dt, m, label):
         c, _, res = STAGES[stage]
@@ -135,12 +136,20 @@ def window_attention_cases(dev) -> Iterator[Case]:
         for dt in (torch.float32, torch.bfloat16):
             yield case(stage, b, STAGES[stage][1] // n_model, dt, True,
                        f"b{b} stage{stage} tp{n_model} ")
+    for b, stage, m in MAIN_PATH_ATTN:
+        yield case(stage, b, STAGES[stage][1], torch.bfloat16, m, f"b{b} stage{stage} ")
 
 
 # (batch, stage, model ranks) of the tensor-parallel serve shapes with cases
 # of their own: run "parallel_eval"'s "pallas" backbone at b8 on one rank of a
 # model group of 2 (stage 0's 6 heads, 3 a rank)
 MAIN_PATH_TP = [(8, 0, 2)]
+# (batch, stage, masked) of the `"pallas"` encode's own K1 calls, bf16: the
+# serve (b8) and latency (b1) batches at every stage, the shifted blocks of
+# stages 0-2 with the mask and the others without; stage 3 has one window
+# and no shift
+MAIN_PATH_ATTN = [(b, stage, m) for b in (8, 1) for stage in range(4)
+                  for m in ((True, False) if stage < 3 else (False,))]
 
 
 # decode-step shapes: (rows, images, L, positions, seed). 24 rows are b8 x

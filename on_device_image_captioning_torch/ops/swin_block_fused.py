@@ -44,7 +44,7 @@ from .layernorm import layernorm_reference
 from .linear_plan import (
     core_chunk, form_for, grad_plan, int8_plan, linear_plan, mlp_a8_plan, sm_count,
 )
-from .window_attention import HEAD_DIM
+from .window_attention import HEAD_DIM, attention_plan, check_aligned
 from .window_layout import window_transition_perm
 
 # wrapper calls that launched their kernels since the last reset (plain-version
@@ -347,16 +347,17 @@ def _swin_attn_half_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, bias, mask, heads:
     _check_linears("swin_attn_half", x.dtype, qkv, proj)
     num_windows, res, window, delta = _check_attention(
         "swin_attn_half", x, qkv, proj, bias, mask, heads, transition)
-    if 2 * n * HEAD_DIM * 4 > 48 * 1024:
-        raise ValueError(f"swin_attn_half: window of {n} tokens exceeds shared memory")
+    plan = attention_plan(bw, num_windows, heads, mask is not None, x.dtype,
+                          sm_count(x.device), n)
     _build.check_cuda_tensors(*_flat([x, *norm1, *qkv, *proj, bias, mask]))
+    check_aligned("swin_attn_half", bias, mask)
     qkv_buf = torch.empty((bw, n, 3 * c), dtype=x.dtype, device=x.device)
     attn_buf = torch.empty_like(x)
     out = torch.empty_like(x)
     fn = _build.cuda_function(
         "swin_attn_half", "swin_attn_half_launch",
         [_P] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
-        + [_P, ctypes.c_int, _P],
+        + [_P] + [ctypes.c_int] * 3 + [_P],
     )
     status = fn(
         x.data_ptr(), norm1[0].data_ptr(), norm1[1].data_ptr(),
@@ -364,7 +365,8 @@ def _swin_attn_half_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, bias, mask, heads:
         bias.data_ptr(), _ptr(mask), qkv_buf.data_ptr(), attn_buf.data_ptr(), out.data_ptr(),
         bw, n, c, heads, num_windows, float(scale), float(eps),
         int(transition is not None), res, window, delta, *_attn_forms(x, bw * n, c),
-        _ptr(_ln_scratch(x, bw * n, c)), _DTYPE_CODE[x.dtype], _build.current_stream(),
+        _ptr(_ln_scratch(x, bw * n, c)), plan.heads_per_cta, plan.splits, _DTYPE_CODE[x.dtype],
+        _build.current_stream(),
     )
     _build.check_status(status, "swin_attn_half")
     attn_half_launches += 1
@@ -1031,24 +1033,25 @@ def swin_attn_half_train_forward(
     _check_linears("swin_attn_half_train", x.dtype, qkv, proj)
     num_windows = _check_attention(
         "swin_attn_half_train", x, qkv, proj, bias, mask, heads, None)[0]
-    if 2 * n * HEAD_DIM * 4 > 48 * 1024:
-        raise ValueError(f"swin_attn_half_train: window of {n} tokens exceeds shared memory")
+    plan = attention_plan(bw, num_windows, heads, mask is not None, x.dtype,
+                          sm_count(x.device), n)
     _build.check_cuda_tensors(*_flat([x, *norm1, *qkv, *proj, bias, mask, m1]))
+    check_aligned("swin_attn_half_train", bias, mask)
     qkv_buf = torch.empty((bw, n, 3 * c), dtype=x.dtype, device=x.device)
     attn_buf = torch.empty_like(x)
     out = torch.empty_like(x)
     fn = _build.cuda_function(
         "swin_attn_half", "swin_attn_half_train_launch",
         [_P] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-        + [_P, ctypes.c_int, _P],
+        + [_P] + [ctypes.c_int] * 3 + [_P],
     )
     status = fn(
         x.data_ptr(), norm1[0].data_ptr(), norm1[1].data_ptr(),
         qkv[0].data_ptr(), _ptr(qkv[1]), proj[0].data_ptr(), _ptr(proj[1]),
         bias.data_ptr(), _ptr(mask), m1.data_ptr(), qkv_buf.data_ptr(), attn_buf.data_ptr(),
         out.data_ptr(), bw, n, c, heads, num_windows, bw // b, float(scale), float(eps),
-        *_attn_forms(x, bw * n, c), _ptr(_ln_scratch(x, bw * n, c)), _DTYPE_CODE[x.dtype],
-        _build.current_stream(),
+        *_attn_forms(x, bw * n, c), _ptr(_ln_scratch(x, bw * n, c)), plan.heads_per_cta,
+        plan.splits, _DTYPE_CODE[x.dtype], _build.current_stream(),
     )
     _build.check_status(status, "swin_attn_half_train")
     attn_half_train_launches += 1

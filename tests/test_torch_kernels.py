@@ -15,7 +15,10 @@ decode-step kernels K2 and B16, the whole-block kernels B6 and B9a, and the
 shared bf16 product of B4 and B5 (alone, at ragged rows, stage 0's width,
 the merge and the transition), K3 and K4, and B7 and B8 in every grid, tile
 form and K split, also bit for bit from one launch to the next; K3 also in
-every cluster size it takes.
+every cluster size it takes; the window-attention core on each of its routes
+(bf16 N = 144 on the tensor cores, fp32 and bf16 of other window sizes on the
+CUDA cores) with both roundings (through K1 and through B4), bit for bit from
+one launch to the next too.
 """
 import pytest
 import torch
@@ -168,6 +171,102 @@ def test_window_attention_raises_on_other_head_widths(cuda, heads):
     bias = torch.zeros((heads, 144, 144), device=cuda)
     with pytest.raises(ValueError):
         k1.window_attention(qkv, bias, None, heads, 0.125)
+
+
+# (windows, nW or None, heads, N, dtype) of the attention core's routes off
+# the phase-3 cases: the tensor cores (bf16, N = 144) at plans of several
+# heads a CTA, of image shares and of one (window, head) a CTA; the CUDA
+# cores at fp32 and at bf16 windows of other sizes (a quad's keys past N, rows
+# past N, N = 192 on the wide instance)
+ATTN_ROUTES = [
+    (128, 64, 6, 144, torch.bfloat16), (32, 4, 24, 144, torch.bfloat16),
+    (24, 4, 24, 144, torch.bfloat16), (6, None, 48, 144, torch.bfloat16),
+    (16, 16, 12, 144, torch.float32), (6, None, 24, 144, torch.float32),
+    (12, 4, 3, 49, torch.bfloat16), (8, None, 2, 16, torch.bfloat16),
+    (32, 16, 6, 64, torch.float32), (6, 3, 4, 100, torch.bfloat16),
+    (4, 2, 6, 192, torch.float32), (4, 2, 6, 192, torch.bfloat16), (3, None, 1, 7, torch.float32),
+]
+ATTN_IDS = [f"bw{bw}-nw{nw}-h{h}-n{n}-{str(dt)[6:]}" for bw, nw, h, n, dt in ATTN_ROUTES]
+
+
+def _attn_operands(cuda, bw, nw, heads, n, dt, seed):
+    g = torch.Generator().manual_seed(seed)
+    qkv = (torch.randn((bw, n, 3 * heads * k1.HEAD_DIM), generator=g)).to(cuda, dt)
+    bias = (torch.randn((heads, n, n), generator=g) * 0.5).to(cuda)
+    mask = None
+    if nw is not None:
+        mask = torch.where(torch.rand((nw, n, n), generator=g) > 0.7, -100.0, 0.0).to(cuda)
+    return qkv, bias, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw, nw, heads, n, dt", ATTN_ROUTES, ids=ATTN_IDS)
+def test_attention_core_routes_match_plain_version(cuda, bw, nw, heads, n, dt):
+    """K1 (window_attention_pallas's rounding) on each route and plan against
+    its plain version, and two launches bit-equal (every sum in a fixed
+    order)."""
+    a = (*_attn_operands(cuda, bw, nw, heads, n, dt, 4100 + n), heads, k1.HEAD_DIM**-0.5)
+    got = k1.window_attention(*a)
+    abs_err, rel_err, ok = _cases.compare(got, k1.window_attention_reference(*a), _cases.TOL[dt])
+    assert ok, f"max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
+    again = k1.window_attention(*a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, dt", [(144, torch.bfloat16), (144, torch.float32),
+                                   (49, torch.bfloat16), (49, torch.float32)])
+def test_attention_core_fused_rounding_through_b4(cuda, n, dt):
+    """The core with the fused kernels' rounding (q scaled in the storage
+    type, exp(s - max) rounded before the product with v, the division after
+    it) inside B4, on both routes, against B4's plain version; bit-equal from
+    one launch to the next."""
+    g = torch.Generator().manual_seed(4200 + n)
+    bw, c, heads = 8, 192, 6
+    x = (torch.randn((bw, n, c), generator=g)).to(cuda, dt)
+    norm = (torch.ones(c, device=cuda), torch.zeros(c, device=cuda))
+    qkv = ((torch.randn((c, 3 * c), generator=g) * c**-0.5).to(cuda, dt),
+           torch.randn((3 * c,), generator=g).to(cuda))
+    proj = ((torch.randn((c, c), generator=g) * c**-0.5).to(cuda, dt),
+            torch.randn((c,), generator=g).to(cuda))
+    bias = (torch.randn((heads, n, n), generator=g) * 0.5).to(cuda)
+    mask = torch.where(torch.rand((4, n, n), generator=g) > 0.7, -100.0, 0.0).to(cuda)
+    a = (x, norm, qkv, proj, bias, mask, heads, k1.HEAD_DIM**-0.5, 1e-5)
+    got = sbf.swin_attn_half(*a)
+    abs_err, rel_err, ok = _cases.compare(got, sbf.swin_attn_half_reference(*a), _cases.TOL[dt])
+    assert ok, f"max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
+    again = sbf.swin_attn_half(*a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_window_attention_raises_outside_its_operands(cuda):
+    """Windows of more than 192 tokens, and operands not 16-byte aligned,
+    get a raise, not a launch."""
+    before = k1.launches
+    qkv, bias, _ = _attn_operands(cuda, 2, None, 2, 193, torch.float32, 1)
+    with pytest.raises(ValueError, match="tokens"):
+        k1.window_attention(qkv, bias, None, 2, 0.125)
+    qkv, bias, _ = _attn_operands(cuda, 2, None, 2, 144, torch.bfloat16, 1)
+    shifted = torch.empty(qkv.numel() + 1, dtype=qkv.dtype, device=cuda)[1:].view(qkv.shape)
+    shifted.copy_(qkv)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k1.window_attention(shifted, bias, None, 2, 0.125)
+    assert k1.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["k1_rounding", "fused_rounding"])
+def test_attention_core_resources_match_ptxas(cuda, fused):
+    """Every instance of the attention core, in K1's library and in the
+    attention half's (the fused rounding), has the registers and the local
+    memory (spills) a thread that the plan and PERF.md state
+    (ops/window_attention.py REGISTERS and LOCAL_BYTES, ptxas's figures)."""
+    want = [(route, dtype, k1.REGISTERS[route], local)
+            for (route, dtype), local in zip(k1.INSTANCES, k1.LOCAL_BYTES[fused])]
+    assert k1.kernel_resources(fused) == want
 
 
 @pytest.mark.cuda
