@@ -2853,35 +2853,36 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def scst_timing(self):
-        """Phase 6, SCST: ms per shared-encoder SCST step and its split (CUDA
-        events at the step's part boundaries), peak memory."""
+        """Phase 6, SCST: ms per shared-encoder SCST step and its split (the
+        step's `scst.*` spans, each with its CUDA event pair), peak memory."""
         torch = self.torch
+        from on_device_image_captioning_torch.utils import profiling
+
         model, step, batch, tables, gen = self.scst
-        parts = ("encoder", "sampling", "reward", "rescore", "optimizer")
+        parts = ("encoder", "sampling", "reward", "rescore", "backward", "optimizer")
         resident = torch.cuda.memory_allocated() / 2**20  # every earlier run's tensors too
         torch.cuda.reset_peak_memory_stats()
         splits, walls, steps = [], [], []
-        for _ in range(3):
-            events = []
-
-            def mark(part):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                events.append(ev)
-
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mark("start")
-            out = step(batch, tables, gen, mark=mark)
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t0))
-            splits.append([events[i].elapsed_time(events[i + 1]) for i in range(len(parts))])
-            steps.append(int(out["sampled"].lengths.max()))
+        profiling.set_tracing(device=True)
+        try:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                profiling.clear()
+                t0 = time.perf_counter()
+                out = step(batch, tables, gen)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+                spans = {r.name: r for r in profiling.records()}
+                splits.append([spans["scst." + p].device_ms() for p in parts])
+                steps.append(int(out["sampled"].lengths.max()))
+        finally:
+            profiling.set_tracing(device=False)
         peak = torch.cuda.max_memory_allocated() / 2**20
         med = {p: statistics.median(s[i] for s in splits) for i, p in enumerate(parts)}
         log(f"  SCST step b{B_SCST} x {SCST_SAMPLES} samples / L{L_SCST} bf16, Swin-L/384 + d512: "
             f"{statistics.median(walls):.2f} ms per step (host clock around the synchronized "
-            f"step, median of 3: {[round(w, 2) for w in walls]}); CUDA events, medians of 3: "
+            f"step, median of 3: {[round(w, 2) for w in walls]}); CUDA events of the step's "
+            f"spans, medians of 3: "
             + ", ".join(f"{p} {med[p]:.2f} ms" for p in parts)
             + f" (sum {sum(med.values()):.2f} ms; sampling steps {steps}); peak device memory "
             f"{peak:.0f} MiB, of which {resident:.0f} MiB were allocated before the step | "

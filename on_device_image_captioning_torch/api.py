@@ -24,6 +24,7 @@ from .decode import sampling as smp
 from .models.captioner import ExpansionNetV2
 from .models.end_to_end import EndExpansionNetV2
 from .utils.image import normalize_on_device
+from .utils.profiling import span
 
 
 def _decode_config(a: dict) -> DecodeConfig:
@@ -91,13 +92,14 @@ class Captioner:
         """End-to-end: images NHWC, uint8 (normalized here, on the device) or
         already normalized float. Features-in: (B, S, img_feature_dim)
         features with enc_num_pads (B,) trailing pad rows. Returns the encoder
-        output (B, S_enc, d_model)."""
-        x = self._to_device(enc_input)
-        if self.end_to_end:
-            if x.dtype == torch.uint8:
-                x = normalize_on_device(x)
-            return self.model.forward_enc(x)
-        return self.model.forward_enc(x.float(), self._to_device(enc_num_pads))
+        output (B, S_enc, d_model). Recorded as the span `encode`."""
+        with span("encode"):
+            x = self._to_device(enc_input)
+            if self.end_to_end:
+                if x.dtype == torch.uint8:
+                    x = normalize_on_device(x)
+                return self.model.forward_enc(x)
+            return self.model.forward_enc(x.float(), self._to_device(enc_num_pads))
 
     @torch.inference_mode()
     def forward_dec(self, cross_input, dec_input, dec_num_pads=None,

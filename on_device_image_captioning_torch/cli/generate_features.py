@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..utils.image import preprocess_batch
+from ..utils.profiling import span
 
 
 @torch.inference_mode()
@@ -51,7 +52,9 @@ def generate_features(model: nn.Module, records, store, batch_size: int, dtype,
                       verbose: bool = True) -> int:
     """Features of every record's image into `store` (an object with
     `write(img_id, features)`), through the pipeline; `load_images(paths,
-    size)` gives a batch's uint8 NHWC images. Returns the number written."""
+    size)` gives a batch's uint8 NHWC images. Returns the number written.
+    Each batch is recorded as the spans `features.wait`, `features.backbone`,
+    `features.fetch` and `features.store` (`utils/profiling.py`)."""
     from ..data.prefetch import PrefetchIterator
 
     size = model.cfg.img_size
@@ -69,12 +72,14 @@ def generate_features(model: nn.Module, records, store, batch_size: int, dtype,
 
     def drain(pending):
         chunk, feats_dev = pending
-        feats = feats_dev.cpu()
-        if feats.dtype == torch.bfloat16:  # numpy has no bfloat16: upcast on the host
-            feats = feats.float()
-        feats = feats.numpy().astype(store_dtype, copy=False)
-        for r, f in zip(chunk, feats):
-            store.write(r["img_id"], f)
+        with span("features.fetch"):
+            feats = feats_dev.cpu()
+        with span("features.store"):
+            if feats.dtype == torch.bfloat16:  # numpy has no bfloat16: upcast on the host
+                feats = feats.float()
+            feats = feats.numpy().astype(store_dtype, copy=False)
+            for r, f in zip(chunk, feats):
+                store.write(r["img_id"], f)
         return len(chunk)
 
     it = iter(batches())
@@ -82,12 +87,11 @@ def generate_features(model: nn.Module, records, store, batch_size: int, dtype,
     done = 0
     pending = None  # (chunk, features still on the device)
     try:
-        while True:
-            try:
+        for _ in range(-(-len(records) // batch_size)):
+            with span("features.wait"):
                 (chunk, imgs), _ = prefetch.get()
-            except StopIteration:
-                break
-            feats_dev = extract_features(model, imgs, dtype, store_dtype)
+            with span("features.backbone"):
+                feats_dev = extract_features(model, imgs, dtype, store_dtype)
             if pending is not None:
                 done += drain(pending)
                 if verbose and done % (batch_size * 20) == 0:

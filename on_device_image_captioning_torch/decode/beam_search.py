@@ -44,6 +44,7 @@ import torch
 from ..config import CaptionerConfig, DecodeConfig
 from ..models.captioner import ExpansionNetV2
 from ..ops.topk import topk, topk_reference
+from ..utils.profiling import span
 from . import cache as dc
 
 
@@ -312,15 +313,25 @@ def ensemble_beam_search(
     encoder output per model, each encoded with that model's weights. One
     model is plain beam search. The loop stops when no beam grew in the
     previous step: the one sync with the host a step. The caches grow to the
-    next chunk only when a step that runs needs it."""
-    step, grow, chunks, draw, beams = _start(models, cfg, enc_outputs, decode_cfg, dtype,
-                                             enc_num_pads, step_impl, generator, noise)
-    t = 2
-    while t < decode_cfg.max_seq_len and bool((beams.num_elem == t).any()):
-        grow(chunk_at(chunks, t))
-        beams = _beam_step(step, beams, t, decode_cfg.eos_idx, draw)
-        t += 1
-    return _ranked(beams, decode_cfg.how_many_outputs)
+    next chunk only when a step that runs needs it. Recorded as the spans
+    `decode`, `decode.start`, `decode.sync` and `decode.step`
+    (`utils/profiling.py`)."""
+    with span("decode"):
+        with span("decode.start"):
+            step, grow, chunks, draw, beams = _start(models, cfg, enc_outputs, decode_cfg,
+                                                     dtype, enc_num_pads, step_impl, generator,
+                                                     noise)
+        t = 2
+        while t < decode_cfg.max_seq_len:
+            with span("decode.sync", t=t):
+                grows = bool((beams.num_elem == t).any())
+            if not grows:
+                break
+            with span("decode.step", t=t):
+                grow(chunk_at(chunks, t))
+                beams = _beam_step(step, beams, t, decode_cfg.eos_idx, draw)
+            t += 1
+        return _ranked(beams, decode_cfg.how_many_outputs)
 
 
 def fixed_beam_search(
@@ -352,10 +363,11 @@ def fixed_beam_search(
 
 def captions_from_result(res: BeamResult) -> Tuple[List, List]:
     """Host side: truncate the fixed buffers to each caption's length."""
-    tokens = res.tokens.cpu().numpy()
-    logprobs = res.logprobs.cpu().numpy()
-    lengths = res.lengths.cpu().numpy()
-    b, n, _ = tokens.shape
-    caps = [[tokens[i, j, : lengths[i, j]].tolist() for j in range(n)] for i in range(b)]
-    lps = [[logprobs[i, j, : lengths[i, j]].tolist() for j in range(n)] for i in range(b)]
+    with span("captions"):
+        tokens = res.tokens.cpu().numpy()
+        logprobs = res.logprobs.cpu().numpy()
+        lengths = res.lengths.cpu().numpy()
+        b, n, _ = tokens.shape
+        caps = [[tokens[i, j, : lengths[i, j]].tolist() for j in range(n)] for i in range(b)]
+        lps = [[logprobs[i, j, : lengths[i, j]].tolist() for j in range(n)] for i in range(b)]
     return caps, lps

@@ -18,6 +18,7 @@ from ..deploy.quantization import QuantLinear
 from ..parallel.tensor import ShardedEmbedding, ShardedLinear
 from ..ops.layernorm import layernorm as _layernorm_op
 from ..ops.layernorm import layernorm_autograd as _layernorm_autograd
+from ..utils.profiling import count, tracing
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
@@ -31,8 +32,16 @@ def linear(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = Non
         return layer(x, dtype)
     if dtype is not None:
         x = x.to(dtype)
-    w = layer.weight.to(x.dtype)
-    b = None if layer.bias is None else layer.bias.to(x.dtype)
+    w, b = layer.weight, layer.bias
+    dt = x.dtype
+    cast_w = w.dtype != dt
+    cast_b = b is not None and b.dtype != dt
+    if cast_w or cast_b:
+        if tracing():
+            count("weight_cast", cast_w + cast_b,
+                  nbytes=(w.nbytes if cast_w else 0) + (b.nbytes if cast_b else 0))
+        w = w.to(dt)
+        b = None if b is None else b.to(dt)
     return F.linear(x, w, b)
 
 

@@ -46,6 +46,7 @@ from ..config import CaptionerConfig, ModelConfig
 from ..decode import sampling
 from ..parallel.mesh import replicated
 from ..utils.image import normalize_on_device
+from ..utils.profiling import span
 from .losses import label_smoothing_loss, mean_baseline, scst_loss
 
 
@@ -100,19 +101,26 @@ def make_xe_step(model, cfg, optimizer, smoothing: float = 0.1, remat: bool = Fa
     without one; `drop_path_scales` hands the per-block scales in instead),
     one backward, one `optimizer.step()`. The model's parameters are updated
     in place; the loss is returned detached, on the model's device. Under
-    `DataParallel` the loss is the whole batch's (all data ranks' tokens)."""
+    `DataParallel` the loss is the whole batch's (all data ranks' tokens).
+    Recorded as the spans `xe`, `xe.forward`, `xe.backward` and
+    `xe.optimizer` (`utils/profiling.py`)."""
     dp = replicated(model)
     pad = _caption_cfg(cfg).pad_idx
 
     def step(batch, generator=None, drop_path_scales=None):
-        optimizer.zero_grad(set_to_none=True)
-        # this rank's sum over ALL data ranks' tokens, times the ranks DDP averages over
-        tokens = dp.sum((batch["captions"][:, 1:] != pad).sum())
-        total = dp(xe_loss, cfg, batch, generator, smoothing, drop_path_scales, remat, False)
-        loss = total / tokens.clamp_min(1) * dp.world
-        loss.backward()
-        optimizer.step()
-        return _metrics(dp, loss, {})
+        with span("xe"):
+            optimizer.zero_grad(set_to_none=True)
+            # this rank's sum over ALL data ranks' tokens, times the ranks DDP averages over
+            tokens = dp.sum((batch["captions"][:, 1:] != pad).sum())
+            with span("xe.forward"):
+                total = dp(xe_loss, cfg, batch, generator, smoothing, drop_path_scales, remat,
+                           False)
+                loss = total / tokens.clamp_min(1) * dp.world
+            with span("xe.backward"):
+                loss.backward()
+            with span("xe.optimizer"):
+                optimizer.step()
+            return _metrics(dp, loss, {})
 
     return step
 
@@ -186,7 +194,7 @@ def make_scst_step(model, cfg, optimizer, num_samples: int, remat: bool = False)
 def make_scst_fused_step(model, cfg, optimizer, num_samples: int, scst_max_len: int,
                          sos_idx: int, eos_idx: int, reward_fn: Callable, dropout: bool = False,
                          step_impl: str = "pallas", remat: bool = False) -> Callable:
-    """step(batch, ref_tables, generator=None, noise=None, mark=None) ->
+    """step(batch, ref_tables, generator=None, noise=None) ->
     {'loss', 'reward', 'baseline', 'logprob_sum', 'sampled', 'rewards'}: one
     SCST step with a SHARED encoder forward. The encoder (backbone and
     expansion encoder) runs its train=True forward once; the sampler reads
@@ -205,41 +213,41 @@ def make_scst_fused_step(model, cfg, optimizer, num_samples: int, scst_max_len: 
     dropout=True the generator also draws the encoder's dropout, which the
     sampling and the gradient share (the encoder ran once), and an
     independent draw for the decoder re-score (the incremental sampler cannot
-    replay the decoder's masks). `mark(part)`, where given, is called after
-    each part ('encoder', 'sampling', 'reward', 'rescore', 'optimizer'): a
-    timing hook. 'sampled' is the sampler's SampleResult, 'rewards' its
-    (B, N) rewards."""
+    replay the decoder's masks). 'sampled' is the sampler's SampleResult,
+    'rewards' its (B, N) rewards. Recorded as the spans `scst` and, in
+    order, `scst.encoder`, `scst.sampling`, `scst.reward`, `scst.rescore`
+    (the teacher-forced forward), `scst.backward` and `scst.optimizer`
+    (`utils/profiling.py`)."""
     cap = _caption_cfg(cfg)
     dp = replicated(model)
 
-    def loss_fn(m, batch, ref_tables, generator, noise, mark):
+    def loss_fn(m, batch, ref_tables, generator, noise):
         drop_gen = generator if dropout else None
-        enc, pads, dtype = _encode(m, cfg, batch, drop_gen, remat)
-        mark("encoder")
-        sampled = sampling.sample(m, cap, enc.detach(), num_samples, scst_max_len, sos_idx,
-                                  eos_idx, enc_num_pads=pads, step_impl=step_impl,
-                                  generator=generator, noise=noise)
-        mark("sampling")
-        with torch.no_grad():
+        with span("scst.encoder"):
+            enc, pads, dtype = _encode(m, cfg, batch, drop_gen, remat)
+        with span("scst.sampling"):
+            sampled = sampling.sample(m, cap, enc.detach(), num_samples, scst_max_len, sos_idx,
+                                      eos_idx, enc_num_pads=pads, step_impl=step_impl,
+                                      generator=generator, noise=noise)
+        with span("scst.reward"), torch.no_grad():
             rewards = reward_fn(sampled.tokens, sampled.lengths, ref_tables)
-        mark("reward")
-        loss, metrics = _scst_rescore(m, cfg, enc, pads, dtype, sampled.tokens,
-                                      sampled.lengths, rewards, drop_gen)
+        with span("scst.rescore"):
+            loss, metrics = _scst_rescore(m, cfg, enc, pads, dtype, sampled.tokens,
+                                          sampled.lengths, rewards, drop_gen)
         return loss, metrics, sampled, rewards
 
-    def step(batch, ref_tables, generator=None, noise=None, mark=None):
+    def step(batch, ref_tables, generator=None, noise=None):
         if generator is None and noise is None:
             raise ValueError("the SCST step samples: hand it a generator or the noise")
-        mark = mark or (lambda part: None)
-        optimizer.zero_grad(set_to_none=True)
-        loss, metrics, sampled, rewards = dp(loss_fn, batch, ref_tables, generator, noise,
-                                             mark)
-        loss.backward()
-        mark("rescore")
-        optimizer.step()
-        mark("optimizer")
-        return {**_metrics(dp, loss, metrics), "sampled": sampled,
-                "rewards": torch.as_tensor(rewards)}
+        with span("scst"):
+            optimizer.zero_grad(set_to_none=True)
+            loss, metrics, sampled, rewards = dp(loss_fn, batch, ref_tables, generator, noise)
+            with span("scst.backward"):
+                loss.backward()
+            with span("scst.optimizer"):
+                optimizer.step()
+            return {**_metrics(dp, loss, metrics), "sampled": sampled,
+                    "rewards": torch.as_tensor(rewards)}
 
     return step
 

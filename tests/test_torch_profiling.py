@@ -1,6 +1,7 @@
-"""The port's `utils/profiling.py`: the JAX package's three profiling tests
-(tests/test_profiling.py) on the port, and the trace written by
-`torch.profiler`."""
+"""The port's `utils/profiling.py`: the JAX package's step-timer and logger
+tests (tests/test_profiling.py) on the port, and the trace written by
+`torch.profiler` with a span of the recorder in it (the recorder itself:
+tests/test_torch_tracing.py)."""
 import json
 import os
 import time
@@ -10,7 +11,7 @@ import torch
 from on_device_image_captioning_torch.utils.profiling import (
     MetricsLogger,
     StepTimer,
-    annotate,
+    span,
     trace,
 )
 
@@ -35,18 +36,13 @@ def test_metrics_logger_jsonl(tmp_path):
     assert rows[1]["lr"] == 1e-4
 
 
-def test_annotation_context_runs():
-    with annotate("test-region"):
-        assert float(torch.sum(torch.ones(3))) == 3.0
-
-
 def test_trace_writes_a_trace_with_the_annotation(tmp_path):
-    """`trace` writes a Chrome trace into the directory; a region of
-    `annotate` inside it appears there by name."""
+    """`trace` writes a Chrome trace into the directory; a `span` inside it
+    appears there by its name with the "odic." prefix."""
     with trace(str(tmp_path / "tb")):
-        with annotate("step-region"):
+        with span("step-region"):
             torch.mm(torch.ones(8, 8), torch.ones(8, 8))
     files = [f for f in os.listdir(tmp_path / "tb") if f.endswith(".json")]
     assert len(files) == 1, files
     events = json.loads((tmp_path / "tb" / files[0]).read_text())["traceEvents"]
-    assert any(e.get("name") == "step-region" for e in events)
+    assert any(e.get("name") == "odic.step-region" for e in events)

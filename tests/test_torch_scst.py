@@ -32,6 +32,7 @@ from on_device_image_captioning_torch.models.end_to_end import EndExpansionNetV2
 from on_device_image_captioning_torch.train import device_cider as pdev
 from on_device_image_captioning_torch.train import radam as pradam
 from on_device_image_captioning_torch.train import train_step as pstep
+from on_device_image_captioning_torch.utils import profiling
 from on_device_image_captioning_tpu.data import text as jtext
 from on_device_image_captioning_tpu.models import captioner as jcap
 from on_device_image_captioning_tpu.params.torch_convert import (
@@ -415,8 +416,8 @@ def test_scst_fused_step_runs_the_encoder_once_and_shares_its_dropout():
 def test_scst_fused_step_end_to_end_trains_the_backbone():
     """Over the end-to-end model on uint8 images: every parameter, the
     backbone's included, gets a finite gradient through the shared forward,
-    the backbone's nonzero, and the parameters move; the timing hook sees the
-    five parts in order."""
+    the backbone's nonzero, and the parameters move; the recorder holds the
+    step's six part spans in order, inside its `scst` span."""
     swin = dataclasses.replace(TINY_SWIN, attention_impl="fused")
     cap = dataclasses.replace(TINY_CAP, vocab_size=64, img_feature_dim=swin.num_features,
                               N_enc=1, N_dec=1, num_exp_enc_list=(4,))
@@ -427,10 +428,16 @@ def test_scst_fused_step_end_to_end_trains_the_backbone():
     step = pstep.make_scst_fused_step(model, cfg, pradam.PlainRAdam(model.parameters(), 1e-3),
                                       3, L, cap.sos_idx, cap.eos_idx, pfn)
     images = np.random.default_rng(0).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
-    parts = []
+    profiling.clear()
     out = step({"enc_input": torch.from_numpy(images)}, None,
-               generator=torch.Generator().manual_seed(5), mark=parts.append)
-    assert parts == ["encoder", "sampling", "reward", "rescore", "optimizer"]
+               generator=torch.Generator().manual_seed(5))
+    recs = profiling.records()
+    root = next(r for r in recs if r.name == "scst")
+    parts = [r for r in recs if r.name.startswith("scst.")]
+    assert [r.name for r in parts] == ["scst." + p for p in (
+        "encoder", "sampling", "reward", "rescore", "backward", "optimizer")]
+    assert all(r.parent == root.id for r in parts)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(parts, parts[1:]))
     assert np.isfinite(float(out["loss"])) and float(out["rewards"].std()) > 0
     grads = {n: p.grad for n, p in model.named_parameters()}
     assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
