@@ -27,7 +27,10 @@ the device. A step (`_beam_step`) does not sync with the host; two loops
 run it: `ensemble_beam_search` with the early exit, which syncs with the host
 once per step and grows the caches only while some beam still grows, and
 `fixed_beam_search` for a fixed number of steps, growing at every chunk
-boundary, the form `torch.export` traces (`deploy/aot.py`).
+boundary, the form `torch.export` traces (`deploy/aot.py`). On the card the
+early-exit loop replays its steps from CUDA graphs, one graph a step
+(`decode/graphs.py`, `_graphed_beam_search`), and runs them eagerly
+everywhere else (`_eager_beam_search`).
 
 Noise. JAX and PyTorch draw different numbers from the same seed, so the
 sampling mode takes either a `torch.Generator` on the tensors' device or the
@@ -46,6 +49,7 @@ from ..models.captioner import ExpansionNetV2
 from ..ops.topk import topk, topk_reference
 from ..utils.profiling import span
 from . import cache as dc
+from . import graphs
 
 
 @dataclasses.dataclass
@@ -163,7 +167,8 @@ def _start(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads, step_impl,
     beams): step(tokens, pos, reorder, group) -> the models' log-probs of the
     next token through `dec_step`; grow(length) zero-pads every model's
     caches to that length; chunks the checked schedule; draw the noise source
-    (None for "max")."""
+    (None for "max"); states the list of the models' decoder states that
+    step and grow replace."""
     if decode_cfg.sample_or_max not in ("max", "sample"):
         raise ValueError(f"sample_or_max {decode_cfg.sample_or_max!r}")
     k = decode_cfg.beam_size
@@ -208,7 +213,7 @@ def _start(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads, step_impl,
         reorder=torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(k),
         img_base=torch.arange(b, dtype=torch.int32, device=dev)[:, None] * k,
     )
-    return step, grow, chunks, draw, beams
+    return step, grow, chunks, draw, beams, states
 
 
 def _beam_step(step, beams: _Beams, t: int, eos: int, draw) -> _Beams:
@@ -313,25 +318,154 @@ def ensemble_beam_search(
     encoder output per model, each encoded with that model's weights. One
     model is plain beam search. The loop stops when no beam grew in the
     previous step: the one sync with the host a step. The caches grow to the
-    next chunk only when a step that runs needs it. Recorded as the spans
-    `decode`, `decode.start`, `decode.sync` and `decode.step`
+    next chunk only when a step that runs needs it. On the card the steps
+    are replayed from CUDA graphs where `decode/graphs.py::engages` says so
+    (the same kernels on the same operands: the same result). Recorded as
+    the spans `decode`, `decode.start`, `decode.sync` and `decode.step`
     (`utils/profiling.py`)."""
     with span("decode"):
-        with span("decode.start"):
-            step, grow, chunks, draw, beams = _start(models, cfg, enc_outputs, decode_cfg,
-                                                     dtype, enc_num_pads, step_impl, generator,
-                                                     noise)
-        t = 2
-        while t < decode_cfg.max_seq_len:
-            with span("decode.sync", t=t):
-                grows = bool((beams.num_elem == t).any())
-            if not grows:
-                break
-            with span("decode.step", t=t):
+        if graphs.engages(models, enc_outputs, decode_cfg, generator, noise):
+            return _graphed_beam_search(models, cfg, enc_outputs, decode_cfg, dtype,
+                                        enc_num_pads, step_impl)
+        return _eager_beam_search(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads,
+                                  step_impl, generator, noise)
+
+
+def _eager_beam_search(models, cfg, enc_outputs, decode_cfg, dtype=None, enc_num_pads=None,
+                       step_impl="pallas", generator=None, noise=None) -> BeamResult:
+    """The early-exit loop, launch by launch (`ensemble_beam_search`'s
+    arguments)."""
+    with span("decode.start"):
+        step, grow, chunks, draw, beams, _ = _start(models, cfg, enc_outputs, decode_cfg, dtype,
+                                                    enc_num_pads, step_impl, generator, noise)
+    t = 2
+    while t < decode_cfg.max_seq_len:
+        with span("decode.sync", t=t):
+            grows = bool((beams.num_elem == t).any())
+        if not grows:
+            break
+        with span("decode.step", t=t):
+            grow(chunk_at(chunks, t))
+            beams = _beam_step(step, beams, t, decode_cfg.eos_idx, draw)
+        t += 1
+    return _ranked(beams, decode_cfg.how_many_outputs)
+
+
+_GRAPHS = graphs.DecodeCache()  # the process's graphed decodes
+
+
+@dataclasses.dataclass
+class _CapturedDecode:
+    """One key's graphs: the start (decoder states and step 1), one a step
+    t = 2 ... L-1, and the ranking; with their inputs and outputs."""
+    enc: List[torch.Tensor]  # the start's inputs: the encoder outputs
+    pads: Optional[torch.Tensor]  # and the encoder pads, where there are any
+    steps: List  # the start's graph, then step t's at index t - 1
+    beams: List[_Beams]  # the beams each of `steps` leaves
+    ranked: object  # the ranking's graph, which reads beams[-1]
+    result: BeamResult  # what it leaves
+    held: tuple  # the decoder states, workspaces, layouts and weights the graphs read
+
+
+def _graphed_beam_search(models, cfg, enc_outputs, decode_cfg, dtype=None, enc_num_pads=None,
+                         step_impl="pallas", cache=None, graphs_for=None) -> BeamResult:
+    """The early-exit loop replayed from graphs: the first call of a key
+    warms up eagerly, the second captures (`_capture_decode`), and from then
+    on `_replay_decode`. `cache` (default: the process's) keeps the keys;
+    `graphs_for(device)` makes a decode's graphs (default
+    `graphs.cuda_graphs`; `graphs.host_graphs` on the CPU)."""
+    cache = _GRAPHS if cache is None else cache
+    graphs_for = graphs.cuda_graphs if graphs_for is None else graphs_for
+    key = graphs.decode_key(models, enc_outputs, decode_cfg, schedule_of(decode_cfg), dtype,
+                            enc_num_pads, step_impl)
+    entry = cache.lookup(key, models)
+    if entry is None:
+        result = _eager_beam_search(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads,
+                                    step_impl)
+        cache.warmed(key, models)
+        return result
+    if entry.decode is None:
+        entry.decode = _capture_decode(models, cfg, enc_outputs, decode_cfg, dtype,
+                                       enc_num_pads, step_impl, graphs_for)
+        if entry.decode is None:  # it had to size or lay out: eager once more
+            return _eager_beam_search(models, cfg, enc_outputs, decode_cfg, dtype,
+                                      enc_num_pads, step_impl)
+    return _replay_decode(entry.decode, enc_outputs, enc_num_pads, decode_cfg.max_seq_len)
+
+
+def _capture_decode(models, cfg, enc_outputs, decode_cfg, dtype, enc_num_pads, step_impl,
+                    graphs_for) -> Optional[_CapturedDecode]:
+    """Capture the start, every step t = 2 ... L-1 (its cache growth
+    included) and the ranking, in order, each reading the outputs of the one
+    before; None where the capture sized a workspace or laid out an operand
+    (nothing is then kept)."""
+    dev = enc_outputs[0].device
+    L, eos = decode_cfg.max_seq_len, decode_cfg.eos_idx
+    enc = [e.clone() for e in enc_outputs]
+    pads = None if enc_num_pads is None else enc_num_pads.to(dev).clone()
+    lazy = graphs.lazy_state(models, dev)
+    new_graph = graphs_for(dev)
+    loop = {}
+
+    def start():
+        step, grow, chunks, _, beams, states = _start(models, cfg, enc, decode_cfg, dtype, pads,
+                                                      step_impl, None, None)
+        loop.setdefault("fns", (step, grow, chunks, states))  # the captured run's
+        return list(states), beams
+
+    steps, outs = [new_graph()], []
+    try:
+        outs.append(steps[0].capture(start))
+        step, grow, chunks, states = loop["fns"]
+        for t in range(2, L):
+            def run(t=t, states_in=outs[-1][0], beams_in=outs[-1][1]):
+                states[:] = states_in
                 grow(chunk_at(chunks, t))
-                beams = _beam_step(step, beams, t, decode_cfg.eos_idx, draw)
-            t += 1
-        return _ranked(beams, decode_cfg.how_many_outputs)
+                beams = _beam_step(step, beams_in, t, eos, None)
+                return list(states), beams
+
+            steps.append(new_graph())
+            outs.append(steps[-1].capture(run))
+        beams = [b for _, b in outs]
+        ranked = new_graph()
+        result = ranked.capture(lambda: _ranked(beams[-1], decode_cfg.how_many_outputs))
+    finally:
+        moved = not graphs.same_lazy_state(lazy, graphs.lazy_state(models, dev))
+        if moved:
+            graphs.restore_lazy_state(models, dev, lazy)
+    if moved:
+        return None
+    held = ([s for s, _ in outs], lazy, [graphs.decoder_tensors(m) for m in models])
+    return _CapturedDecode(enc, pads, steps, beams, ranked, result, held)
+
+
+def _replay_decode(dec: _CapturedDecode, enc_outputs, enc_num_pads, L: int) -> BeamResult:
+    """The early-exit loop over the captured steps: the same exit test
+    before each step, the same steps, and the ranking of the last beams that
+    ran. Returns copies: a later replay leaves them as they are."""
+    with span("decode.start"):
+        for static, e in zip(dec.enc, enc_outputs):
+            static.copy_(e)
+        if dec.pads is not None:
+            dec.pads.copy_(enc_num_pads)
+        dec.steps[0].replay()
+    t = 2
+    while t < L:
+        with span("decode.sync", t=t):
+            grows = bool((dec.beams[t - 2].num_elem == t).any())
+        if not grows:
+            break
+        with span("decode.step", t=t):
+            dec.steps[t - 1].replay()
+        t += 1
+    if t < L:  # the loop stopped after step t - 1: the ranking reads its beams
+        final, last = dec.beams[t - 2], dec.beams[-1]
+        for name in ("tokens", "logprobs", "cumul", "num_elem"):
+            getattr(last, name).copy_(getattr(final, name))
+    dec.ranked.replay()
+    r = dec.result
+    return BeamResult(tokens=r.tokens.clone(), logprobs=r.logprobs.clone(),
+                      lengths=r.lengths.clone())
 
 
 def fixed_beam_search(
@@ -352,9 +486,9 @@ def fixed_beam_search(
     equal `beam_search`'s; tokens past a caption's length are not part of the
     result in either. Runs under the caller's grad mode (no switch inside:
     it would split a traced graph)."""
-    step, grow, chunks, draw, beams = _start([model], cfg, [enc_output], decode_cfg, dtype,
-                                             None, step_impl, None, None,
-                                             dc.dec_step_unguarded)
+    step, grow, chunks, draw, beams, _ = _start([model], cfg, [enc_output], decode_cfg, dtype,
+                                                None, step_impl, None, None,
+                                                dc.dec_step_unguarded)
     for t in range(2, decode_cfg.max_seq_len):
         grow(chunk_at(chunks, t))
         beams = _beam_step(step, beams, t, decode_cfg.eos_idx, draw)

@@ -143,6 +143,13 @@ def _dyn_exp_step(
         pos, reorder, *_step_operands(p, x2, src[0].dtype, dtype), src, dst, eps=cfg.eps)
 
 
+def tensor_state(t: torch.Tensor) -> Tuple[int, int]:
+    """(storage address, version counter) of a parameter: what changes when
+    it is replaced or updated in place (an inference tensor keeps no version
+    counter and cannot change in place: version 0)."""
+    return t.data_ptr(), 0 if t.is_inference() else t._version
+
+
 def _cross_operands(layer, dtype):
     """(ln2, wq, bq, wo, bo) of the fused step: LN2's parameters, and Wq and
     out_linear as (in, out) matrices in the compute dtype with fp32 biases.
@@ -164,8 +171,7 @@ def _cross_operands(layer, dtype):
         return lay_out()
     params = (layer.norm_2.weight, layer.norm_2.bias, mha.Wq.weight, mha.Wq.bias,
               mha.out_linear.weight, mha.out_linear.bias)
-    # (an inference tensor keeps no version counter and cannot change in place)
-    key = (rd, *((t.data_ptr(), 0 if t.is_inference() else t._version) for t in params))
+    key = (rd, *map(tensor_state, params))
     cached = getattr(layer, "_cross_operands", None)
     if cached is None or cached[0] != key:
         cached = (key, lay_out())

@@ -56,7 +56,10 @@ The program's spans (a parent, then its children) and counters:
   for the card), `features.store` (the host's upcast, cast and store writes).
 - Counters: `weight_cast` and `weight_cast_bytes` (the bytes the casts
   read), each cast of a weight or bias to another dtype in
-  `models/common.py::linear`.
+  `models/common.py::linear`; `decode_graph_capture` and
+  `decode_graph_replay`, each beam-search step captured into or replayed
+  from a CUDA graph (`decode/graphs.py`; a replay also adds back the counts
+  its capture made, so the casts a graph runs are counted as they run).
 """
 from __future__ import annotations
 
@@ -204,6 +207,21 @@ def count(name: str, n: int = 1, nbytes: Optional[int] = None) -> None:
     if nbytes is not None:
         key = name + "_bytes"
         c[key] = c.get(key, 0) + nbytes
+
+
+@contextlib.contextmanager
+def set_aside():
+    """Counts made in the calling thread inside the block go to the dict it
+    yields instead of the thread's counters, so no span sees them (a CUDA
+    graph's capture counts what each replay adds back,
+    `decode/graphs.py`)."""
+    stack = _stack
+    kept = stack.counts
+    stack.counts = {}
+    try:
+        yield stack.counts
+    finally:
+        stack.counts = kept
 
 
 def set_tracing(enabled: Optional[bool] = None, device: Optional[bool] = None) -> None:
